@@ -1,0 +1,275 @@
+"""The mapping computation: loss, one optimization iteration, the per-frame
+mapping event, first-frame initialization and pruning (counterpart of
+activesplat_tpu/mapper/step.py, single device, use_gs_densification=False).
+
+Where the JAX package runs a mapping event as one compiled lax.scan, the port
+runs a Python loop of iterations; every iteration stays on the device (the
+keyframe draws for the whole event are made up front, so no iteration waits
+for the host except the visible-count slice of the tiled render).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from activesplat_tpu_torch.mapper.adam import AdamState, adam_update, lr_params
+from activesplat_tpu_torch.mapper.config import MapperConfig
+from activesplat_tpu_torch.mapper.geometry import gaussians_from_rgbd
+from activesplat_tpu_torch.mapper.keyframes import KeyframeStore, select_keyframes_overlap
+from activesplat_tpu_torch.models.gaussians import (
+    Camera,
+    GaussianBuffer,
+    GaussianParams,
+    insert_gaussians,
+    prune_mask,
+)
+from activesplat_tpu_torch.ops.render import render
+from activesplat_tpu_torch.ops.ssim import psnr, ssim
+
+
+class LossAux(NamedTuple):
+    rgb_l1: torch.Tensor
+    depth_l1: torch.Tensor
+    ssim: torch.Tensor
+    radii: torch.Tensor
+    psnr: torch.Tensor
+    dropped: torch.Tensor  # harmful tile memberships cut by the k_per_tile cap
+
+
+def mapping_loss(
+    params: GaussianParams,
+    buf: GaussianBuffer,
+    cam: Camera,
+    im_gt: torch.Tensor,  # (H, W, 3)
+    depth_gt: torch.Tensor,  # (H, W)
+    cfg: MapperConfig,
+) -> Tuple[torch.Tensor, LossAux]:
+    """Mapping loss (get_loss semantics for mapping=True, splatam.py:172-301):
+    masked mean depth L1 + (0.8 L1 + 0.2 (1-SSIM)) RGB, black background.
+
+    exact_training "on" and "hybrid" need the CSR kernels of a later slice
+    and raise there (ops/render.py)."""
+    out = render(
+        buf.replace(params=params),
+        cam,
+        chunk=cfg.chunk,
+        k_per_tile=cfg.k_per_tile,
+        grad_exact=(
+            "hybrid"
+            if (cfg.k_per_tile and cfg.exact_training == "hybrid")
+            else bool(cfg.k_per_tile) and cfg.exact_training == "on"
+        ),
+    )
+
+    mask = depth_gt > 0
+    if cfg.ignore_outlier_depth_loss:
+        depth_error = torch.abs(depth_gt - out.depth.detach()) * mask
+        # the median of the two middle values, as jnp.median takes it
+        mask = mask & (depth_error < 10.0 * torch.quantile(depth_error.reshape(-1), 0.5))
+    if cfg.use_sil_for_loss:
+        mask = mask & (out.alpha.detach() > cfg.sil_thres)
+    mask = mask.to(torch.float32)
+
+    depth_l1 = torch.sum(torch.abs(depth_gt - out.depth) * mask) / torch.clamp(
+        mask.sum(), min=1.0
+    )
+    rgb_l1 = torch.mean(torch.abs(out.rgb - im_gt))
+    ssim_val = ssim(out.rgb, im_gt)
+    loss_im = 0.8 * rgb_l1 + 0.2 * (1.0 - ssim_val)
+    loss = cfg.loss_w_im * loss_im + cfg.loss_w_depth * depth_l1
+    aux = LossAux(
+        rgb_l1=rgb_l1.detach(),
+        depth_l1=depth_l1.detach(),
+        ssim=ssim_val.detach(),
+        radii=out.radii.detach(),
+        psnr=psnr(out.rgb.detach(), im_gt),
+        dropped=out.dropped,
+    )
+    return loss, aux
+
+
+def loss_and_grads(buf: GaussianBuffer, cam, im_gt, depth_gt, cfg):
+    """(loss, aux, grads) of mapping_loss with respect to buf.params."""
+    params = buf.params.map(lambda p: p.detach().requires_grad_(True))
+    loss, aux = mapping_loss(params, buf, cam, im_gt, depth_gt, cfg)
+    grads = torch.autograd.grad(loss, params.tensors())
+    return loss.detach(), aux, GaussianParams(*grads)
+
+
+def _step(buf, opt_state, grads, aux, cfg) -> Tuple[GaussianBuffer, AdamState]:
+    new_params, opt_state = adam_update(
+        buf.params, grads, opt_state, lr_params(cfg),
+        cfg.adam_b1, cfg.adam_b2, cfg.adam_eps,
+    )
+    seen = aux.radii > 0
+    buf = buf.replace(
+        params=new_params,
+        max_radius=torch.where(
+            seen, torch.maximum(buf.max_radius, aux.radii), buf.max_radius
+        ),
+    )
+    return buf, opt_state
+
+
+def mapping_iteration(
+    buf: GaussianBuffer,
+    opt_state: AdamState,
+    cam: Camera,
+    im_gt: torch.Tensor,
+    depth_gt: torch.Tensor,
+    cfg: MapperConfig,
+):
+    """One optimization iteration (render + loss + backward + Adam): the unit
+    the reference times as 'Average Mapping/Iteration Time'
+    (splatam/__init__.py:545-552). Returns (buf, opt_state, metrics)."""
+    loss, aux, grads = loss_and_grads(buf, cam, im_gt, depth_gt, cfg)
+    buf, opt_state = _step(buf, opt_state, grads, aux, cfg)
+    return buf, opt_state, {
+        "loss": loss,
+        "psnr": aux.psnr,
+        "depth_l1": aux.depth_l1,
+        "dropped": aux.dropped,
+    }
+
+
+def _build_window(store: KeyframeStore, selected_ids, selected_valid):
+    """Selected overlap keyframes + last committed keyframe + current frame
+    (scratch slot), compacted valid-first (splatam/__init__.py:426-436)."""
+    dev = selected_ids.device
+    tail = torch.tensor(
+        [max(store.count - 1, 0), store.scratch_slot], dtype=torch.int32, device=dev
+    )
+    window = torch.cat([selected_ids, tail])
+    tail_valid = torch.tensor([store.count > 0, True], device=dev)
+    wvalid = torch.cat([selected_valid, tail_valid])
+    order = torch.argsort((~wvalid).to(torch.uint8), stable=True)
+    return window[order], wvalid.sum()
+
+
+def mapping_phase(
+    buf: GaussianBuffer,
+    store: KeyframeStore,
+    cur_rgb: torch.Tensor,
+    cur_depth: torch.Tensor,
+    cur_w2c: torch.Tensor,
+    cur_frame_id: int,
+    cam: Camera,
+    generator: torch.Generator,
+    cfg: MapperConfig,
+    num_iters: int,
+):
+    """One per-frame mapping event: keyframe selection, num_iters Adam
+    iterations over keyframes drawn from the window, fresh optimizer state.
+    `generator` lies on the store's device. Returns (buf, store, metrics)."""
+    if cfg.use_gs_densification:
+        raise NotImplementedError(
+            "the gradient-densification tap comes with a later slice of the port"
+        )
+    store = store.with_scratch(cur_rgb, cur_depth, cur_w2c, cur_frame_id)
+    sel_ids, sel_valid = select_keyframes_overlap(
+        store, cur_depth, cur_w2c, cam.fx, cam.fy, cam.cx, cam.cy, generator,
+        num_select=cfg.mapping_window_size - 2,
+        pixels=cfg.kf_select_pixels,
+        edge=cfg.kf_select_edge,
+    )
+    window, n_valid = _build_window(store, sel_ids, sel_valid)
+    # one uniform draw per iteration, made up front on the device
+    draws = torch.rand(num_iters, generator=generator, device=window.device)
+    picks = window[(draws * n_valid.clamp(min=1)).long().clamp(max=window.shape[0] - 1)]
+
+    opt_state = AdamState.init(buf.params)  # fresh per event (splatam/__init__.py:440)
+    rows = []
+    for i in range(num_iters):
+        idx = picks[i : i + 1]
+        im = store.rgb.index_select(0, idx)[0]
+        dep = store.depth.index_select(0, idx)[0]
+        cam_i = cam.replace(w2c=store.w2c.index_select(0, idx)[0])
+        loss, aux, grads = loss_and_grads(buf, cam_i, im, dep, cfg)
+        buf, opt_state = _step(buf, opt_state, grads, aux, cfg)
+        rows.append(
+            torch.stack(
+                [loss, aux.psnr, aux.depth_l1, aux.dropped.float(), aux.rgb_l1, aux.ssim]
+            )
+        )
+    table = torch.stack(rows)  # (num_iters, 6)
+    names = ("loss", "psnr", "depth_l1", "dropped", "rgb_l1", "ssim")
+    metrics: Dict[str, torch.Tensor] = {k: table[:, i] for i, k in enumerate(names)}
+    metrics["dropped"] = metrics["dropped"].to(torch.int32)
+    metrics["num_window"] = n_valid
+    # last-iteration scalars + the max of dropped in one tensor: the mapper's
+    # per-frame bookkeeping reads this one value
+    metrics["packed"] = torch.cat([table[-1, :3], table[:, 3].max()[None], table[-1, 4:]])
+    return buf, store, metrics
+
+
+@torch.no_grad()
+def first_frame_phase(
+    buf: GaussianBuffer,
+    cam: Camera,
+    rgb: torch.Tensor,
+    depth_gt: torch.Tensor,
+    cfg: MapperConfig,
+):
+    """Initialize the map from frame 0: one Gaussian per valid-depth pixel
+    (initialize_first_timestep semantics, splatam.py:127-169).
+    Returns (buf, num_dropped, scene_radius)."""
+    c2w = torch.linalg.inv(cam.w2c)
+    cand, valid = gaussians_from_rgbd(
+        rgb, depth_gt, cam.fx, cam.fy, cam.cx, cam.cy, c2w,
+        isotropic=cfg.gaussian_distribution == "isotropic",
+    )
+    buf, dropped = insert_gaussians(buf, cand, valid, 0.0)
+    scene_radius = depth_gt.max() / cfg.scene_radius_depth_ratio
+    return buf, dropped, scene_radius
+
+
+@torch.no_grad()
+def _prune_removal(buf: GaussianBuffer, scene_radius, opacity_threshold: float, remove_big: bool):
+    opac = torch.sigmoid(buf.params.logit_opacities)
+    remove = buf.active & (opac < opacity_threshold)
+    if remove_big:
+        big = torch.exp(buf.params.log_scales).amax(dim=-1) > 0.1 * scene_radius
+        remove = remove | (buf.active & big)
+    return prune_mask(buf, remove), remove.sum(dtype=torch.int32)
+
+
+@torch.no_grad()
+def _reset_opacities(buf: GaussianBuffer) -> GaussianBuffer:
+    """Reset every active Gaussian's opacity to 0.01 (inverse-sigmoid logit;
+    slam_external.py:188-190)."""
+    p = buf.params
+    new_logit = torch.full_like(p.logit_opacities, float(np.log(0.01 / (1.0 - 0.01))))
+    return buf.replace(
+        params=p.replace(
+            logit_opacities=torch.where(buf.active, new_logit, p.logit_opacities)
+        )
+    )
+
+
+def prune_phase(
+    buf: GaussianBuffer,
+    cfg: MapperConfig,
+    iteration: int = 0,
+    scene_radius: float = float("inf"),
+):
+    """prune_gaussians parity (slam_external.py:171-192): schedule-gated
+    low-opacity removal, too-big-vs-scene-radius removal after
+    remove_big_after, and periodic opacity reset. Returns (buf, n_removed)."""
+    pd = cfg.prune
+    n_removed = torch.zeros((), dtype=torch.int32, device=buf.device)
+    if pd.removal_fires(iteration):
+        thresh = (
+            pd.final_removal_opacity_threshold
+            if iteration == pd.stop_after
+            else pd.removal_opacity_threshold
+        )
+        buf, n_removed = _prune_removal(
+            buf, scene_radius, float(thresh),
+            iteration >= pd.remove_big_after,
+        )
+    if pd.reset_fires(iteration):
+        buf = _reset_opacities(buf)
+    return buf, n_removed

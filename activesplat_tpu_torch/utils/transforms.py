@@ -1,0 +1,61 @@
+"""Quaternion math on tensors (differentiable) and the numpy pose helpers the
+mapping slice uses (counterpart of activesplat_tpu/utils/transforms.py).
+
+Quaternions are stored (w, x, y, z), the reference's convention
+(src/mapper/splatam/splatam.py:81 initializes rotations to [1, 0, 0, 0]).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def quat_normalize(q: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """Normalize (..., 4) quaternions."""
+    norm = torch.sqrt(torch.sum(q * q, dim=-1, keepdim=True) + eps)
+    return q / norm
+
+
+def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
+    """(..., 4) wxyz quaternion -> (..., 3, 3) rotation matrix.
+
+    Normalizes internally (behavioral parity with the reference's
+    build_rotation, src/mapper/splatam/utils/slam_external.py:25-42)."""
+    q = quat_normalize(q)
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    r00 = 1 - 2 * (y * y + z * z)
+    r01 = 2 * (x * y - w * z)
+    r02 = 2 * (x * z + w * y)
+    r10 = 2 * (x * y + w * z)
+    r11 = 1 - 2 * (x * x + z * z)
+    r12 = 2 * (y * z - w * x)
+    r20 = 2 * (x * z - w * y)
+    r21 = 2 * (y * z + w * x)
+    r22 = 1 - 2 * (x * x + y * y)
+    return torch.stack(
+        [
+            torch.stack([r00, r01, r02], dim=-1),
+            torch.stack([r10, r11, r12], dim=-1),
+            torch.stack([r20, r21, r22], dim=-1),
+        ],
+        dim=-2,
+    )
+
+
+def rot_axis(view_c2w: np.ndarray, axis: str, angle_rad: float) -> np.ndarray:
+    """Rotate a camera pose about one of its *own* axes
+    (semantics of src/utils/pose_utils.py:23-43): right-multiplication of the
+    c2w by an elementary rotation."""
+    c, s = np.cos(angle_rad), np.sin(angle_rad)
+    if axis == "x":
+        rot = np.array([[1, 0, 0], [0, c, -s], [0, s, c]])
+    elif axis == "y":
+        rot = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]])
+    elif axis == "z":
+        rot = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]])
+    else:
+        raise ValueError(f"axis must be x, y or z, got {axis!r}")
+    rot4 = np.eye(4)
+    rot4[:3, :3] = rot
+    return view_c2w @ rot4
