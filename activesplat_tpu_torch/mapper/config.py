@@ -98,10 +98,11 @@ class MapperConfig:
     k_overflow_tolerance: int = 0
     k_overflow_patience: int = 3
     k_overflow_min_active: int = 8192
-    # Exact (uncapped) training compositing: "off" keeps the k-capped path;
-    # "on" and "hybrid" need the CSR blend kernels, which a later slice of
-    # the port adds; "auto" starts k-capped and is switched by the mapper
-    # driver (not yet ported), so here it trains k-capped like "off".
+    # Exact (uncapped) training compositing: "off" keeps the k-capped path,
+    # "on" trains through the CSR blend, "hybrid" through the capped blend
+    # with CSR recompositing of harmfully overflowing tiles; "auto" starts
+    # k-capped and is switched by the mapper driver (not yet ported), so
+    # here it trains k-capped like "off".
     exact_training: str = "auto"
     exact_online_metrics: bool = True
     quantize_frame_transfer: bool = True

@@ -49,9 +49,10 @@ def mapping_loss(
 ) -> Tuple[torch.Tensor, LossAux]:
     """Mapping loss (get_loss semantics for mapping=True, splatam.py:172-301):
     masked mean depth L1 + (0.8 L1 + 0.2 (1-SSIM)) RGB, black background.
-
-    exact_training "on" and "hybrid" need the CSR kernels of a later slice
-    and raise there (ops/render.py)."""
+    exact_training "on" trains through the exact CSR render and "hybrid"
+    through the capped render with CSR recompositing of harmful tiles;
+    "off" and "auto" train k-capped (the mapper driver that switches
+    "auto" is not ported yet)."""
     out = render(
         buf.replace(params=params),
         cam,

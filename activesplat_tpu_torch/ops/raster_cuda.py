@@ -1,20 +1,26 @@
-"""The tile blend: hand-written CUDA kernels, their plain PyTorch twins, and
-the autograd Function that pairs them (counterpart of
-activesplat_tpu/ops/raster_pallas.py, kernels B1 and B2).
+"""The blends: hand-written CUDA kernels, their plain PyTorch twins, and the
+autograd Functions that pair them (counterpart of
+activesplat_tpu/ops/raster_pallas.py, kernels B1-B4).
 
-A tile's K depth-ordered Gaussians arrive as (K, 16) float32 rows
-[mx, my, a, b, c, opacity, col0..col7, pad, pad]; the forward composites
-them front to back over the tile's 16x16 pixels, in SEG=64-row segments, and
-stops walking a tile once every pixel's log-transmittance is below LOG_EPS
-(tested at each segment start). The backward walks the segments back to
-front from the forward's stashed per-segment entry log-transmittance.
+Tile blend (B1, B2): a tile's K depth-ordered Gaussians arrive as (K, 16)
+float32 rows [mx, my, a, b, c, opacity, col0..col7, pad, pad]; the forward
+composites them front to back over the tile's 16x16 pixels, in SEG=64-row
+segments, and stops walking a tile once every pixel's log-transmittance is
+below LOG_EPS (tested at each segment start). The backward walks the
+segments back to front from the forward's stashed per-segment entry
+log-transmittance.
 
-Each wrapper launches its CUDA kernel (csrc/blend_fwd.cu, csrc/blend_bwd.cu)
-for a CUDA tensor, or raises; it runs its twin only for a tensor that lies on
-the CPU. The twins run the same algorithm in float32: the same segments,
-early exit and clamps, with a vectorised in-segment cumsum. The backward twin
-is the explicit analytic formula, not autograd. Each wrapper counts its
-launches in `<wrapper>.launches`.
+CSR blend (B3, B4): the same over each tile's whole list, the lists of all
+tiles concatenated as (E, 16) rows with each tile's run padded to a
+CSEG=256 multiple, the exit tested at each 256-row segment start.
+
+Each wrapper launches its CUDA kernel (csrc/blend_fwd.cu, blend_bwd.cu,
+blend_csr_fwd.cu, blend_csr_bwd.cu) for a CUDA tensor, or raises; it runs its
+twin only for a tensor that lies on the CPU. The twins run the same
+algorithm in float32: the same segments, early exit and clamps, with a
+vectorised in-segment cumsum. The backward twins are the explicit analytic
+formula, not autograd. Each wrapper counts its launches in
+`<wrapper>.launches`.
 """
 
 from __future__ import annotations
@@ -29,7 +35,8 @@ from activesplat_tpu_torch.ops.raster_xla import ALPHA_MAX, ALPHA_MIN
 
 TILE = 16
 PX = TILE * TILE  # 256 pixels per tile
-SEG = 64  # rows per segment
+SEG = 64  # rows per segment of the dense blend
+CSEG = 256  # rows per segment of the CSR blend (each tile's run is CSEG-aligned)
 N_ATTR = 16  # padded attribute count
 MAX_CHANNELS = 8
 LOG_EPS = -5.55  # log(1/256): tile saturated below this transmittance
@@ -95,6 +102,65 @@ def _segment_geometry(block, px, py):
     return dx, dy, power, raw, alpha, live
 
 
+def _fwd_segment(block, px, py, accum, logt):
+    """One segment of rows (T, S, 16) for a batch of T tiles: (accum, logt)
+    after it. A tile whose max logT is already below LOG_EPS is left as it
+    is (the early exit)."""
+    walk = logt.amax(dim=1) >= LOG_EPS  # (T,) tile not yet saturated
+    alpha = _segment_geometry(block, px, py)[4]
+    logs = torch.log1p(-alpha)
+    cum = torch.cumsum(logs, dim=1)
+    weight = alpha * torch.exp(cum - logs + logt[:, None, :])  # (T, S, PX)
+    contrib = torch.einsum("tsp,tsc->tpc", weight, block[:, :, 6 : 6 + MAX_CHANNELS])
+    return (
+        torch.where(walk[:, None, None], accum + contrib, accum),
+        torch.where(walk[:, None], logt + cum[:, -1], logt),
+    )
+
+
+def _bwd_segment(block, px, py, logt_in, g, g_logt, b):
+    """The analytic backward of one segment of rows (T, S, 16), given its
+    entry logT (T, PX), the padded colour cotangent g (T, PX, 8), the logT
+    cotangent (T, PX) and the suffix carry b (T, PX) of the rows behind it.
+    Returns (d_block (T, S, 14), the carry in front of the segment); a
+    segment the forward skipped gets zero rows and leaves the carry."""
+    walk = logt_in.amax(dim=1) >= LOG_EPS
+    ca, cb, cc = (block[:, :, i : i + 1] for i in range(2, 5))
+    dx, dy, power, raw, alpha, live = _segment_geometry(block, px, py)
+    unclipped = live & (raw < ALPHA_MAX)
+    logs = torch.log1p(-alpha)
+    prefix = torch.cumsum(logs, dim=1) - logs
+    t_k = torch.exp(logt_in[:, None, :] + prefix)  # (T, S, PX)
+    s_k = torch.einsum("tsc,tpc->tsp", block[:, :, 6 : 6 + MAX_CHANNELS], g)
+    w = alpha * t_k
+    ws = w * s_k
+    # exclusive suffix sum: total - inclusive prefix
+    b_k = b[:, None, :] + (ws.sum(dim=1, keepdim=True) - torch.cumsum(ws, dim=1))
+    one_minus = torch.clamp(1.0 - alpha, min=1.0 / 256.0)
+    d_alpha = t_k * s_k - (b_k + g_logt[:, None, :]) / one_minus
+    d_alpha = torch.where(alpha > 0.0, d_alpha, torch.zeros_like(d_alpha))
+    d_col = torch.einsum("tsp,tpc->tsc", w, g)
+    d_raw = torch.where(unclipped, d_alpha, torch.zeros_like(d_alpha))
+    d_power = d_raw * alpha  # alpha == raw where unclipped
+    exp_power = torch.exp(torch.where(unclipped, power, torch.zeros_like(power)))
+    d_block = torch.cat(
+        [
+            (d_power * (-(ca * dx + cb * dy))).sum(dim=2, keepdim=True),
+            (d_power * (-(cc * dy + cb * dx))).sum(dim=2, keepdim=True),
+            (d_power * (-0.5 * dx * dx)).sum(dim=2, keepdim=True),
+            (d_power * (-dx * dy)).sum(dim=2, keepdim=True),
+            (d_power * (-0.5 * dy * dy)).sum(dim=2, keepdim=True),
+            (d_raw * exp_power).sum(dim=2, keepdim=True),
+            d_col,
+        ],
+        dim=2,
+    )  # (T, S, 14)
+    return (
+        torch.where(walk[:, None, None], d_block, torch.zeros_like(d_block)),
+        torch.where(walk[:, None], b + ws.sum(dim=1), b),
+    )
+
+
 def blend_tiles_fwd_plain(tile_data, tile_u0, tile_v0, n_channels=5, with_entry=False):
     """The forward kernel's algorithm in PyTorch (the CPU path)."""
     t, k, _ = tile_data.shape
@@ -104,15 +170,7 @@ def blend_tiles_fwd_plain(tile_data, tile_u0, tile_v0, n_channels=5, with_entry=
     entries = []
     for s in range(k // SEG):
         entries.append(logt)
-        walk = logt.amax(dim=1) >= LOG_EPS  # (T,) tile not yet saturated
-        block = tile_data[:, s * SEG : (s + 1) * SEG]
-        alpha = _segment_geometry(block, px, py)[4]
-        logs = torch.log1p(-alpha)
-        cum = torch.cumsum(logs, dim=1)
-        weight = alpha * torch.exp(cum - logs + logt[:, None, :])  # (T, SEG, PX)
-        contrib = torch.einsum("tsp,tsc->tpc", weight, block[:, :, 6 : 6 + MAX_CHANNELS])
-        accum = torch.where(walk[:, None, None], accum + contrib, accum)
-        logt = torch.where(walk[:, None], logt + cum[:, -1], logt)
+        accum, logt = _fwd_segment(tile_data[:, s * SEG : (s + 1) * SEG], px, py, accum, logt)
     accum = accum[:, :, :n_channels].contiguous()
     if with_entry:
         return accum, logt, torch.stack(entries, dim=1)
@@ -127,44 +185,81 @@ def blend_tiles_bwd_plain(tile_data, tile_u0, tile_v0, entry, g_accum, g_logt, n
     b = tile_data.new_zeros((t, PX))
     d_rows = torch.zeros_like(tile_data)
     for s in reversed(range(k // SEG)):
-        logt_in = entry[:, s]  # (T, PX)
-        walk = logt_in.amax(dim=1) >= LOG_EPS
-        block = tile_data[:, s * SEG : (s + 1) * SEG]
-        ca, cb, cc = (block[:, :, i : i + 1] for i in range(2, 5))
-        dx, dy, power, raw, alpha, live = _segment_geometry(block, px, py)
-        unclipped = live & (raw < ALPHA_MAX)
-        logs = torch.log1p(-alpha)
-        prefix = torch.cumsum(logs, dim=1) - logs
-        t_k = torch.exp(logt_in[:, None, :] + prefix)  # (T, SEG, PX)
-        s_k = torch.einsum("tsc,tpc->tsp", block[:, :, 6 : 6 + MAX_CHANNELS], g)
-        w = alpha * t_k
-        ws = w * s_k
-        # exclusive suffix sum: total - inclusive prefix
-        b_k = b[:, None, :] + (ws.sum(dim=1, keepdim=True) - torch.cumsum(ws, dim=1))
-        one_minus = torch.clamp(1.0 - alpha, min=1.0 / 256.0)
-        d_alpha = t_k * s_k - (b_k + g_logt[:, None, :]) / one_minus
-        d_alpha = torch.where(alpha > 0.0, d_alpha, torch.zeros_like(d_alpha))
-        d_col = torch.einsum("tsp,tpc->tsc", w, g)
-        d_raw = torch.where(unclipped, d_alpha, torch.zeros_like(d_alpha))
-        d_power = d_raw * alpha  # alpha == raw where unclipped
-        exp_power = torch.exp(torch.where(unclipped, power, torch.zeros_like(power)))
-        d_block = torch.cat(
-            [
-                (d_power * (-(ca * dx + cb * dy))).sum(dim=2, keepdim=True),
-                (d_power * (-(cc * dy + cb * dx))).sum(dim=2, keepdim=True),
-                (d_power * (-0.5 * dx * dx)).sum(dim=2, keepdim=True),
-                (d_power * (-dx * dy)).sum(dim=2, keepdim=True),
-                (d_power * (-0.5 * dy * dy)).sum(dim=2, keepdim=True),
-                (d_raw * exp_power).sum(dim=2, keepdim=True),
-                d_col,
-            ],
-            dim=2,
-        )  # (T, SEG, 14)
-        d_rows[:, s * SEG : (s + 1) * SEG, :14] = torch.where(
-            walk[:, None, None], d_block, torch.zeros_like(d_block)
+        d_rows[:, s * SEG : (s + 1) * SEG, :14], b = _bwd_segment(
+            tile_data[:, s * SEG : (s + 1) * SEG], px, py, entry[:, s], g, g_logt, b
         )
-        b = torch.where(walk[:, None], b + ws.sum(dim=1), b)
     return d_rows
+
+
+def _tile_segments(seg_tile, n_tiles):
+    """Per-tile (first segment, segment count) of a CSR stream, int32. A
+    tile with no segment gets count 0; padding segments (tile id n_tiles)
+    belong to no tile."""
+    n_seg = seg_tile.shape[0]
+    dev = seg_tile.device
+    idx = seg_tile.long()
+    # scatters, not bincount: bincount waits for the device to size its output
+    counts = torch.zeros((n_tiles + 1,), dtype=torch.int64, device=dev)
+    counts.scatter_add_(0, idx, torch.ones_like(idx))
+    starts = torch.full((n_tiles + 1,), n_seg, dtype=torch.int64, device=dev)
+    starts.scatter_reduce_(0, idx, torch.arange(n_seg, device=dev), "amin")
+    return starts[:n_tiles].to(torch.int32), counts[:n_tiles].to(torch.int32)
+
+
+def _csr_tiles(entry_data, seg_tile, seg_u0, seg_v0, n_tiles):
+    """The twins' view of a CSR stream: rows as (n_seg, CSEG, 16) blocks,
+    per-tile first segment and count, pixel coordinates, and the number of
+    segment ranks to walk."""
+    n_seg = entry_data.shape[0] // CSEG
+    starts, counts = _tile_segments(seg_tile, n_tiles)
+    first = starts.long().clamp(max=max(n_seg - 1, 0))
+    if n_seg == 0 or n_tiles == 0:
+        origin = torch.zeros((n_tiles,), dtype=torch.int32, device=entry_data.device)
+        return entry_data.view(n_seg, CSEG, N_ATTR), starts, counts, *_pixel_coords(origin, origin), 0
+    px, py = _pixel_coords(seg_u0[first], seg_v0[first])
+    return entry_data.view(n_seg, CSEG, N_ATTR), starts, counts, px, py, int(counts.max())
+
+
+def blend_csr_fwd_plain(entry_data, seg_tile, seg_u0, seg_v0, n_tiles, n_channels=5,
+                        with_entry=False):
+    """The CSR forward kernel's algorithm in PyTorch (the CPU path): step r
+    blends the r-th segment of every tile that has one."""
+    blocks, starts, counts, px, py, ranks = _csr_tiles(
+        entry_data, seg_tile, seg_u0, seg_v0, n_tiles
+    )
+    accum = entry_data.new_zeros((n_tiles, PX, MAX_CHANNELS))
+    logt = entry_data.new_zeros((n_tiles, PX))
+    entry = entry_data.new_zeros((blocks.shape[0], PX))
+    for r in range(ranks):
+        act = torch.nonzero(counts > r).squeeze(1)
+        seg = starts[act].long() + r
+        entry[seg] = logt[act]
+        accum[act], logt[act] = _fwd_segment(blocks[seg], px[act], py[act], accum[act], logt[act])
+    accum = accum[:, :, :n_channels].contiguous()
+    if with_entry:
+        return accum, logt, entry
+    return accum, logt
+
+
+def blend_csr_bwd_plain(entry_data, seg_tile, seg_u0, seg_v0, entry, g_accum, g_logt,
+                        n_tiles, n_channels=5):
+    """The CSR backward kernel's analytic formula in PyTorch (the CPU path):
+    segment ranks back to front, each tile's suffix carry starting at zero
+    behind its last segment."""
+    blocks, starts, counts, px, py, ranks = _csr_tiles(
+        entry_data, seg_tile, seg_u0, seg_v0, n_tiles
+    )
+    g = torch.nn.functional.pad(g_accum, (0, MAX_CHANNELS - n_channels))
+    b = entry_data.new_zeros((n_tiles, PX))
+    d_data = torch.zeros_like(entry_data)
+    d_blocks = d_data.view(blocks.shape)
+    for r in reversed(range(ranks)):
+        act = torch.nonzero(counts > r).squeeze(1)
+        seg = starts[act].long() + r
+        d_blocks[seg, :, :14], b[act] = _bwd_segment(
+            blocks[seg], px[act], py[act], entry[seg], g[act], g_logt[act], b[act]
+        )
+    return d_data
 
 
 # --------------------------------------------------------------------------- #
@@ -181,7 +276,12 @@ def _kernel(library: str, symbol: str, n_args: int):
 
 
 # positions of the int arguments of each C entry point (the rest are pointers)
-_INT_ARGS = {"blend_tiles_fwd": (3, 4, 5), "blend_tiles_bwd": (6, 7, 8)}
+_INT_ARGS = {
+    "blend_tiles_fwd": (3, 4, 5),
+    "blend_tiles_bwd": (6, 7, 8),
+    "blend_csr_fwd": (5, 6),
+    "blend_csr_bwd": (8, 9),
+}
 
 
 def blend_tiles_fwd(tile_data, tile_u0, tile_v0, n_channels=5, with_entry=False):
@@ -241,9 +341,94 @@ def blend_tiles_bwd(tile_data, tile_u0, tile_v0, entry, g_accum, g_logt, n_chann
     return d_rows
 
 
+def _check_csr(entry_data, seg_tile, seg_u0, seg_v0, n_tiles, n_channels):
+    if entry_data.dtype != torch.float32 or entry_data.dim() != 2:
+        raise ValueError(f"entry rows must be (E, 16) float32, got {entry_data.shape}")
+    e, n_attr = entry_data.shape
+    if n_attr != N_ATTR or e % CSEG != 0:
+        raise ValueError(f"entry rows need E % {CSEG} == 0 and 16 columns: {entry_data.shape}")
+    if not 1 <= n_channels <= MAX_CHANNELS:
+        raise ValueError(f"n_channels must be in [1, 8], got {n_channels}")
+    if n_tiles < 0:
+        raise ValueError(f"n_tiles must be >= 0, got {n_tiles}")
+    for x in (seg_tile, seg_u0, seg_v0):
+        if x.dtype != torch.int32 or x.shape != (e // CSEG,):
+            raise ValueError("segment maps must be (E/CSEG,) int32")
+        if x.device != entry_data.device:
+            raise ValueError("segment maps must lie on the rows' device")
+
+
+def blend_csr_fwd(entry_data, seg_tile, seg_u0, seg_v0, n_tiles, n_channels=5,
+                  with_entry=False):
+    """B3, the exact blend over CSR runs. entry_data holds each tile's whole
+    depth-ordered list, padded to a CSEG multiple, so that every CSEG-row
+    segment belongs to one tile; seg_tile maps segments to tiles (the
+    segments of a tile consecutive, id n_tiles = padding, walked by no
+    tile), seg_u0/seg_v0 give each segment's tile origin. Returns (accum
+    (n_tiles, PX, n_channels), log_transmittance (n_tiles, PX) [, entry
+    (E/CSEG, PX)]): `entry` is each segment's entry log-transmittance, zero
+    for padding segments. Tiles with no segment get zeros."""
+    _check_csr(entry_data, seg_tile, seg_u0, seg_v0, n_tiles, n_channels)
+    if _device_kind(entry_data) == "cpu":
+        return blend_csr_fwd_plain(
+            entry_data, seg_tile, seg_u0, seg_v0, n_tiles, n_channels, with_entry
+        )
+    starts, counts = _tile_segments(seg_tile, n_tiles)
+    accum = entry_data.new_empty((n_tiles, PX, n_channels))
+    logt = entry_data.new_empty((n_tiles, PX))
+    entry = entry_data.new_zeros((entry_data.shape[0] // CSEG, PX)) if with_entry else None
+    fn = _kernel("blend_csr_fwd", "blend_csr_fwd", 11)
+    with torch.cuda.device(entry_data.device):
+        ptrs = _cuda_args(entry_data, seg_u0, seg_v0, starts, counts, accum, logt)
+        rc = fn(
+            *ptrs[:5], n_tiles, n_channels, *ptrs[5:],
+            None if entry is None else _cuda_args(entry)[0],
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"blend_csr_fwd launch failed: CUDA error {rc}")
+    blend_csr_fwd.launches += 1
+    if with_entry:
+        return accum, logt, entry
+    return accum, logt
+
+
+def blend_csr_bwd(entry_data, seg_tile, seg_u0, seg_v0, entry, g_accum, g_logt, n_tiles,
+                  n_channels=5):
+    """B4. Gradient of blend_csr_fwd with respect to the entry rows: (E, 16),
+    columns 14 and 15 zero, rows of padding segments zero."""
+    _check_csr(entry_data, seg_tile, seg_u0, seg_v0, n_tiles, n_channels)
+    for name, x, shape in (
+        ("entry", entry, (entry_data.shape[0] // CSEG, PX)),
+        ("g_accum", g_accum, (n_tiles, PX, n_channels)),
+        ("g_logt", g_logt, (n_tiles, PX)),
+    ):
+        if x.shape != shape or x.dtype != torch.float32 or x.device != entry_data.device:
+            raise ValueError(f"{name} must be {shape} float32 on the rows' device")
+    if _device_kind(entry_data) == "cpu":
+        return blend_csr_bwd_plain(
+            entry_data, seg_tile, seg_u0, seg_v0, entry, g_accum, g_logt, n_tiles, n_channels
+        )
+    starts, counts = _tile_segments(seg_tile, n_tiles)
+    d_data = torch.zeros_like(entry_data)  # padding segments are never walked
+    fn = _kernel("blend_csr_bwd", "blend_csr_bwd", 12)
+    with torch.cuda.device(entry_data.device):
+        ptrs = _cuda_args(entry_data, seg_u0, seg_v0, starts, counts, entry, g_accum, g_logt, d_data)
+        rc = fn(
+            *ptrs[:8], n_tiles, n_channels, ptrs[8],
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"blend_csr_bwd launch failed: CUDA error {rc}")
+    blend_csr_bwd.launches += 1
+    return d_data
+
+
 blend_tiles_fwd.launches = 0
 blend_tiles_bwd.launches = 0
-KERNELS = (blend_tiles_fwd, blend_tiles_bwd)
+blend_csr_fwd.launches = 0
+blend_csr_bwd.launches = 0
+KERNELS = (blend_tiles_fwd, blend_tiles_bwd, blend_csr_fwd, blend_csr_bwd)
 
 
 def reset_launch_counts() -> None:
@@ -285,3 +470,39 @@ class BlendTiles(torch.autograd.Function):
 def blend_tiles(tile_data, tile_u0, tile_v0, n_channels=5):
     """Differentiable fused tile blend: (accum, log_transmittance)."""
     return BlendTiles.apply(tile_data, tile_u0, tile_v0, n_channels)
+
+
+class BlendCSR(torch.autograd.Function):
+    """Differentiable exact CSR blend: B3 forward (stashing each segment's
+    entry logT when a gradient is needed) paired with the B4 analytic
+    backward."""
+
+    @staticmethod
+    def forward(ctx, entry_data, seg_tile, seg_u0, seg_v0, n_tiles, n_channels):
+        if not ctx.needs_input_grad[0]:
+            return blend_csr_fwd(entry_data, seg_tile, seg_u0, seg_v0, n_tiles, n_channels)
+        accum, logt, entry = blend_csr_fwd(
+            entry_data, seg_tile, seg_u0, seg_v0, n_tiles, n_channels, with_entry=True
+        )
+        ctx.save_for_backward(entry_data, seg_tile, seg_u0, seg_v0, entry)
+        ctx.n_tiles, ctx.n_channels = n_tiles, n_channels
+        return accum, logt
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_accum, g_logt):
+        entry_data, seg_tile, seg_u0, seg_v0, entry = ctx.saved_tensors
+        if g_accum is None:
+            g_accum = entry_data.new_zeros((ctx.n_tiles, PX, ctx.n_channels))
+        if g_logt is None:
+            g_logt = entry_data.new_zeros((ctx.n_tiles, PX))
+        d_data = blend_csr_bwd(
+            entry_data, seg_tile, seg_u0, seg_v0, entry,
+            g_accum.contiguous(), g_logt.contiguous(), ctx.n_tiles, ctx.n_channels,
+        )
+        return d_data, None, None, None, None, None
+
+
+def blend_csr(entry_data, seg_tile, seg_u0, seg_v0, n_tiles, n_channels=5):
+    """Differentiable exact CSR blend: (accum, log_transmittance)."""
+    return BlendCSR.apply(entry_data, seg_tile, seg_u0, seg_v0, n_tiles, n_channels)

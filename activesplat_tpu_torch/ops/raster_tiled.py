@@ -1,32 +1,56 @@
-"""Tile-binned rasterizer with the k cap: the training render path
-(counterpart of activesplat_tpu/ops/raster_tiled.py, single-pass branch).
+"""Tile-binned rasterizers: the training and exact render paths
+(counterpart of activesplat_tpu/ops/raster_tiled.py).
 
+The k-capped path (rasterize_tiled):
   1. depth sort, with the binning attributes quantized exactly as the
      reference packs them (_sort_pack): tile membership depends on it;
   2. per-tile lists of the K nearest members (bin_gaussians), by duplicating
      each Gaussian once per overlapped tile and sorting the (tile, depth rank)
      pairs — the lists the reference's counting hierarchy builds;
   3. gather each tile's rows from the unsorted, differentiable attributes and
-     blend them in the CUDA tile-blend kernels (ops/raster_cuda.py).
+     blend them in the CUDA tile-blend kernels B1/B2 (ops/raster_cuda.py).
+With max_passes > 1 farther k-windows of each list fold in until every
+overflowing tile saturates or exhausts (the exact multi-pass walk).
+
+The exact path (rasterize_tiled_exact) expands every (Gaussian, tile)
+membership without a cap into CSR runs, each tile's run padded to a CSEG
+multiple, and blends them in the CSR kernels B3/B4. The hybrid
+(rasterize_tiled_hybrid) runs the k-capped blend everywhere and recomposites
+with the CSR blend only the tiles whose truncation is harmful.
 
 The reference's static-shape devices that change no output are not ported:
 the visible-prefix buckets (a lax.switch over prefix lengths) become one
-slice to the visible count, at the cost of one host sync per render.
+slice to the visible count, and the CSR entry-budget ladder becomes an
+allocation of the real entry count; each costs one host sync. The exactness
+budget min(4N, _ENTRY_CAP) and its fallbacks are kept: the callers learn of
+an overflow on the host and take the fallback in place of lax.cond.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from activesplat_tpu_torch.ops.raster_cuda import N_ATTR, SEG, TILE, blend_tiles
+from activesplat_tpu_torch.ops.raster_cuda import (
+    CSEG,
+    LOG_EPS,
+    N_ATTR,
+    SEG,
+    TILE,
+    blend_csr,
+    blend_tiles,
+)
 
 # harmful-drop threshold: overflow counts only in tiles with > 2% end-of-list
 # transmittance left at some pixel
 _SATURATED_LOG_T = float(np.log(0.02))
+
+# ceiling on the CSR entry budget min(4N, _ENTRY_CAP): memberships past it
+# are dropped at Gaussian granularity and the callers fall back
+_ENTRY_CAP = 1 << 23
 
 
 def tile_aabbs(mx, my, radius, valid, tiles_x: int, tiles_y: int):
@@ -60,10 +84,13 @@ def bin_gaussians(
     width: int,
     height: int,
     k_per_tile: int,
+    slot_offset: int = 0,
 ) -> TileLists:
-    """Fixed-capacity per-tile lists: the first k members of each tile in
-    depth order, and the count cut by the cap. Costs one host sync (the
-    number of (tile, Gaussian) pairs)."""
+    """Fixed-capacity per-tile lists: the members at list positions
+    [slot_offset, slot_offset + k) of each tile in depth order (the window
+    pass p of the multi-pass walk reads, offset p*k), their count, and the
+    count past the window. Costs one host sync (the number of (tile,
+    Gaussian) pairs)."""
     n = mean2d.shape[0]
     dev = mean2d.device
     tiles_x = -(-width // TILE)
@@ -87,15 +114,16 @@ def bin_gaussians(
 
     count_full = torch.bincount(tile, minlength=t)
     start = torch.cumsum(count_full, 0) - count_full
-    slot = torch.arange(tile.shape[0], device=dev) - start[tile]
-    keep = slot < k_per_tile
+    slot = torch.arange(tile.shape[0], device=dev) - start[tile] - slot_offset
+    keep = (slot >= 0) & (slot < k_per_tile)
     indices = torch.full((t * k_per_tile + 1,), n, dtype=torch.int64, device=dev)
     dest = torch.where(keep, tile * k_per_tile + slot, t * k_per_tile)
-    indices[dest] = ids  # entries past the cap land in the spare last cell
+    indices[dest] = ids  # entries outside the window land in the spare last cell
+    rest = count_full - slot_offset
     return TileLists(
         indices=indices[:-1].view(t, k_per_tile),
-        count=torch.clamp(count_full, max=k_per_tile).to(torch.int32),
-        overflow=torch.clamp(count_full - k_per_tile, min=0).to(torch.int32),
+        count=torch.clamp(rest, 0, k_per_tile).to(torch.int32),
+        overflow=torch.clamp(rest - k_per_tile, min=0).to(torch.int32),
     )
 
 
@@ -126,43 +154,60 @@ def _sort_pack(data: torch.Tensor, key: torch.Tensor, radius: torch.Tensor, vali
     return torch.stack([s_mx, s_my, s_rad, s_val], -1), order
 
 
-def rasterize_tiled(
-    mean2d: torch.Tensor,  # (N, 2) UNSORTED (projection order)
-    conic: torch.Tensor,
-    opacity: torch.Tensor,
-    colors: torch.Tensor,  # (N, C)
-    valid: torch.Tensor,
-    radius: torch.Tensor,
-    depth: torch.Tensor,  # (N,)
-    *,
-    width: int,
-    height: int,
-    k_per_tile: int = 256,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Tile-binned front-to-back compositing of each tile's nearest
-    k_per_tile members, differentiable through the tile blend.
-
-    Returns (accum (H*W, C), log_transmittance (H*W,), dropped ()).
-    `dropped` counts HARMFUL truncations: memberships cut by the k cap in
-    tiles that did not saturate (some pixel's end-of-list transmittance
-    > 2%)."""
-    tile_data, tile_u0, tile_v0, overflow = tile_rows(
-        mean2d, conic, opacity, colors, valid, radius, depth,
-        width=width, height=height, k_per_tile=k_per_tile,
-    )
+def _prepare(mean2d, conic, opacity, colors, valid, radius, depth):
+    """The attribute table (N, 6 + C), the packed depth sort and the visible
+    count b: visible Gaussians form a prefix of the sorted order (one host
+    sync; the reference switches over static prefix buckets)."""
     c_dim = colors.shape[1]
-    accum_t, logt_t = blend_tiles(tile_data, tile_u0, tile_v0, c_dim)
+    if c_dim > 8:
+        raise ValueError(f"the tile blend supports at most 8 channels, got {c_dim}")
+    key = torch.where(valid, depth, torch.full_like(depth, float("inf")))
+    data = torch.cat([mean2d, conic, opacity[:, None], colors], -1)  # (N, 6 + C)
+    packed, order = _sort_pack(data, key, radius, valid)
+    return data, packed, order, max(int(valid.sum()), 1)
+
+
+def _pad_table(data):
+    """The attribute table with the padding row (index N) appended:
+    off-screen mean, unit conic, zero opacity and colours."""
+    dev = data.device
+    pad_row = torch.cat(
+        [
+            torch.full((1, 2), -1e9, dtype=data.dtype, device=dev),
+            torch.ones((1, 3), dtype=data.dtype, device=dev),
+            torch.zeros((1, data.shape[1] - 5), dtype=data.dtype, device=dev),
+        ],
+        -1,
+    )
+    return torch.cat([data, pad_row], 0)  # (N+1, 6+C)
+
+
+def _window_rows(packed, order, data, *, width, height, k_per_tile, slot_offset=0):
+    """Bin and gather one k-window of every tile's list: (tile_data (T, K',
+    16) with K' = k rounded up to a SEG multiple, tile_u0, tile_v0 (T,) int32,
+    overflow (T,)). `packed` is the visible prefix of the sorted order."""
+    n = data.shape[0]
+    b = packed.shape[0]
+    lists = bin_gaussians(
+        packed[:, :2], packed[:, 2], packed[:, 3] > 0, width, height, k_per_tile, slot_offset
+    )
+    # sorted-order list entries -> original Gaussian ids; bin padding (b)
+    # becomes the blend padding row (n)
+    global_ids = torch.where(
+        lists.indices >= b, n, order[torch.clamp(lists.indices, max=n - 1)]
+    )
+    # the blend walks SEG-row segments: pad each list with padding rows
+    if k_per_tile % SEG:
+        global_ids = F.pad(global_ids, (0, SEG - k_per_tile % SEG), value=n)
+    # gather only live columns (the backward's scatter-add then moves only
+    # those), pad to the kernel's 16 columns after
+    tile_data = F.pad(_pad_table(data)[global_ids], (0, N_ATTR - data.shape[1]))
 
     tiles_x = -(-width // TILE)
-    tiles_y = -(-height // TILE)
-    accum_img, logt_img = _tiles_to_image(accum_t, logt_t, tiles_x, tiles_y, width, height)
-    unsaturated = logt_t.detach().amax(dim=1) > _SATURATED_LOG_T
-    dropped = torch.where(unsaturated, overflow, 0).sum(dtype=torch.int32)
-    return (
-        accum_img.reshape(height * width, c_dim),
-        logt_img.reshape(height * width),
-        dropped,
-    )
+    tile_ids = torch.arange(global_ids.shape[0], dtype=torch.int32, device=data.device)
+    tile_u0 = (tile_ids % tiles_x) * TILE
+    tile_v0 = torch.div(tile_ids, tiles_x, rounding_mode="floor") * TILE
+    return tile_data, tile_u0, tile_v0, lists.overflow
 
 
 def tile_rows(
@@ -175,49 +220,274 @@ def tile_rows(
     a SEG multiple, tile_u0 (T,) int32, tile_v0 (T,) int32, overflow (T,)).
     tile_data is differentiable in the per-Gaussian inputs (through the row
     gather); the lists themselves are not."""
-    n = mean2d.shape[0]
-    c_dim = colors.shape[1]
-    if c_dim > 8:
-        raise ValueError(f"the tile blend supports at most 8 channels, got {c_dim}")
-    key = torch.where(valid, depth, torch.full_like(depth, float("inf")))
-    data = torch.cat([mean2d, conic, opacity[:, None], colors], -1)  # (N, 6 + C)
-    packed, order = _sort_pack(data, key, radius, valid)
-    # visible Gaussians form a prefix of the sorted order: bin only that
-    # (one host sync; the reference switches over static prefix buckets)
-    b = max(int(valid.sum()), 1)
-    k_per_tile = min(k_per_tile, b)
-    lists = bin_gaussians(
-        packed[:b, :2], packed[:b, 2], packed[:b, 3] > 0, width, height, k_per_tile
+    data, packed, order, b = _prepare(mean2d, conic, opacity, colors, valid, radius, depth)
+    return _window_rows(
+        packed[:b], order, data, width=width, height=height, k_per_tile=min(k_per_tile, b)
     )
-    # sorted-order list entries -> original Gaussian ids; bin padding (b)
-    # becomes the blend padding row (n)
-    global_ids = torch.where(
-        lists.indices >= b, n, order[torch.clamp(lists.indices, max=n - 1)]
-    )
-    # the blend walks SEG-row segments: pad each list with padding rows
-    if k_per_tile % SEG:
-        global_ids = F.pad(global_ids, (0, SEG - k_per_tile % SEG), value=n)
 
-    dev = data.device
-    # padding row (index n): off-screen mean, unit conic, zero opacity/colors
-    pad_row = torch.cat(
-        [
-            torch.full((1, 2), -1e9, dtype=data.dtype, device=dev),
-            torch.ones((1, 3), dtype=data.dtype, device=dev),
-            torch.zeros((1, 1 + c_dim), dtype=data.dtype, device=dev),
-        ],
-        -1,
-    )
-    pad_data = torch.cat([data, pad_row], 0)  # (N+1, 6+C)
-    # gather only live columns (the backward's scatter-add then moves only
-    # those), pad to the kernel's 16 columns after
-    tile_data = F.pad(pad_data[global_ids], (0, N_ATTR - 6 - c_dim))  # (T, K', 16)
 
+def _capped_tiles(data, packed, order, b, *, width, height, k_per_tile, max_passes=1):
+    """The k-capped blend of every tile, with up to max_passes k-windows:
+    (accum_t (T, PX, C), logt_t (T, PX), overflow (T,) of the last window)."""
+    k = min(k_per_tile, b)
+
+    def blend_pass(slot_offset):
+        rows, u0, v0, overflow = _window_rows(
+            packed[:b], order, data, width=width, height=height, k_per_tile=k,
+            slot_offset=slot_offset,
+        )
+        return (*blend_tiles(rows, u0, v0, data.shape[1] - 6), overflow)
+
+    accum_t, logt_t, overflow = blend_pass(0)
+    # Exact compositing: walk farther k-windows until every overflowing tile
+    # saturates or exhausts (one host sync per pass). Front-to-back blending
+    # is associative, total = accum_1 + T_1 accum_2 + T_1 T_2 accum_3 ..., so
+    # each pass folds in with one multiply-add.
+    for p in range(1, max_passes):
+        unsat = logt_t.detach().amax(dim=1) > _SATURATED_LOG_T
+        if not bool(((overflow > 0) & unsat).any()):
+            break
+        accum_p, logt_p, overflow = blend_pass(p * k)
+        accum_t = accum_t + torch.exp(logt_t)[:, :, None] * accum_p
+        logt_t = logt_t + logt_p
+    return accum_t, logt_t, overflow
+
+
+def rasterize_tiled(
+    mean2d: torch.Tensor,  # (N, 2) UNSORTED (projection order)
+    conic: torch.Tensor,
+    opacity: torch.Tensor,
+    colors: torch.Tensor,  # (N, C)
+    valid: torch.Tensor,
+    radius: torch.Tensor,
+    depth: torch.Tensor,  # (N,)
+    *,
+    width: int,
+    height: int,
+    k_per_tile: int = 256,
+    max_passes: int = 1,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Tile-binned front-to-back compositing of each tile's nearest
+    k_per_tile members, differentiable through the tile blend.
+
+    Returns (accum (H*W, C), log_transmittance (H*W,), dropped ()).
+    `dropped` counts HARMFUL truncations: memberships cut by the k cap in
+    tiles that did not saturate (some pixel's end-of-list transmittance
+    > 2%). max_passes > 1 composites farther k-windows until every tile
+    saturates or exhausts: exact, like the uncapped reference, for
+    forward-only renders."""
+    data, packed, order, b = _prepare(mean2d, conic, opacity, colors, valid, radius, depth)
+    accum_t, logt_t, overflow = _capped_tiles(
+        data, packed, order, b, width=width, height=height, k_per_tile=k_per_tile,
+        max_passes=max_passes,
+    )
+    return (*_to_images(accum_t, logt_t, width, height), _harmful(logt_t, overflow))
+
+
+def _harmful(logt_t, overflow):
+    """Memberships cut in tiles with > 2% end-of-list transmittance left."""
+    unsaturated = logt_t.detach().amax(dim=1) > _SATURATED_LOG_T
+    return torch.where(unsaturated, overflow, 0).sum(dtype=torch.int32)
+
+
+def _to_images(accum_t, logt_t, width, height):
+    """Tile blocks -> (accum (H*W, C), log_transmittance (H*W,))."""
     tiles_x = -(-width // TILE)
-    tile_ids = torch.arange(global_ids.shape[0], dtype=torch.int32, device=dev)
-    tile_u0 = (tile_ids % tiles_x) * TILE
-    tile_v0 = torch.div(tile_ids, tiles_x, rounding_mode="floor") * TILE
-    return tile_data, tile_u0, tile_v0, lists.overflow
+    tiles_y = -(-height // TILE)
+    accum_img, logt_img = _tiles_to_image(accum_t, logt_t, tiles_x, tiles_y, width, height)
+    return accum_img.reshape(height * width, -1), logt_img.reshape(height * width)
+
+
+# --------------------------------------------------------------------------- #
+# Exact (uncapped) compositing over CSR runs
+# --------------------------------------------------------------------------- #
+
+
+class CSRLayout(NamedTuple):
+    global_ids: torch.Tensor  # (E,) int64 — original Gaussian id per entry row; N = padding
+    seg_tile: torch.Tensor  # (E/CSEG,) int32 — each segment's tile
+    seg_u0: torch.Tensor  # (E/CSEG,) int32 — each segment's tile origin
+    seg_v0: torch.Tensor
+    dropped: int  # memberships past the entry budget
+
+
+def _csr_layout(packed, order, n, tiles_x, tiles_y, harm=None) -> CSRLayout:
+    """Every (Gaussian, tile) membership of the visible prefix `packed`, as
+    CSR runs: each tile's members in depth order, padded with padding rows
+    to a CSEG multiple, runs in tile order.
+
+    The entry budget is min(4N, _ENTRY_CAP) rounded up to CSEG, cut at
+    Gaussian granularity as the reference cuts it: a Gaussian is expanded
+    only if all its memberships fit, and `dropped` counts the rest.
+
+    With `harm` (T,) bool, only Gaussians whose rectangle covers a harmful
+    tile spend budget (their whole rectangle), and only their harmful
+    memberships become entries: each harmful tile's run is complete.
+
+    Three host syncs (two without `harm`): the entry totals, the harmful
+    entry count and the segment count."""
+    t = tiles_x * tiles_y
+    dev = packed.device
+    valid, tx0, tx1, ty0, ty1 = tile_aabbs(
+        packed[:, 0], packed[:, 1], packed[:, 2], packed[:, 3] > 0, tiles_x, tiles_y
+    )
+    tx0, tx1, ty0, ty1 = (x.to(torch.int64) for x in (tx0, tx1, ty0, ty1))
+    span_x = tx1 - tx0 + 1
+    if harm is not None:
+        # harmful tiles under each rectangle, from the grid's 2-D prefix sums
+        grid = F.pad(harm.view(tiles_y, tiles_x).to(torch.int64).cumsum(0).cumsum(1), (1, 0, 1, 0))
+        covered = grid[ty1 + 1, tx1 + 1] - grid[ty0, tx1 + 1] - grid[ty1 + 1, tx0] + grid[ty0, tx0]
+        valid = valid & (covered > 0)
+    span = torch.where(valid, span_x * (ty1 - ty0 + 1), 0)
+    g_end = torch.cumsum(span, 0)
+    budget = -(-max(min(4 * n, _ENTRY_CAP), CSEG) // CSEG) * CSEG
+    kept = g_end <= budget
+    m_total, m_kept = torch.stack([g_end[-1], torch.where(kept, g_end, 0).max()]).tolist()
+
+    ids = torch.repeat_interleave(
+        torch.arange(packed.shape[0], device=dev), torch.where(kept, span, 0), output_size=m_kept
+    )
+    local = torch.arange(m_kept, device=dev) - (g_end - span)[ids]
+    tile = (ty0[ids] + local // span_x[ids]) * tiles_x + tx0[ids] + local % span_x[ids]
+    if harm is not None:
+        keep = harm[tile]
+        tile, ids = tile[keep], ids[keep]
+    # ranks ascend in depth order within each tile: a stable sort by tile
+    # keeps each tile's members depth-ordered
+    tile, perm = torch.sort(tile, stable=True)
+    count = torch.bincount(tile, minlength=t)
+    seg_count = torch.div(count + CSEG - 1, CSEG, rounding_mode="floor")
+    seg_end = torch.cumsum(seg_count, 0)
+    n_seg = int(seg_end[-1])
+    rank = torch.arange(tile.shape[0], device=dev) - (torch.cumsum(count, 0) - count)[tile]
+    global_ids = torch.full((n_seg * CSEG,), n, dtype=torch.int64, device=dev)
+    global_ids[(seg_end - seg_count)[tile] * CSEG + rank] = order[ids[perm]]
+    seg_tile = torch.repeat_interleave(
+        torch.arange(t, dtype=torch.int32, device=dev), seg_count, output_size=n_seg
+    )
+    return CSRLayout(
+        global_ids=global_ids,
+        seg_tile=seg_tile,
+        seg_u0=(seg_tile % tiles_x) * TILE,
+        seg_v0=torch.div(seg_tile, tiles_x, rounding_mode="floor") * TILE,
+        dropped=m_total - m_kept,
+    )
+
+
+def _entry_rows(layout: CSRLayout, data):
+    """The (E, 16) entry rows of a layout. A narrow gather: its backward
+    scatter-add moves only the 6 + C live columns; padded to the kernel's 16
+    after."""
+    return F.pad(_pad_table(data)[layout.global_ids], (0, N_ATTR - data.shape[1]))
+
+
+def _csr_blend(layout: CSRLayout, data, t):
+    """Gather the entry rows and blend them: (accum_t (T, PX, C), logt_t
+    (T, PX)), zeros in tiles with no entry. Differentiable in `data` when it
+    requires a gradient (B3 with the stash, B4 in the backward)."""
+    return blend_csr(
+        _entry_rows(layout, data), layout.seg_tile, layout.seg_u0, layout.seg_v0, t,
+        data.shape[1] - 6,
+    )
+
+
+def csr_rows(mean2d, conic, opacity, colors, valid, radius, depth, *, width: int, height: int):
+    """Sort, expand and gather: the CSR blend kernels' inputs for one exact
+    render. Returns (entry_data (E, 16), seg_tile, seg_u0, seg_v0 (E/CSEG,)
+    int32, dropped (host int))."""
+    data, packed, order, b = _prepare(mean2d, conic, opacity, colors, valid, radius, depth)
+    layout = _csr_layout(packed[:b], order, data.shape[0], -(-width // TILE), -(-height // TILE))
+    return _entry_rows(layout, data), layout.seg_tile, layout.seg_u0, layout.seg_v0, layout.dropped
+
+
+def rasterize_tiled_exact(
+    mean2d: torch.Tensor,  # (N, 2) UNSORTED (projection order)
+    conic: torch.Tensor,
+    opacity: torch.Tensor,
+    colors: torch.Tensor,  # (N, C)
+    valid: torch.Tensor,
+    radius: torch.Tensor,
+    depth: torch.Tensor,  # (N,)
+    band: Optional[torch.Tensor] = None,
+    *,
+    width: int,
+    height: int,
+    differentiable: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """Exact (uncapped) tile compositing over CSR runs: the duplicate-and-
+    sort semantics of the CUDA reference, work O(total memberships).
+
+    Returns (accum (H*W, C), log_transmittance (H*W,), dropped) where
+    `dropped` (a host int) counts memberships past the entry budget
+    min(4N, _ENTRY_CAP); the image then composites only the Gaussians
+    before the cut, and callers fall back (render_projected). Forward-only
+    unless differentiable=True; the binning geometry carries no gradient
+    either way, only the gathered attribute rows do."""
+    if band is not None:
+        raise NotImplementedError(
+            "the dual-transmittance walk needs kernel B5, which a later slice of the port adds"
+        )
+    if not differentiable:
+        mean2d, conic, opacity, colors = (x.detach() for x in (mean2d, conic, opacity, colors))
+    tiles_x = -(-width // TILE)
+    tiles_y = -(-height // TILE)
+    data, packed, order, b = _prepare(mean2d, conic, opacity, colors, valid, radius, depth)
+    layout = _csr_layout(packed[:b], order, data.shape[0], tiles_x, tiles_y)
+    accum_t, logt_t = _csr_blend(layout, data, tiles_x * tiles_y)
+    return (*_to_images(accum_t, logt_t, width, height), layout.dropped)
+
+
+def rasterize_tiled_hybrid(
+    mean2d: torch.Tensor,  # (N, 2) UNSORTED (projection order)
+    conic: torch.Tensor,
+    opacity: torch.Tensor,
+    colors: torch.Tensor,  # (N, C)
+    valid: torch.Tensor,
+    radius: torch.Tensor,
+    depth: torch.Tensor,  # (N,)
+    *,
+    width: int,
+    height: int,
+    k_per_tile: int = 256,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, int]:
+    """Exact differentiable compositing at capped + O(harmful memberships)
+    cost: the k-capped blend runs for every tile; tiles that overflow the cap
+    while their end-of-list transmittance is still above the blends' LOG_EPS
+    exit (the harmful tiles) are recomposited with the CSR blend, and a
+    per-tile select routes each tile's cotangent to the branch that made it.
+
+    Returns (accum (H*W, C), log_transmittance (H*W,), dropped (),
+    csr_overflow). `dropped` is the capped pass's harmful-truncation
+    telemetry. `csr_overflow` (a host int) > 0 means the harmful expansion
+    passed the entry budget: the result is then the k-capped render (the
+    reference's fallback, taken here without a second render, since the
+    capped pass is the same computation). One sort serves both halves; no
+    CSR launch when no tile is harmful. The running totals `.calls` and
+    `.harmful_tiles` on this function count calls and harmful tiles."""
+    tiles_x = -(-width // TILE)
+    tiles_y = -(-height // TILE)
+    data, packed, order, b = _prepare(mean2d, conic, opacity, colors, valid, radius, depth)
+    accum_t, logt_t, overflow = _capped_tiles(
+        data, packed, order, b, width=width, height=height, k_per_tile=k_per_tile
+    )
+    dropped = _harmful(logt_t, overflow)
+    harm = (overflow > 0) & (logt_t.detach().amax(dim=1) > LOG_EPS)
+    n_harm = int(harm.sum())
+    rasterize_tiled_hybrid.calls += 1
+    rasterize_tiled_hybrid.harmful_tiles += n_harm
+    csr_overflow = 0
+    if n_harm:
+        layout = _csr_layout(packed[:b], order, data.shape[0], tiles_x, tiles_y, harm)
+        csr_overflow = layout.dropped
+        if csr_overflow == 0:
+            csr_accum, csr_logt = _csr_blend(layout, data, tiles_x * tiles_y)
+            accum_t = torch.where(harm[:, None, None], csr_accum, accum_t)
+            logt_t = torch.where(harm[:, None], csr_logt, logt_t)
+    return (*_to_images(accum_t, logt_t, width, height), dropped, csr_overflow)
+
+
+rasterize_tiled_hybrid.calls = 0
+rasterize_tiled_hybrid.harmful_tiles = 0
 
 
 def _tiles_to_image(accum_t, logt_t, tiles_x, tiles_y, width, height):

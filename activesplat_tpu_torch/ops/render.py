@@ -10,9 +10,11 @@ the composited alpha, so one render yields everything the mapping loss reads:
     alpha      — total opacity / silhouette
     radii      — per-Gaussian screen radius (densification bookkeeping)
 
-Ported: the dense path (k_per_tile=0) and the k-capped single pass
-(k_per_tile > 0). The exact renders (exact=True, grad_exact=True and
-grad_exact="hybrid") need the CSR blend kernels and come with a later slice.
+Paths: the dense rasterizer (k_per_tile=0); the k-capped tiled render
+(k_per_tile > 0); the exact renders over CSR runs: exact=True forward-only,
+grad_exact=True differentiable, grad_exact="hybrid" capped plus CSR where
+the cap is harmful. There is no backend argument: the tiled paths always
+blend in the port's CUDA kernels (their twins for CPU tensors).
 """
 
 from __future__ import annotations
@@ -27,13 +29,12 @@ from activesplat_tpu_torch.ops.projection import (
     adaptive_cull_radius,
     project_gaussians,
 )
-from activesplat_tpu_torch.ops.raster_tiled import rasterize_tiled
-from activesplat_tpu_torch.ops.raster_xla import depth_sort, rasterize_sorted
-
-_LATER_SLICE = (
-    "exact and exact-gradient renders need the CSR blend kernels (B3/B4), "
-    "which a later slice of the port adds"
+from activesplat_tpu_torch.ops.raster_tiled import (
+    rasterize_tiled,
+    rasterize_tiled_exact,
+    rasterize_tiled_hybrid,
 )
+from activesplat_tpu_torch.ops.raster_xla import depth_sort, rasterize_sorted
 
 
 class RenderOutput(NamedTuple):
@@ -62,9 +63,18 @@ def render_projected(
 
     k_per_tile > 0 selects the tile-binned rasterizer: each 16x16 tile
     composites only its nearest k overlapping Gaussians; 0 selects the dense
-    chunked rasterizer."""
-    if exact or grad_exact:
-        raise NotImplementedError(_LATER_SLICE)
+    chunked rasterizer.
+
+    exact=True composites every membership (the CSR walk, forward-only); if
+    the memberships pass the entry budget it takes the multi-pass walk over
+    k-windows instead, exact as well. grad_exact=True composites exactly and
+    differentiably (the CSR blend and its analytic backward) and falls back
+    to the k-capped render past the budget. grad_exact="hybrid" gives the
+    same exact training at capped + O(harmful memberships) cost, with the
+    same fallback. `dropped` reports the capped path's harmful truncations
+    where a capped blend ran (as telemetry for "hybrid") and 0 where every
+    membership was composited. Each fallback costs a host sync in place of
+    the reference's lax.cond."""
     dev = proj.depth.device
     if bg is None:
         bg = torch.zeros((3,), dtype=torch.float32, device=dev)
@@ -73,16 +83,9 @@ def render_projected(
     channels = torch.cat(
         [rgb, depth_ch[:, None], (depth_ch * depth_ch)[:, None]], dim=-1
     )  # (C, 5)
+    dropped = torch.zeros((), dtype=torch.int32, device=dev)
 
-    if k_per_tile > 0:
-        # binning-only opacity-adaptive cull (lossless); RenderOutput keeps
-        # the 3-sigma radius and valid mask for densification bookkeeping
-        bin_radius, bin_valid = adaptive_cull_radius(proj.radius, proj.valid, opacities)
-        accum, log_t, dropped = rasterize_tiled(
-            proj.mean2d, proj.conic, opacities, channels, bin_valid, bin_radius,
-            proj.depth, width=cam.width, height=cam.height, k_per_tile=k_per_tile,
-        )
-    else:
+    if k_per_tile <= 0:
         _, s_valid, s_mean2d, s_conic, s_opacity, s_channels = depth_sort(
             proj.depth, proj.valid, proj.mean2d, proj.conic, opacities, channels
         )
@@ -90,7 +93,28 @@ def render_projected(
             s_mean2d, s_conic, s_opacity, s_channels, s_valid,
             width=cam.width, height=cam.height, chunk=chunk,
         )
-        dropped = torch.zeros((), dtype=torch.int32, device=dev)
+    else:
+        # binning-only opacity-adaptive cull (lossless); RenderOutput keeps
+        # the 3-sigma radius and valid mask for densification bookkeeping
+        bin_radius, bin_valid = adaptive_cull_radius(proj.radius, proj.valid, opacities)
+        args = (proj.mean2d, proj.conic, opacities, channels, bin_valid, bin_radius, proj.depth)
+        size = dict(width=cam.width, height=cam.height, k_per_tile=k_per_tile)
+        if grad_exact == "hybrid":
+            accum, log_t, dropped, _ = rasterize_tiled_hybrid(*args, **size)
+        elif grad_exact or exact:
+            accum, log_t, csr_dropped = rasterize_tiled_exact(
+                *args, width=cam.width, height=cam.height, differentiable=bool(grad_exact)
+            )
+            if csr_dropped and grad_exact:
+                accum, log_t, dropped = rasterize_tiled(*args, **size)
+            elif csr_dropped:
+                # a tile list never exceeds the Gaussian count, so ceil(N/k)
+                # windows make the multi-pass walk exact; it stops once
+                # every overflowing tile saturates or exhausts
+                exact_passes = -(-proj.mean2d.shape[0] // k_per_tile)
+                accum, log_t, _ = rasterize_tiled(*args, **size, max_passes=exact_passes)
+        else:
+            accum, log_t, dropped = rasterize_tiled(*args, **size)
     transmittance = torch.exp(log_t)  # (P,)
     out_rgb = accum[:, :3] + transmittance[:, None] * bg[None, :]
     hw = (cam.height, cam.width)

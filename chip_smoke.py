@@ -5,27 +5,42 @@
 
 Phases, each fatal on failure:
   1. build the CUDA kernels from activesplat_tpu_torch/csrc; print the card;
-  2. hold each tile-blend kernel against its plain PyTorch twin on random
-     tile rows (T=256, K=256, C=5, with empty, saturating and padded tiles),
-     and check that the comparison rejects planted faults;
+  2. hold each blend kernel against its plain PyTorch twin: the tile blend
+     (B1, B2) on random tile rows (T=256, K=256, C=5, with empty, saturating
+     and padded tiles), the CSR blend (B3, B4) on a random CSR stream (tiles
+     with no, one and many segments, saturating tiles, padding segments),
+     and check that the comparisons reject planted faults;
   3. drive the mapping slice at the benchmark's size (200,000 Gaussians in
      a 262,144-slot buffer, 256x256 sensor, k_per_tile=256,
      exact_training="off"): first_frame_phase, three mapping_phase events of
      10 iterations, one warm-up mapping_iteration and 30 timed ones. The
      launch counters are set to 0 just before each of these phases and read
-     just after it; each event must launch each kernel 10 times and the timed
-     run 30 times. Then run 20 more iterations under torch.profiler and
-     print the device's busy time and idle share per iteration and the
-     operators that take the most device and host time. Then check the port
-     on the card against the port on the CPU on a small scene;
-  4. time each kernel, its twin and its bound on the main path's own tile
-     rows, and print one {"kernels": [...]} line;
+     just after it; each event must launch B1 and B2 10 times and the timed
+     run 30 times, and B3/B4 never. Then run 20 more iterations under
+     torch.profiler and print the device's busy time and idle share per
+     iteration and the operators that take the most device and host time.
+     Then check the port on the card against the port on the CPU on a small
+     scene;
+  3b. on the same map, exact_training="on" (k=256) and "hybrid" (k=64): one
+     mapping_phase event of 10 iterations and 10 timed iterations each, the
+     counters read after each ("on": B3 = B4 = 10 and B1 = B2 = 0, which
+     shows the entry-budget fallback did not fire; "hybrid": all four 10,
+     with harmful tiles in every iteration), each followed by 10 profiled
+     iterations; one render(exact=True), which must launch B3 once without
+     the stash and give the "on" render's image; the small scene on both
+     devices with "on" and "hybrid";
+  4. on the main path's own rows (B1/B2: the tile rows of a k-capped
+     render; B3/B4: the CSR stream of an exact render, first held against
+     the twins as in phase 2) time each kernel (its own device time from
+     torch.profiler, and its wrapper per call between CUDA events), its
+     twin, and work out its bound; print one {"kernels": [...]} line;
   5. print the device line last.
 
 It needs one CUDA card and exits non-zero without one, or without the rest of
 the repository beside it.
 """
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -41,6 +56,9 @@ EVENTS = 3
 EVENT_ITERS = 10
 TIMED_ITERS = 30
 PROFILE_ITERS = 20
+EXACT_TIMED_ITERS = 10  # timed iterations of exact_training "on" and "hybrid"
+PROFILE_EXACT_ITERS = 10
+HYBRID_K = 64  # a k at which the map has harmful tiles in every iteration
 
 # H100 SXM peaks (NVIDIA data sheet and Hopper white paper): HBM3 bandwidth,
 # float32 outside the tensor cores, and 16 special-function results per
@@ -82,6 +100,10 @@ SKIP_ATOL = 5e-3  # > exp(LOG_EPS): the most a skipped segment moves a value
 
 FWD_REPLACES = "activesplat_tpu/ops/raster_pallas.py:296 (_blend_fwd_pallas / _blend_kernel :52)"
 BWD_REPLACES = "activesplat_tpu/ops/raster_pallas.py:239 (_blend_bwd_pallas / _blend_bwd_kernel :123)"
+CSR_FWD_REPLACES = ("activesplat_tpu/ops/raster_pallas.py:436 "
+                    "(_blend_csr_fwd_pallas / _blend_csr_kernel :375)")
+CSR_BWD_REPLACES = ("activesplat_tpu/ops/raster_pallas.py:736 "
+                    "(_blend_csr_bwd_pallas / _blend_csr_bwd_kernel :628)")
 
 
 def nvidia_smi(query: str) -> str:
@@ -105,6 +127,30 @@ def cuda_ms(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def kernel_device_ms(torch, fn, kernel: str, reps: int) -> float:
+    """The device time of one launch of the CUDA kernel whose name contains
+    `kernel`, averaged over `reps` calls of its wrapper `fn` under
+    torch.profiler: the wrapper's host work and its small helper kernels
+    are left out (back-to-back wrapper calls measure the host when the
+    kernel is shorter than the wrapper's Python)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    times = [e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA and kernel in e.name]
+    # the trace may miss the first launches after it starts: average over
+    # those it holds, as long as it holds most
+    if not reps // 2 <= len(times) <= reps:
+        raise AssertionError(f"the profiler saw {len(times)} launches of {kernel} in {reps} calls")
+    return sum(times) / len(times) / 1e3
 
 
 def random_tiles(torch, seed: int, t: int = 256, k: int = 256):
@@ -247,6 +293,160 @@ def kernel_checks(torch, rc, rows, u0, v0, tag: str):
     return errs, (ent_k, g_acc, g_lt)
 
 
+def random_csr_stream(torch, seed: int, n_tiles: int = 256):
+    """A CSR stream (entry_data (E, 16), seg_tile, seg_u0, seg_v0) with the
+    edge cases mixed in: tiles 0-15 have no segment, 16-47 saturate in the
+    first of their three segments (large, opaque Gaussians), 48-63 hold
+    eight segments each, the rest one to four; every tile's last segment
+    ends in padding rows after a random length, and three padding segments
+    keyed to the padding tile n_tiles close the stream."""
+    from activesplat_tpu_torch.ops.raster_cuda import CSEG, N_ATTR, TILE
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    tiles_x = 16
+
+    def unif(lo, hi, *shape):
+        return lo + (hi - lo) * torch.rand(*shape, generator=g)
+
+    counts = torch.randint(1, 5, (n_tiles,), generator=g)
+    counts[:16] = 0
+    counts[16:48] = 3
+    counts[48:64] = 8
+    seg_tile = torch.cat([torch.repeat_interleave(torch.arange(n_tiles), counts),
+                          torch.full((3,), n_tiles)])
+    e = seg_tile.shape[0] * CSEG
+    tile = seg_tile.repeat_interleave(CSEG)  # (E,) each row's tile
+    rows = torch.zeros((e, N_ATTR))
+    rows[:, 0] = (tile % tiles_x) * TILE + unif(-8, 24, e)
+    rows[:, 1] = torch.div(tile, tiles_x, rounding_mode="floor") * TILE + unif(-8, 24, e)
+    rows[:, 2] = unif(0.02, 0.6, e)
+    rows[:, 3] = unif(-0.02, 0.02, e)
+    rows[:, 4] = unif(0.02, 0.6, e)
+    rows[:, 5] = unif(0.02, 0.5, e)
+    rows[:, 6:6 + N_CHANNELS] = unif(0, 1, e, N_CHANNELS)
+    sat = (tile >= 16) & (tile < 48)
+    n_sat = int(sat.sum())
+    rows[sat, 2] = unif(0.001, 0.01, n_sat)
+    rows[sat, 3] = 0.0
+    rows[sat, 4] = unif(0.001, 0.01, n_sat)
+    rows[sat, 5] = unif(0.9, 0.99, n_sat)
+    # each run: (count - 1) full segments, then 1..CSEG members, then padding
+    first_row = torch.cumsum(counts, 0) * CSEG - counts * CSEG
+    length = counts * CSEG - torch.randint(0, CSEG, (n_tiles,), generator=g)
+    in_grid = tile < n_tiles
+    rank = torch.arange(e) - first_row[tile.clamp(max=n_tiles - 1)]
+    pad = ~in_grid | (rank >= length[tile.clamp(max=n_tiles - 1)])
+    rows[pad] = torch.tensor([-1e9, -1e9, 1.0, 1.0, 1.0] + [0.0] * (N_ATTR - 5))
+    grid = seg_tile < n_tiles
+    seg_u0 = torch.where(grid, (seg_tile % tiles_x) * TILE, 0)
+    seg_v0 = torch.where(grid, torch.div(seg_tile, tiles_x, rounding_mode="floor") * TILE, 0)
+    return (rows.cuda(), *(x.to(torch.int32).cuda() for x in (seg_tile, seg_u0, seg_v0)))
+
+
+def csr_bwd_carry_leak(torch, rc, stream, entry, g_acc, g_lt, n_tiles):
+    """B4's twin with one planted fault: the suffix carry is not reset at a
+    tile boundary, so each tile starts from the carry of every tile after
+    it, as a kernel would that walked the whole stream back to front with
+    one carry."""
+    blocks, starts, counts, px, py, ranks = rc._csr_tiles(*stream, n_tiles)
+    g = torch.nn.functional.pad(g_acc, (0, rc.MAX_CHANNELS - g_acc.shape[-1]))
+
+    def walk(b):
+        d_data = torch.zeros_like(stream[0])
+        d_blocks = d_data.view(blocks.shape)
+        for r in reversed(range(ranks)):
+            act = torch.nonzero(counts > r).squeeze(1)
+            seg = starts[act].long() + r
+            d_blocks[seg, :, :14], b[act] = rc._bwd_segment(
+                blocks[seg], px[act], py[act], entry[seg], g[act], g_lt[act], b[act]
+            )
+        return d_data, b
+
+    _, total = walk(stream[0].new_zeros((n_tiles, rc.PX)))
+    later = total.flip(0).cumsum(0).flip(0) - total  # carries of the tiles after each
+    return walk(later)[0]
+
+
+def csr_kernel_checks(torch, rc, stream, n_tiles: int, tag: str):
+    """B3 and B4 against their twins on one CSR stream, with the tolerances
+    of kernel_checks; a tile is a boundary tile when the max logT at one of
+    its segment starts lies within BOUNDARY of LOG_EPS on either side.
+    Planted faults (a stash shifted by one segment, logT scaled by 1.001,
+    each live gradient column zeroed, the carry not reset at tile
+    boundaries) must be rejected."""
+    seg_tile = stream[1]
+    c = N_CHANNELS
+    shares = {}
+    acc_k, lt_k, ent_k = rc.blend_csr_fwd(*stream, n_tiles, c, with_entry=True)
+    acc_p, lt_p, ent_p = rc.blend_csr_fwd_plain(*stream, n_tiles, c, with_entry=True)
+    in_grid = seg_tile < n_tiles
+    seg_near = ((torch.stack([ent_k, ent_p]).amax(dim=2) - rc.LOG_EPS).abs() < BOUNDARY).any(dim=0)
+    near = torch.zeros(n_tiles + 1, dtype=torch.bool, device="cuda")
+    near[seg_tile[seg_near & in_grid].long()] = True
+    near = near[:n_tiles]
+    strict_seg = in_grid & ~near[seg_tile.long().clamp(max=n_tiles - 1)]
+    near_seg = in_grid & ~strict_seg
+
+    def fwd_shares(acc, lt, ent):
+        chan = acc_p.abs().amax(dim=(0, 1))
+        acc_lim = (REL_TOL + (SKIP_ATOL - REL_TOL) * near.float())[:, None, None] * chan
+        out = [check_close(f"{tag} csr fwd accum", acc, acc_p, acc_lim)]
+        for what, got, want, strict, loose in (("logT", lt, lt_p, ~near, near),
+                                               ("entry", ent, ent_p, strict_seg, near_seg)):
+            got_s, want_s = got[strict], want[strict]
+            out.append(check_close(f"{tag} csr fwd {what}", got_s, want_s,
+                                   LOGT_ATOL + REL_TOL * want_s.abs()))
+            out.append(check_close(f"{tag} csr fwd {what} (boundary tiles)", got[loose].exp(),
+                                   want[loose].exp(), torch.tensor(SKIP_ATOL)))
+        if bool(ent[~in_grid].any()):
+            raise AssertionError(f"{tag}: padding segments' stash is not zero")
+        return max(out)
+
+    shares["fwd"] = fwd_shares(acc_k, lt_k, ent_k)
+    acc_n, lt_n = rc.blend_csr_fwd(*stream, n_tiles, c)
+    if not (torch.equal(acc_n, acc_k) and torch.equal(lt_n, lt_k)):
+        raise AssertionError(f"{tag}: the CSR forward with and without the stash differ")
+    shifted = ent_k.roll(1, 0)
+    if bool((shifted != ent_k).any()):  # a stream of one-segment runs stashes only zeros
+        must_reject("stash shifted by one segment", lambda: fwd_shares(acc_k, lt_k, shifted))
+    must_reject("logT scaled by 1.001", lambda: fwd_shares(acc_k, lt_k * 1.001, ent_k))
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    g_acc = torch.randn(acc_k.shape, generator=g, device="cuda")
+    g_lt = torch.randn(lt_k.shape, generator=g, device="cuda")
+    d_k = rc.blend_csr_bwd(*stream, ent_k, g_acc, g_lt, n_tiles, c)
+    d_p = rc.blend_csr_bwd_plain(*stream, ent_k, g_acc, g_lt, n_tiles, c)
+    col_max = d_p.abs().amax(dim=0)  # (16,)
+    d_lim = REL_TOL * col_max
+
+    def bwd_share(d):
+        return check_close(f"{tag} csr bwd", d, d_p, d_lim)
+
+    shares["bwd"] = bwd_share(d_k)
+    per_col = (d_k - d_p).abs().amax(dim=0) / torch.clamp(col_max, min=1e-30)
+    for col in range(6 + c):
+        zeroed = d_k.clone()
+        zeroed[:, col] = 0.0
+        must_reject(f"csr gradient column {col} zeroed", lambda: bwd_share(zeroed))
+    leak = csr_bwd_carry_leak(torch, rc, stream, ent_k, g_acc, g_lt, n_tiles)
+    must_reject("carry not reset at tile boundaries", lambda: bwd_share(leak))
+
+    errs = {
+        "fwd": max(float((acc_k - acc_p).abs().max()),
+                   float((lt_k[~near] - lt_p[~near]).abs().max()),
+                   float((ent_k[strict_seg] - ent_p[strict_seg]).abs().max())),
+        "bwd": float((d_k - d_p).abs().max()),
+    }
+    n_seg = seg_tile.shape[0]
+    print(f"{tag}: {n_seg} segments ({int(in_grid.sum())} of tiles, "
+          f"{int((ent_k.amax(dim=1) < rc.LOG_EPS)[in_grid].sum())} skipped), "
+          f"{int(near.sum())} boundary tiles; blend_csr_fwd max_abs_err={errs['fwd']:.3e} "
+          f"({shares['fwd']:.3f} of tolerance), blend_csr_bwd max_abs_err={errs['bwd']:.3e} "
+          f"({shares['bwd']:.3f} of tolerance); bwd max err per column / column max: "
+          + " ".join(f"{float(x):.1e}" for x in per_col[:6 + c]))
+    return errs, (ent_k, g_acc, g_lt)
+
+
 def main_path_rows(torch, buf, cam):
     """The blend kernels' inputs for one training render of the map."""
     from activesplat_tpu_torch.ops.projection import adaptive_cull_radius, project_gaussians
@@ -268,6 +468,45 @@ def main_path_rows(torch, buf, cam):
     return rows.contiguous(), u0, v0
 
 
+def main_path_csr(torch, buf, cam):
+    """The CSR blend kernels' inputs for one exact render of the map: the
+    stream (entry_data, seg_tile, seg_u0, seg_v0) and the tile count."""
+    from activesplat_tpu_torch.ops.projection import adaptive_cull_radius, project_gaussians
+    from activesplat_tpu_torch.ops.raster_tiled import csr_rows
+
+    p = buf.params
+    with torch.no_grad():
+        proj = project_gaussians(
+            p.means3d, p.quats, p.log_scales, buf.active, cam.w2c,
+            cam.fx, cam.fy, cam.cx, cam.cy, cam.width, cam.height,
+        )
+        opac = torch.sigmoid(p.logit_opacities)
+        radius, valid = adaptive_cull_radius(proj.radius, proj.valid, opac)
+        colors = torch.cat([p.rgb, proj.depth[:, None], (proj.depth ** 2)[:, None]], -1)
+        data, seg_tile, seg_u0, seg_v0, dropped = csr_rows(
+            proj.mean2d, proj.conic, opac, colors, valid, radius, proj.depth,
+            width=cam.width, height=cam.height,
+        )
+    if dropped:
+        raise AssertionError(f"the main path's exact render passed the entry budget by {dropped}")
+    return (data.contiguous(), seg_tile, seg_u0, seg_v0), (-(-cam.width // 16)) * (-(-cam.height // 16))
+
+
+def csr_pair_counts(torch, rc, stream, entry, n_tiles):
+    """(walked segments, walked pairs, live pairs) of a CSR stream: the
+    (row, pixel) pairs of the segments the forward walks, and those among
+    them whose alpha is not zero."""
+    data, seg_tile, seg_u0, seg_v0 = stream
+    walked_seg = (seg_tile < n_tiles) & (entry.amax(dim=1) >= rc.LOG_EPS)
+    blocks = data.view(-1, rc.CSEG, rc.N_ATTR)
+    live = 0
+    for chunk in torch.nonzero(walked_seg).squeeze(1).split(64):
+        px, py = rc._pixel_coords(seg_u0[chunk], seg_v0[chunk])
+        live += int(rc._segment_geometry(blocks[chunk], px, py)[5].sum())
+    n_walked = int(walked_seg.sum())
+    return n_walked, n_walked * rc.CSEG * rc.PX, live
+
+
 def pair_counts(torch, rc, rows, u0, v0, entry):
     """(walked, live): the (row, pixel) pairs of the segments the forward
     walks, and those among them whose alpha is not zero."""
@@ -281,11 +520,12 @@ def pair_counts(torch, rc, rows, u0, v0, entry):
     return int(walked_seg.sum()) * rc.SEG * rc.PX, live
 
 
-def small_scene_check(torch, np):
+def small_scene_check(torch, np, exact_training="off", k_per_tile=64):
     """The port on the card against the port on the CPU (plain twins): loss
     and gradients of mapping_loss on a small random scene. Tolerance: the
     two differ in summation order only (and the SSIM matmuls' blocking), so
-    1e-4 relative to each gradient's scale."""
+    1e-4 relative to each gradient's scale. At k_per_tile=16 the cap bites,
+    so "hybrid" recomposites tiles with the CSR blend."""
     from activesplat_tpu_torch.mapper.config import MapperConfig
     from activesplat_tpu_torch.mapper.step import loss_and_grads
     from activesplat_tpu_torch.models.gaussians import GaussianBuffer, GaussianParams, make_camera
@@ -304,7 +544,7 @@ def small_scene_check(torch, np):
     im = rng.uniform(0, 1, (h, w, 3)).astype(np.float32)
     dep = rng.uniform(2.0, 5.0, (h, w)).astype(np.float32)
     intr = np.array([[40.0, 0, w / 2 - 1], [0, 40.0, h / 2 - 1], [0, 0, 1]])
-    cfg = MapperConfig(k_per_tile=64, exact_training="off")
+    cfg = MapperConfig(k_per_tile=k_per_tile, exact_training=exact_training)
     results = []
     for dev in ("cpu", "cuda"):
         buf = GaussianBuffer.empty(512, device=dev)
@@ -330,15 +570,18 @@ def small_scene_check(torch, np):
         scale = float(b.abs().max()) + 1e-12
         err = float((a - b).abs().max()) / scale
         worst = max(worst, err)
+    tag = f"small scene, exact_training={exact_training!r}, k={k_per_tile}"
     if worst > 1e-4:
-        raise AssertionError(f"small scene gradients differ: {worst:.3e} of scale")
-    print(f"small scene: loss cuda {float(l_gpu):.7f} cpu {float(l_cpu):.7f}, "
+        raise AssertionError(f"{tag}: gradients differ: {worst:.3e} of scale")
+    print(f"{tag}: loss cuda {float(l_gpu):.7f} cpu {float(l_cpu):.7f}, "
           f"max grad err {worst:.3e} of scale")
 
 
-def profile_iterations(torch, step, iters: int, timed_ms: float, card: str) -> None:
+def profile_iterations(torch, step, iters: int, timed_ms: float, card: str,
+                       tables=("device", "host")) -> None:
     """Run `iters` chained steps under torch.profiler; print the device's
-    busy time and idle share per iteration and the top operators."""
+    busy time and idle share per iteration and the top operators by device
+    and (if asked) host time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -356,8 +599,9 @@ def profile_iterations(torch, step, iters: int, timed_ms: float, card: str) -> N
           f"in {len(kernels) / iters:.0f} kernels/iter, idle share {1.0 - busy_ms / wall_ms:.3f} "
           f"of the profiled wall time, {1.0 - busy_ms / timed_ms:.3f} of the unprofiled one")
     averages = prof.key_averages()
-    print(averages.table(sort_by="self_device_time_total", row_limit=20))
-    print(averages.table(sort_by="self_cpu_time_total", row_limit=20))
+    for table in tables:
+        sort_by = {"device": "self_device_time_total", "host": "self_cpu_time_total"}[table]
+        print(averages.table(sort_by=sort_by, row_limit=20))
 
 
 def main() -> int:
@@ -404,6 +648,8 @@ def main() -> int:
     errs_p, _ = kernel_checks(torch, rc, rows_p.contiguous(), u0_p, v0_p, "padded K=192->256")
     for k in errs:
         errs[k] = max(errs[k], errs_p[k])
+    csr_errs, _ = csr_kernel_checks(torch, rc, random_csr_stream(torch, seed=0), 256,
+                                    "random CSR stream, 256 tiles")
     torch.cuda.synchronize()
 
     # ---- phase 3: the mapping slice at the benchmark's size ------------ #
@@ -415,6 +661,8 @@ def main() -> int:
         mapping_phase,
     )
     from activesplat_tpu_torch.models.gaussians import GaussianBuffer
+    from activesplat_tpu_torch.ops.raster_tiled import rasterize_tiled_hybrid
+    from activesplat_tpu_torch.ops.render import render
     from activesplat_tpu_torch.runtime.bench_scene import build_map
     from activesplat_tpu_torch.utils.transforms import rot_axis
 
@@ -424,12 +672,16 @@ def main() -> int:
 
     by_phase = {}  # phase -> {kernel: launches}, counters set to 0 before each
 
-    def read_counts(phase, expect=None):
+    def read_counts(phase, capped=0, csr=0, csr_bwd=None):
+        """Read and reset the counters; the phase must have launched B1 and
+        B2 `capped` times each, B3 `csr` times and B4 `csr_bwd` times (by
+        default as often as B3)."""
         counts = {fn.__name__: fn.launches for fn in rc.KERNELS}
         rc.reset_launch_counts()
         by_phase[phase] = counts
-        if expect is not None and set(counts.values()) != {expect}:
-            raise AssertionError(f"{phase}: blend launches {counts}, not {expect} each")
+        expect = dict(zip(counts, (capped, capped, csr, csr if csr_bwd is None else csr_bwd)))
+        if counts != expect:
+            raise AssertionError(f"{phase}: blend launches {counts}, not {expect}")
         return counts
 
     rc.reset_launch_counts()
@@ -443,60 +695,132 @@ def main() -> int:
 
     store = KeyframeStore.empty(16, RES, RES)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for ev in range(EVENTS):
+    hybrid = rasterize_tiled_hybrid  # its .calls and .harmful_tiles count
+
+    def event(ev, cfg_e, phase, capped=0, csr=0):
+        """One mapping_phase event of EVENT_ITERS iterations on a view
+        turned 4 degrees further per event, its launches read after it."""
+        nonlocal buf, store
         c2w = rot_axis(c2w0, "y", np.deg2rad(4.0 * ev))
         c2w[:3, 3] += [0.05 * ev, 0.0, 0.0]
         rgb, depth = scene.frame(c2w)
         w2c = torch.from_numpy(np.linalg.inv(c2w).astype(np.float32)).cuda()
         rc.reset_launch_counts()
         buf, store, met = mapping_phase(
-            buf, store, rgb, depth, w2c, ev, cam, gen, cfg, EVENT_ITERS
+            buf, store, rgb, depth, w2c, ev, cam, gen, cfg_e, EVENT_ITERS
         )
-        counts = read_counts(f"mapping_phase {ev}", EVENT_ITERS)
+        counts = read_counts(phase, capped, csr)
         store.committed(rgb, depth, w2c, ev)
         losses = met["loss"].cpu().numpy()
         if not np.isfinite(losses).all():
-            raise AssertionError(f"event {ev}: non-finite losses {losses}")
-        print(f"mapping_phase {ev}: losses {losses[0]:.5f} -> {losses[-1]:.5f}, "
+            raise AssertionError(f"{phase}: non-finite losses {losses}")
+        print(f"{phase}: losses {losses[0]:.5f} -> {losses[-1]:.5f}, "
               f"psnr {float(met['psnr'][-1]):.3f}, dropped {int(met['dropped'].max())}, "
               f"window {int(met['num_window'])}, launches {counts}")
 
+    def timed(cfg_e, iters, phase, capped=0, csr=0):
+        """`iters` chained mapping_iterations from a fresh optimizer state;
+        returns (iterations/s by the host clock, the last metrics)."""
+        nonlocal buf
+        opt = AdamState.init(buf.params)
+        torch.cuda.synchronize()
+        rc.reset_launch_counts()
+        t0 = time.perf_counter()
+        acc = torch.zeros((), device="cuda")
+        for _ in range(iters):
+            buf, opt, m = mapping_iteration(buf, opt, cam, rgb0, depth0, cfg_e)
+            acc = acc + m["loss"] + 1e-20 * (m["psnr"] + m["depth_l1"])
+        final = float(acc)  # synchronises and reads the chain's value
+        dt = time.perf_counter() - t0
+        read_counts(phase, capped, csr)
+        if not math.isfinite(final):
+            raise AssertionError(f"{phase}: non-finite loss")
+        return iters / dt, m
+
+    def profile(cfg_e, iters, timed_its, tables):
+        state = [buf, AdamState.init(buf.params)]
+
+        def step():
+            state[0], state[1], out = mapping_iteration(state[0], state[1], cam, rgb0, depth0, cfg_e)
+            return out
+
+        profile_iterations(torch, step, iters, 1000.0 / timed_its, card, tables)
+
+    for ev in range(EVENTS):
+        event(ev, cfg, f"mapping_phase {ev}", capped=EVENT_ITERS)
     opt = AdamState.init(buf.params)
     rc.reset_launch_counts()
     buf, opt, m = mapping_iteration(buf, opt, cam, rgb0, depth0, cfg)
-    read_counts("warm-up", 1)
-    torch.cuda.synchronize()
+    read_counts("warm-up", capped=1)
+    its, m = timed(cfg, TIMED_ITERS, "timed", capped=TIMED_ITERS)
+    print(f"mapping_iters_per_sec@{N_GAUSSIANS}g_{RES}px = {its:.3f} "
+          f"({1000.0 / its:.3f} ms/iter, {TIMED_ITERS} iterations, loss "
+          f"{float(m['loss']):.5f}, dropped {int(m['dropped'])}) on {card}")
+    profile(cfg, PROFILE_ITERS, its, ("device", "host"))
+    small_scene_check(torch, np)
+
+    # ---- phase 3b: exact and hybrid training, the exact render ---------- #
+    # "on" trains every tile through B3/B4; B1/B2 launch only if the entry
+    # budget overflows (the fallback to the k-capped render), so their
+    # counts of 0 show that no fallback fired
+    cfg_on = dataclasses.replace(cfg, exact_training="on")
+    event(EVENTS, cfg_on, "mapping_phase exact_training=on", csr=EVENT_ITERS)
+    its_on, m = timed(cfg_on, EXACT_TIMED_ITERS, "timed exact_training=on", csr=EXACT_TIMED_ITERS)
+    print(f"mapping_iters_per_sec_exact_on@{N_GAUSSIANS}g_{RES}px = {its_on:.3f} "
+          f"({1000.0 / its_on:.3f} ms/iter, {EXACT_TIMED_ITERS} iterations, loss "
+          f"{float(m['loss']):.5f}) on {card}")
+    profile(cfg_on, PROFILE_EXACT_ITERS, its_on, ("device",))
+
+    # "hybrid" at k=64: every iteration has harmful tiles, so B3/B4 launch
+    # once per iteration; a CSR budget overflow would skip them (the
+    # fallback to the capped render), so B3 = B4 = 10 shows none fired
+    cfg_h = dataclasses.replace(cfg, exact_training="hybrid", k_per_tile=HYBRID_K)
+
+    def harmful_since(phase, calls, harmful):
+        per_iter = (hybrid.harmful_tiles - harmful) / (hybrid.calls - calls)
+        print(f"{phase}: {per_iter:.1f} harmful tiles per iteration, of {(RES // 16) ** 2}")
+        if per_iter <= 0:
+            raise AssertionError(f"{phase}: no harmful tile at k={HYBRID_K}")
+
+    phase = "mapping_phase exact_training=hybrid"
+    calls, harmful = hybrid.calls, hybrid.harmful_tiles
+    event(EVENTS + 1, cfg_h, phase, capped=EVENT_ITERS, csr=EVENT_ITERS)
+    harmful_since(phase, calls, harmful)
+    phase = "timed exact_training=hybrid"
+    calls, harmful = hybrid.calls, hybrid.harmful_tiles
+    its_h, m = timed(cfg_h, EXACT_TIMED_ITERS, phase, capped=EXACT_TIMED_ITERS, csr=EXACT_TIMED_ITERS)
+    harmful_since(phase, calls, harmful)
+    print(f"mapping_iters_per_sec_hybrid_k{HYBRID_K}@{N_GAUSSIANS}g_{RES}px = {its_h:.3f} "
+          f"({1000.0 / its_h:.3f} ms/iter, {EXACT_TIMED_ITERS} iterations, loss "
+          f"{float(m['loss']):.5f}, dropped {int(m['dropped'])}) on {card}")
+    profile(cfg_h, PROFILE_EXACT_ITERS, its_h, ("device",))
+
+    # the forward-only exact render: one launch of B3, without the stash
+    # (its output carries no autograd graph although the parameters ask
+    # for gradients, so BlendCSR saved nothing and B3 ran without the
+    # stash), giving the image of the "on" render's forward
+    grad_buf = buf.replace(params=buf.params.map(lambda x: x.detach().requires_grad_(True)))
     rc.reset_launch_counts()
-    t0 = time.perf_counter()
-    acc = torch.zeros((), device="cuda")
-    for _ in range(TIMED_ITERS):
-        buf, opt, m = mapping_iteration(buf, opt, cam, rgb0, depth0, cfg)
-        acc = acc + m["loss"] + 1e-20 * (m["psnr"] + m["depth_l1"])
-    final = float(acc)  # synchronises and reads the chain's value
-    dt = time.perf_counter() - t0
-    read_counts("timed", TIMED_ITERS)
-    if not math.isfinite(final):
-        raise AssertionError("timed iterations produced a non-finite loss")
+    exact_img = render(grad_buf, cam, k_per_tile=K_PER_TILE, exact=True)
+    read_counts("render exact=True", csr=1, csr_bwd=0)
+    if exact_img.rgb.requires_grad:
+        raise AssertionError("render(exact=True) built an autograd graph")
+    on_img = render(grad_buf, cam, k_per_tile=K_PER_TILE, grad_exact=True)
+    gap = max(float((getattr(exact_img, f) - getattr(on_img, f).detach()).abs().max())
+              for f in ("rgb", "depth", "alpha"))
+    if gap > 1e-6 or int(exact_img.dropped) != 0:
+        raise AssertionError(f"render(exact=True) differs from the 'on' forward by {gap:.3e}")
+    print(f"render(exact=True): one B3 launch without the stash; rgb, depth and alpha "
+          f"within {gap:.3e} of the exact_training='on' render's forward")
+
+    for mode in ("on", "hybrid"):
+        small_scene_check(torch, np, exact_training=mode, k_per_tile=16)
+
     launches = {fn.__name__: sum(c[fn.__name__] for c in by_phase.values()) for fn in rc.KERNELS}
     for name, count in launches.items():
         if count == 0:
             raise AssertionError(f"{name} was never launched on the main path")
-    its = TIMED_ITERS / dt
-    print(f"mapping_iters_per_sec@{N_GAUSSIANS}g_{RES}px = {its:.3f} "
-          f"({1000.0 / its:.3f} ms/iter, {TIMED_ITERS} iterations, loss "
-          f"{float(m['loss']):.5f}, dropped {int(m['dropped'])}) on {card}")
     print(f"main-path launches by phase: {by_phase}")
-
-    state = [buf, opt]
-
-    def step():
-        state[0], state[1], out = mapping_iteration(state[0], state[1], cam, rgb0, depth0, cfg)
-        return out
-
-    profile_iterations(torch, step, PROFILE_ITERS, 1000.0 / its, card)
-    buf = state[0]
-
-    small_scene_check(torch, np)
 
     # ---- phase 4: kernels at the main path's rows ---------------------- #
     rows, u0, v0 = main_path_rows(torch, buf, cam)
@@ -508,12 +832,10 @@ def main() -> int:
     px_bytes = t * rc.PX * 4
     fwd_bytes = n_walked_seg * seg_bytes + 2 * t * 4 + px_bytes * (N_CHANNELS + 1 + k // rc.SEG)
     bwd_bytes = n_walked_seg * seg_bytes + 2 * t * 4 + px_bytes * (k // rc.SEG + N_CHANNELS + 1) + t * k * rc.N_ATTR * 4
-    fwd_ms = cuda_ms(lambda: rc.blend_tiles_fwd(rows, u0, v0, N_CHANNELS, with_entry=True), 100)
-    fwd_plain_ms = cuda_ms(lambda: rc.blend_tiles_fwd_plain(rows, u0, v0, N_CHANNELS, with_entry=True), 10)
-    bwd_ms = cuda_ms(lambda: rc.blend_tiles_bwd(rows, u0, v0, entry, g_acc, g_lt, N_CHANNELS), 100)
-    bwd_plain_ms = cuda_ms(lambda: rc.blend_tiles_bwd_plain(rows, u0, v0, entry, g_acc, g_lt, N_CHANNELS), 10)
+    fwd_args = (rows, u0, v0, N_CHANNELS)
+    bwd_args = (rows, u0, v0, entry, g_acc, g_lt, N_CHANNELS)
 
-    def bound(nbytes, live_f32):
+    def bound(nbytes, walked, live, live_f32):
         f32_ops = walked * WALKED_F32 + live * live_f32
         times = {
             "bytes": nbytes / HBM_BYTES_PER_S * 1e3,
@@ -524,24 +846,68 @@ def main() -> int:
 
     print(f"main-path rows: {n_walked_seg} of {t * (k // rc.SEG)} segments walked, "
           f"{walked} (row, pixel) pairs walked, {live} of them live ({live / walked:.4f})")
+    fwd_bound = bound(fwd_bytes, walked, live, live_f32_fwd(N_CHANNELS))
+    bwd_bound = bound(bwd_bytes, walked, live, live_f32_bwd(N_CHANNELS))
+
+    # the CSR pair at the stream of one exact render of the map
+    stream, n_tiles = main_path_csr(torch, buf, cam)
+    n_seg = stream[1].shape[0]
+    csr_errs_m, (c_entry, c_g_acc, c_g_lt) = csr_kernel_checks(
+        torch, rc, stream, n_tiles, f"main-path CSR stream, {n_seg} segments"
+    )
+    c_seg, c_walked, c_live = csr_pair_counts(torch, rc, stream, c_entry, n_tiles)
+    visited = int(torch.unique(stream[1][stream[1] < n_tiles]).numel())
+    # bytes: the walked segments' rows, the per-tile segment ranges, the
+    # stash (written by B3, read by B4), the pixels' outputs or cotangents,
+    # and B4's gradient rows, every one of them written
+    c_seg_bytes = rc.CSEG * rc.N_ATTR * 4
+    stash_bytes = n_seg * rc.PX * 4
+    csr_fwd_bytes = (c_seg * c_seg_bytes + 2 * n_tiles * 4 + stash_bytes
+                     + n_tiles * rc.PX * 4 * (N_CHANNELS + 1))
+    csr_bwd_bytes = (c_seg * c_seg_bytes + 2 * n_tiles * 4 + stash_bytes
+                     + visited * rc.PX * 4 * (N_CHANNELS + 1) + n_seg * c_seg_bytes)
+    csr_args = (*stream, n_tiles, N_CHANNELS)
+    csr_bwd_args = (*stream, c_entry, c_g_acc, c_g_lt, n_tiles, N_CHANNELS)
+    print(f"main-path CSR stream: {c_seg} of {n_seg} segments walked ({visited} tiles with "
+          f"entries), {c_walked} (row, pixel) pairs walked, {c_live} of them live "
+          f"({c_live / c_walked:.4f})")
+
+    # "ms" is the kernel's own device time (profiler); "wrapper_ms" the time
+    # per call of 100 back-to-back wrapper calls between CUDA events, which
+    # includes the wrapper's helper kernels and, where the host is slower
+    # than the device, its Python
     kernels = []
-    for name, src, repl, ms, plain_ms, (b_ms, b_by), err in (
+    for name, src, repl, run, plain, kernel, (b_ms, b_by), err in (
         ("blend_tiles_fwd", "activesplat_tpu_torch/csrc/blend_fwd.cu", FWD_REPLACES,
-         fwd_ms, fwd_plain_ms, bound(fwd_bytes, live_f32_fwd(N_CHANNELS)),
-         max(errs["fwd"], errs_m["fwd"])),
+         lambda: rc.blend_tiles_fwd(*fwd_args, with_entry=True),
+         lambda: rc.blend_tiles_fwd_plain(*fwd_args, with_entry=True), "blend_fwd_kernel",
+         fwd_bound, max(errs["fwd"], errs_m["fwd"])),
         ("blend_tiles_bwd", "activesplat_tpu_torch/csrc/blend_bwd.cu", BWD_REPLACES,
-         bwd_ms, bwd_plain_ms, bound(bwd_bytes, live_f32_bwd(N_CHANNELS)),
-         max(errs["bwd"], errs_m["bwd"])),
+         lambda: rc.blend_tiles_bwd(*bwd_args), lambda: rc.blend_tiles_bwd_plain(*bwd_args),
+         "blend_bwd_kernel", bwd_bound, max(errs["bwd"], errs_m["bwd"])),
+        ("blend_csr_fwd", "activesplat_tpu_torch/csrc/blend_csr_fwd.cu", CSR_FWD_REPLACES,
+         lambda: rc.blend_csr_fwd(*csr_args, with_entry=True),
+         lambda: rc.blend_csr_fwd_plain(*csr_args, with_entry=True), "blend_csr_fwd_kernel",
+         bound(csr_fwd_bytes, c_walked, c_live, live_f32_fwd(N_CHANNELS)),
+         max(csr_errs["fwd"], csr_errs_m["fwd"])),
+        ("blend_csr_bwd", "activesplat_tpu_torch/csrc/blend_csr_bwd.cu", CSR_BWD_REPLACES,
+         lambda: rc.blend_csr_bwd(*csr_bwd_args), lambda: rc.blend_csr_bwd_plain(*csr_bwd_args),
+         "blend_csr_bwd_kernel",
+         bound(csr_bwd_bytes, c_walked, c_live, live_f32_bwd(N_CHANNELS)),
+         max(csr_errs["bwd"], csr_errs_m["bwd"])),
     ):
+        ms = kernel_device_ms(torch, run, kernel, 20)
+        wrapper_ms = cuda_ms(run, 100)
+        plain_ms = cuda_ms(plain, 5)
         phases = {phase: c[name] for phase, c in by_phase.items()}
-        print(f"{name}: max_abs_err={err:.3e} kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, "
-              f"bound {b_ms:.4f} ms ({b_by}, {b_ms / ms:.3f} of it reached), "
-              f"launches {launches[name]} {phases} on {card}")
+        print(f"{name}: max_abs_err={err:.3e} kernel {ms:.4f} ms (wrapper {wrapper_ms:.4f} ms "
+              f"per call), twin {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+              f"{b_ms / ms:.3f} of it reached), launches {launches[name]} {phases} on {card}")
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": repl,
             "launches": launches[name], "launches_by_phase": phases,
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None,
+            "max_abs_err": err, "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         })
     torch.cuda.synchronize()
     print(f"total {time.perf_counter() - t_start:.1f} s")

@@ -134,7 +134,13 @@ def test_cpu_path_launches_no_kernel():
     rc.blend_tiles_bwd(
         t_rows, t_u0, t_v0, entry, torch.zeros((T, rc.PX, C)), torch.zeros((T, rc.PX)), C
     )
-    assert [fn.launches for fn in rc.KERNELS] == [0, 0]
+    # the same rows as a CSR stream: K=128 rows per tile, two tiles a segment
+    seg = torch.arange(T // 2, dtype=torch.int32)
+    csr = t_rows.reshape(-1, rc.N_ATTR)
+    _, _, entry = rc.blend_csr_fwd(csr, seg, t_u0[::2], t_v0[::2], T // 2, C, with_entry=True)
+    rc.blend_csr_bwd(csr, seg, t_u0[::2], t_v0[::2], entry, torch.zeros((T // 2, rc.PX, C)),
+                     torch.zeros((T // 2, rc.PX)), T // 2, C)
+    assert [fn.launches for fn in rc.KERNELS] == [0, 0, 0, 0]
 
 
 @pytest.mark.parametrize(

@@ -307,8 +307,10 @@ def test_render_matches_jax(k):
 
 
 def test_exact_renders_wait_for_a_later_slice():
-    _, tbuf = scene_buffers(10)
-    cam = make_camera(W, H, INTR, np.eye(4), device="cpu")
-    for kw in ({"exact": True}, {"grad_exact": True}, {"grad_exact": "hybrid"}):
-        with pytest.raises(NotImplementedError):
-            render(tbuf, cam, k_per_tile=64, **kw)
+    """The exact renders run (tests/test_torch_exact.py); only the dual-
+    transmittance walk (band=, kernel B5) still waits for a later slice."""
+    d = tiled_inputs(10, n=100)
+    args = [t(d[k]) for k in ("mean2d", "conic", "opacity", "colors", "valid", "radius", "depth")]
+    band = torch.ones(100, dtype=torch.bool)
+    with pytest.raises(NotImplementedError, match="B5"):
+        ttiled.rasterize_tiled_exact(*args, band, width=W, height=H)
