@@ -5,16 +5,18 @@ The module layout follows the JAX package so that each module's counterpart
 is found under the same name:
 
   ops/        projection, dense and tile-binned rasterizers, SSIM, and the
-              hand-written CUDA tile-blend kernels (ops/raster_cuda.py,
-              sources in csrc/, built by _build.py)
+              hand-written CUDA blend kernels (ops/raster_cuda.py, sources
+              in csrc/, built by _build.py)
   models/     the fixed-capacity Gaussian buffer and cameras
   mapper/     config, Adam, geometry, keyframes and the mapping step
-  runtime/    the procedural BoxWorld scene
-  utils/      quaternion and pose helpers
+  queries/    the planner's map queries: top-down maps, panorama
+              invisibility and the host-side hole scoring
+  runtime/    the procedural BoxWorld scene and the benchmark's map
+  utils/      quaternion, pose and intrinsics helpers; stage timers
   convert.py  the JAX package's state, as numpy arrays, into the port's tensors
 
-The package imports torch and numpy only. Entry points run on CUDA unless the
-caller passes device="cpu" (see device.py).
+The package imports torch, numpy and scipy only. Entry points run on CUDA
+unless the caller passes device="cpu" (see device.py).
 """
 
 from activesplat_tpu_torch.device import resolve_device, set_precision

@@ -1,6 +1,6 @@
 """The blends: hand-written CUDA kernels, their plain PyTorch twins, and the
 autograd Functions that pair them (counterpart of
-activesplat_tpu/ops/raster_pallas.py, kernels B1-B4).
+activesplat_tpu/ops/raster_pallas.py, kernels B1-B5).
 
 Tile blend (B1, B2): a tile's K depth-ordered Gaussians arrive as (K, 16)
 float32 rows [mx, my, a, b, c, opacity, col0..col7, pad, pad]; the forward
@@ -14,8 +14,13 @@ CSR blend (B3, B4): the same over each tile's whole list, the lists of all
 tiles concatenated as (E, 16) rows with each tile's run padded to a
 CSEG=256 multiple, the exit tested at each 256-row segment start.
 
+Dual CSR blend (B5, forward only): B3's walk carrying a second
+log-transmittance composited over the alphas masked by the band bit in
+column BAND_COL=14; the exit tests the band carry alone.
+
 Each wrapper launches its CUDA kernel (csrc/blend_fwd.cu, blend_bwd.cu,
-blend_csr_fwd.cu, blend_csr_bwd.cu) for a CUDA tensor, or raises; it runs its
+blend_csr_fwd.cu, blend_csr_bwd.cu, blend_csr_dual.cu) for a CUDA tensor,
+or raises; it runs its
 twin only for a tensor that lies on the CPU. The twins run the same
 algorithm in float32: the same segments, early exit and clamps, with a
 vectorised in-segment cumsum. The backward twins are the explicit analytic
@@ -39,6 +44,7 @@ SEG = 64  # rows per segment of the dense blend
 CSEG = 256  # rows per segment of the CSR blend (each tile's run is CSEG-aligned)
 N_ATTR = 16  # padded attribute count
 MAX_CHANNELS = 8
+BAND_COL = 14  # padding column of a CSR entry row carrying the band bit (B5)
 LOG_EPS = -5.55  # log(1/256): tile saturated below this transmittance
 
 _P = ctypes.c_void_p
@@ -102,19 +108,44 @@ def _segment_geometry(block, px, py):
     return dx, dy, power, raw, alpha, live
 
 
-def _fwd_segment(block, px, py, accum, logt):
-    """One segment of rows (T, S, 16) for a batch of T tiles: (accum, logt)
-    after it. A tile whose max logT is already below LOG_EPS is left as it
-    is (the early exit)."""
-    walk = logt.amax(dim=1) >= LOG_EPS  # (T,) tile not yet saturated
+def _blend_segment(block, px, py, logt):
+    """The front-to-back composite of one segment of rows (T, S, 16) over
+    entry log-transmittances logt (T, PX): (alpha (T, S, PX), colour
+    contribution (T, PX, 8), the segment's log-transmittance (T, PX))."""
     alpha = _segment_geometry(block, px, py)[4]
     logs = torch.log1p(-alpha)
     cum = torch.cumsum(logs, dim=1)
     weight = alpha * torch.exp(cum - logs + logt[:, None, :])  # (T, S, PX)
     contrib = torch.einsum("tsp,tsc->tpc", weight, block[:, :, 6 : 6 + MAX_CHANNELS])
+    return alpha, contrib, cum[:, -1]
+
+
+def _fwd_segment(block, px, py, accum, logt):
+    """One segment of rows (T, S, 16) for a batch of T tiles: (accum, logt)
+    after it. A tile whose max logT is already below LOG_EPS is left as it
+    is (the early exit)."""
+    walk = logt.amax(dim=1) >= LOG_EPS  # (T,) tile not yet saturated
+    _, contrib, seg_logt = _blend_segment(block, px, py, logt)
     return (
         torch.where(walk[:, None, None], accum + contrib, accum),
-        torch.where(walk[:, None], logt + cum[:, -1], logt),
+        torch.where(walk[:, None], logt + seg_logt, logt),
+    )
+
+
+def _dual_segment(block, px, py, accum, logt, logt_band):
+    """One segment through the dual walk: (accum, logt, logt_band) after it.
+    The band carry composites alpha * band, the band bit read from column
+    BAND_COL. A tile whose max band logT is below LOG_EPS is left as it is:
+    band alpha <= alpha, so band saturation implies full saturation, and
+    the full composite walks on past its own saturation until then."""
+    walk = logt_band.amax(dim=1) >= LOG_EPS
+    alpha, contrib, seg_logt = _blend_segment(block, px, py, logt)
+    band = block[:, :, BAND_COL : BAND_COL + 1]  # (T, S, 1) 0/1
+    seg_band = torch.cumsum(torch.log1p(-alpha * band), dim=1)[:, -1]
+    return (
+        torch.where(walk[:, None, None], accum + contrib, accum),
+        torch.where(walk[:, None], logt + seg_logt, logt),
+        torch.where(walk[:, None], logt_band + seg_band, logt_band),
     )
 
 
@@ -262,6 +293,25 @@ def blend_csr_bwd_plain(entry_data, seg_tile, seg_u0, seg_v0, entry, g_accum, g_
     return d_data
 
 
+def blend_csr_dual_fwd_plain(entry_data, seg_tile, seg_u0, seg_v0, n_tiles, n_channels=3):
+    """The dual CSR kernel's algorithm in PyTorch (the CPU path): step r
+    walks the r-th segment of every tile that has one, both carries at
+    once."""
+    blocks, starts, counts, px, py, ranks = _csr_tiles(
+        entry_data, seg_tile, seg_u0, seg_v0, n_tiles
+    )
+    accum = entry_data.new_zeros((n_tiles, PX, MAX_CHANNELS))
+    logt = entry_data.new_zeros((n_tiles, PX))
+    logt_band = entry_data.new_zeros((n_tiles, PX))
+    for r in range(ranks):
+        act = torch.nonzero(counts > r).squeeze(1)
+        seg = starts[act].long() + r
+        accum[act], logt[act], logt_band[act] = _dual_segment(
+            blocks[seg], px[act], py[act], accum[act], logt[act], logt_band[act]
+        )
+    return accum[:, :, :n_channels].contiguous(), logt, logt_band
+
+
 # --------------------------------------------------------------------------- #
 # Kernel wrappers
 # --------------------------------------------------------------------------- #
@@ -281,6 +331,7 @@ _INT_ARGS = {
     "blend_tiles_bwd": (6, 7, 8),
     "blend_csr_fwd": (5, 6),
     "blend_csr_bwd": (8, 9),
+    "blend_csr_dual_fwd": (5, 6),
 }
 
 
@@ -424,11 +475,39 @@ def blend_csr_bwd(entry_data, seg_tile, seg_u0, seg_v0, entry, g_accum, g_logt, 
     return d_data
 
 
+def blend_csr_dual_fwd(entry_data, seg_tile, seg_u0, seg_v0, n_tiles, n_channels=3):
+    """B5, forward only: B3's walk over the same stream, carrying a second
+    log-transmittance over alpha * band, the band bit (0 or 1) in column
+    BAND_COL of each entry row; colours stay in columns 6:6+C. The whole-
+    tile exit tests the band carry alone. Returns (accum (n_tiles, PX,
+    n_channels), log_transmittance, band log_transmittance (n_tiles, PX));
+    tiles with no segment get zeros."""
+    _check_csr(entry_data, seg_tile, seg_u0, seg_v0, n_tiles, n_channels)
+    if _device_kind(entry_data) == "cpu":
+        return blend_csr_dual_fwd_plain(entry_data, seg_tile, seg_u0, seg_v0, n_tiles, n_channels)
+    starts, counts = _tile_segments(seg_tile, n_tiles)
+    accum = entry_data.new_empty((n_tiles, PX, n_channels))
+    logt = entry_data.new_empty((n_tiles, PX))
+    logt_band = entry_data.new_empty((n_tiles, PX))
+    fn = _kernel("blend_csr_dual", "blend_csr_dual_fwd", 11)
+    with torch.cuda.device(entry_data.device):
+        ptrs = _cuda_args(entry_data, seg_u0, seg_v0, starts, counts, accum, logt, logt_band)
+        rc = fn(
+            *ptrs[:5], n_tiles, n_channels, *ptrs[5:],
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"blend_csr_dual_fwd launch failed: CUDA error {rc}")
+    blend_csr_dual_fwd.launches += 1
+    return accum, logt, logt_band
+
+
 blend_tiles_fwd.launches = 0
 blend_tiles_bwd.launches = 0
 blend_csr_fwd.launches = 0
 blend_csr_bwd.launches = 0
-KERNELS = (blend_tiles_fwd, blend_tiles_bwd, blend_csr_fwd, blend_csr_bwd)
+blend_csr_dual_fwd.launches = 0
+KERNELS = (blend_tiles_fwd, blend_tiles_bwd, blend_csr_fwd, blend_csr_bwd, blend_csr_dual_fwd)
 
 
 def reset_launch_counts() -> None:

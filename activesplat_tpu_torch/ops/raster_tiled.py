@@ -14,7 +14,8 @@ overflowing tile saturates or exhausts (the exact multi-pass walk).
 
 The exact path (rasterize_tiled_exact) expands every (Gaussian, tile)
 membership without a cap into CSR runs, each tile's run padded to a CSEG
-multiple, and blends them in the CSR kernels B3/B4. The hybrid
+multiple, and blends them in the CSR kernels B3/B4; with a band mask it
+walks them once in the dual kernel B5 (the top-down maps). The hybrid
 (rasterize_tiled_hybrid) runs the k-capped blend everywhere and recomposites
 with the CSR blend only the tiles whose truncation is harmful.
 
@@ -35,12 +36,14 @@ import torch
 import torch.nn.functional as F
 
 from activesplat_tpu_torch.ops.raster_cuda import (
+    BAND_COL,
     CSEG,
     LOG_EPS,
     N_ATTR,
     SEG,
     TILE,
     blend_csr,
+    blend_csr_dual_fwd,
     blend_tiles,
 )
 
@@ -413,7 +416,7 @@ def rasterize_tiled_exact(
     width: int,
     height: int,
     differentiable: bool = False,
-) -> Tuple[torch.Tensor, torch.Tensor, int]:
+):
     """Exact (uncapped) tile compositing over CSR runs: the duplicate-and-
     sort semantics of the CUDA reference, work O(total memberships).
 
@@ -422,19 +425,39 @@ def rasterize_tiled_exact(
     min(4N, _ENTRY_CAP); the image then composites only the Gaussians
     before the cut, and callers fall back (render_projected). Forward-only
     unless differentiable=True; the binning geometry carries no gradient
-    either way, only the gathered attribute rows do."""
-    if band is not None:
-        raise NotImplementedError(
-            "the dual-transmittance walk needs kernel B5, which a later slice of the port adds"
-        )
+    either way, only the gathered attribute rows do.
+
+    `band` (N,) bool (forward-only, C <= 8) selects the dual-transmittance
+    walk (kernel B5): the band bit rides in column BAND_COL of the entry
+    rows, and a third output, the log-transmittance composited over the
+    alphas of the band's Gaussians only, is bitwise what a band-only render
+    gives in the same entry order. The return is then (accum, log_t,
+    log_t_band, dropped); one expansion, sort, gather and walk serve both
+    top-down maps."""
+    if band is not None and differentiable:
+        raise ValueError("the dual-transmittance walk is forward-only")
     if not differentiable:
         mean2d, conic, opacity, colors = (x.detach() for x in (mean2d, conic, opacity, colors))
     tiles_x = -(-width // TILE)
     tiles_y = -(-height // TILE)
     data, packed, order, b = _prepare(mean2d, conic, opacity, colors, valid, radius, depth)
     layout = _csr_layout(packed[:b], order, data.shape[0], tiles_x, tiles_y)
-    accum_t, logt_t = _csr_blend(layout, data, tiles_x * tiles_y)
-    return (*_to_images(accum_t, logt_t, width, height), layout.dropped)
+    if band is None:
+        accum_t, logt_t = _csr_blend(layout, data, tiles_x * tiles_y)
+        return (*_to_images(accum_t, logt_t, width, height), layout.dropped)
+    c_dim = colors.shape[1]
+    if c_dim > BAND_COL - 6:
+        raise ValueError(f"the dual walk carries at most {BAND_COL - 6} channels, got {c_dim}")
+    n = data.shape[0]
+    data = torch.cat(
+        [data, data.new_zeros((n, BAND_COL - data.shape[1])), band.to(data.dtype)[:, None]], -1
+    )  # colours at 6:6+C, the band bit at BAND_COL
+    accum_t, logt_t, logt_band_t = blend_csr_dual_fwd(
+        _entry_rows(layout, data), layout.seg_tile, layout.seg_u0, layout.seg_v0,
+        tiles_x * tiles_y, c_dim,
+    )
+    accum, logt = _to_images(accum_t, logt_t, width, height)
+    return accum, logt, _to_images(accum_t, logt_band_t, width, height)[1], layout.dropped
 
 
 def rasterize_tiled_hybrid(

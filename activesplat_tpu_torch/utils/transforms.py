@@ -1,5 +1,6 @@
-"""Quaternion math on tensors (differentiable) and the numpy pose helpers the
-mapping slice uses (counterpart of activesplat_tpu/utils/transforms.py).
+"""Quaternion math on tensors (differentiable) and the numpy pose and
+intrinsics helpers the mapping slice and the map queries use (counterpart of
+activesplat_tpu/utils/transforms.py).
 
 Quaternions are stored (w, x, y, z), the reference's convention
 (src/mapper/splatam/splatam.py:81 initializes rotations to [1, 0, 0, 0]).
@@ -59,3 +60,14 @@ def rot_axis(view_c2w: np.ndarray, axis: str, angle_rad: float) -> np.ndarray:
     rot4 = np.eye(4)
     rot4[:3, :3] = rot
     return view_c2w @ rot4
+
+
+def compute_intrinsics(width: int, height: int, hfov_rad: float, vfov_rad: float | None = None):
+    """Pinhole intrinsics (fx, fy, cx, cy) from fields of view, with the
+    Habitat cx = W/2 - 1 quirk kept for output parity (reference:
+    src/dataloader/__init__.py:275-284)."""
+    fx = 0.5 * width / np.tan(hfov_rad / 2.0)
+    fy = fx if vfov_rad is None else 0.5 * height / np.tan(vfov_rad / 2.0)
+    cx = width / 2 - 1
+    cy = height / 2 - 1
+    return fx, fy, cx, cy

@@ -9,7 +9,10 @@ Phases, each fatal on failure:
      (B1, B2) on random tile rows (T=256, K=256, C=5, with empty, saturating
      and padded tiles), the CSR blend (B3, B4) on a random CSR stream (tiles
      with no, one and many segments, saturating tiles, padding segments),
-     and check that the comparisons reject planted faults;
+     and check that the comparisons reject planted faults; the dual CSR
+     blend (B5) on a random CSR stream with band bits (bands all set, none
+     and sparse, tiles whose full composite saturates a segment before the
+     band), with its two bitwise identities to B3;
   3. drive the mapping slice at the benchmark's size (200,000 Gaussians in
      a 262,144-slot buffer, 256x256 sensor, k_per_tile=256,
      exact_training="off"): first_frame_phase, three mapping_phase events of
@@ -29,11 +32,25 @@ Phases, each fatal on failure:
      iterations; one render(exact=True), which must launch B3 once without
      the stash and give the "on" render's image; the small scene on both
      devices with "on" and "hybrid";
-  4. on the main path's own rows (B1/B2: the tile rows of a k-capped
+  4a. on the mapping path's own rows (B1/B2: the tile rows of a k-capped
      render; B3/B4: the CSR stream of an exact render, first held against
      the twins as in phase 2) time each kernel (its own device time from
      torch.profiler, and its wrapper per call between CUDA events), its
-     twin, and work out its bound; print one {"kernels": [...]} line;
+     twin, and work out its bound;
+  3c. free the 200k map, build bench.py's query map (1,000,000 Gaussians)
+     and drive the planner's queries at bench_queries' size: render_topdown
+     (B5 once; 5 timed calls), the dual maps against the pair of exact
+     renders, IncrementalTopdown through five refreshes (first, unchanged,
+     a moved ball as a window equal to a fresh render, a global move,
+     grown capacity), global_invisibility with two nodes at scale 0.5 (B3
+     six times; 5 timed calls) and local_invisibility at scale 1.0 (B3
+     three times), each phase's launches asserted; the peak device memory;
+     the small scene on both devices;
+  4b. B5 on the top-down query's own CSR stream, checked and timed as in
+     4a;
+  4c. B3 held against its twin (forward, as in phase 2) on the CSR streams
+     of the six views of one global_invisibility call; print one
+     {"kernels": [...]} line;
   5. print the device line last.
 
 It needs one CUDA card and exits non-zero without one, or without the rest of
@@ -104,6 +121,17 @@ CSR_FWD_REPLACES = ("activesplat_tpu/ops/raster_pallas.py:436 "
                     "(_blend_csr_fwd_pallas / _blend_csr_kernel :375)")
 CSR_BWD_REPLACES = ("activesplat_tpu/ops/raster_pallas.py:736 "
                     "(_blend_csr_bwd_pallas / _blend_csr_bwd_kernel :628)")
+DUAL_REPLACES = ("activesplat_tpu/ops/raster_pallas.py:582 "
+                 "(blend_csr_dual_pallas / _blend_csr_dual_kernel :514)")
+
+# the planner's map queries at bench.py's query size (bench_queries,
+# bench.py:124-156, at its default of 1,000,000 Gaussians)
+QUERY_GAUSSIANS = 1_000_000
+QUERY_REPS = 5  # timed calls of each query
+QUERY_BBOX = ((0.0, 10.0), (0.0, 3.0), (0.0, 6.0))  # top-down: a 216 x 360 px grid
+QUERY_NODES = ((4.0, 1.25, 2.0), (6.0, 1.25, 3.0))  # two panorama nodes at scale 0.5
+QUERY_VIEW = (5.0, 1.25, 1.5)  # the camera's position
+DUAL_CHANNELS = 3  # the top-down walk composites rgb
 
 
 def nvidia_smi(query: str) -> str:
@@ -367,15 +395,16 @@ def csr_bwd_carry_leak(torch, rc, stream, entry, g_acc, g_lt, n_tiles):
     return walk(later)[0]
 
 
-def csr_kernel_checks(torch, rc, stream, n_tiles: int, tag: str):
-    """B3 and B4 against their twins on one CSR stream, with the tolerances
-    of kernel_checks; a tile is a boundary tile when the max logT at one of
-    its segment starts lies within BOUNDARY of LOG_EPS on either side.
-    Planted faults (a stash shifted by one segment, logT scaled by 1.001,
-    each live gradient column zeroed, the carry not reset at tile
-    boundaries) must be rejected."""
+def csr_kernel_checks(torch, rc, stream, n_tiles: int, tag: str, c: int = N_CHANNELS,
+                      with_bwd: bool = True):
+    """B3 and B4 against their twins on one CSR stream of C colour channels,
+    with the tolerances of kernel_checks; a tile is a boundary tile when the
+    max logT at one of its segment starts lies within BOUNDARY of LOG_EPS on
+    either side. Planted faults (a stash shifted by one segment, logT scaled
+    by 1.001, and with `with_bwd` each live gradient column zeroed and the
+    carry not reset at tile boundaries) must be rejected. Without `with_bwd`
+    (a stream only B3 walks) B4 is not run: errs["bwd"] is None."""
     seg_tile = stream[1]
-    c = N_CHANNELS
     shares = {}
     acc_k, lt_k, ent_k = rc.blend_csr_fwd(*stream, n_tiles, c, with_entry=True)
     acc_p, lt_p, ent_p = rc.blend_csr_fwd_plain(*stream, n_tiles, c, with_entry=True)
@@ -407,9 +436,21 @@ def csr_kernel_checks(torch, rc, stream, n_tiles: int, tag: str):
     if not (torch.equal(acc_n, acc_k) and torch.equal(lt_n, lt_k)):
         raise AssertionError(f"{tag}: the CSR forward with and without the stash differ")
     shifted = ent_k.roll(1, 0)
-    if bool((shifted != ent_k).any()):  # a stream of one-segment runs stashes only zeros
+    shift_shows = bool((shifted != ent_k).any())  # one-segment runs stash only zeros
+    if shift_shows:
         must_reject("stash shifted by one segment", lambda: fwd_shares(acc_k, lt_k, shifted))
     must_reject("logT scaled by 1.001", lambda: fwd_shares(acc_k, lt_k * 1.001, ent_k))
+    err_fwd = max(float((acc_k - acc_p).abs().max()),
+                  float((lt_k[~near] - lt_p[~near]).abs().max()),
+                  float((ent_k[strict_seg] - ent_p[strict_seg]).abs().max()))
+    n_seg = seg_tile.shape[0]
+    head = (f"{tag}: {n_seg} segments ({int(in_grid.sum())} of tiles, "
+            f"{int((ent_k.amax(dim=1) < rc.LOG_EPS)[in_grid].sum())} skipped), "
+            f"{int(near.sum())} boundary tiles; blend_csr_fwd max_abs_err={err_fwd:.3e} "
+            f"({shares['fwd']:.3f} of tolerance)")
+    if not with_bwd:
+        print(f"{head}; {'the stash shift and ' if shift_shows else ''}the logT scale rejected")
+        return {"fwd": err_fwd, "bwd": None}, (ent_k, None, None)
 
     g = torch.Generator(device="cuda").manual_seed(2)
     g_acc = torch.randn(acc_k.shape, generator=g, device="cuda")
@@ -431,20 +472,210 @@ def csr_kernel_checks(torch, rc, stream, n_tiles: int, tag: str):
     leak = csr_bwd_carry_leak(torch, rc, stream, ent_k, g_acc, g_lt, n_tiles)
     must_reject("carry not reset at tile boundaries", lambda: bwd_share(leak))
 
-    errs = {
-        "fwd": max(float((acc_k - acc_p).abs().max()),
-                   float((lt_k[~near] - lt_p[~near]).abs().max()),
-                   float((ent_k[strict_seg] - ent_p[strict_seg]).abs().max())),
-        "bwd": float((d_k - d_p).abs().max()),
-    }
-    n_seg = seg_tile.shape[0]
-    print(f"{tag}: {n_seg} segments ({int(in_grid.sum())} of tiles, "
-          f"{int((ent_k.amax(dim=1) < rc.LOG_EPS)[in_grid].sum())} skipped), "
-          f"{int(near.sum())} boundary tiles; blend_csr_fwd max_abs_err={errs['fwd']:.3e} "
-          f"({shares['fwd']:.3f} of tolerance), blend_csr_bwd max_abs_err={errs['bwd']:.3e} "
+    errs = {"fwd": err_fwd, "bwd": float((d_k - d_p).abs().max())}
+    print(f"{head}, blend_csr_bwd max_abs_err={errs['bwd']:.3e} "
           f"({shares['bwd']:.3f} of tolerance); bwd max err per column / column max: "
           + " ".join(f"{float(x):.1e}" for x in per_col[:6 + c]))
     return errs, (ent_k, g_acc, g_lt)
+
+
+def random_dual_stream(torch, rc, seed: int, n_tiles: int = 256):
+    """random_csr_stream with band bits in column BAND_COL: tiles 16-47
+    (which saturate in the first of their three segments) carry no band bit
+    in their first segment and all of them after it, so the full composite
+    saturates a segment before the band does; tiles 64-127 carry none,
+    128-191 all, the rest a random 30%."""
+    rows, seg_tile, seg_u0, seg_v0 = random_csr_stream(torch, seed, n_tiles)
+    g = torch.Generator(device="cpu").manual_seed(seed + 100)
+    st = seg_tile.long().cpu()
+    starts, _ = rc._tile_segments(seg_tile.cpu(), n_tiles)
+    seg_rank = torch.arange(st.shape[0]) - starts.long()[st.clamp(max=n_tiles - 1)]
+    tile, rank = st.repeat_interleave(rc.CSEG), seg_rank.repeat_interleave(rc.CSEG)
+    bits = (torch.rand(rows.shape[0], generator=g) < 0.3).float()
+    bits[(tile >= 64) & (tile < 128)] = 0.0
+    bits[(tile >= 128) & (tile < 192)] = 1.0
+    sat = (tile >= 16) & (tile < 48)
+    bits[sat] = (rank[sat] > 0).float()
+    rows[:, rc.BAND_COL] = bits.cuda()
+    return rows, seg_tile, seg_u0, seg_v0
+
+
+def band_rows(rc, rows):
+    """The entry rows with each opacity multiplied by its band bit."""
+    out = rows.clone()
+    out[:, 5] *= out[:, rc.BAND_COL]
+    return out
+
+
+def dual_exit_on_full(torch, rc, stream, n_tiles):
+    """B5's twin with one planted fault: the whole-tile exit tests the full
+    carry (B3's rule) in place of the band carry, so the band stops walking
+    where the full composite saturates."""
+    blocks, starts, counts, px, py, ranks = rc._csr_tiles(*stream, n_tiles)
+    accum = stream[0].new_zeros((n_tiles, rc.PX, rc.MAX_CHANNELS))
+    logt = stream[0].new_zeros((n_tiles, rc.PX))
+    logt_band = stream[0].new_zeros((n_tiles, rc.PX))
+    for r in range(ranks):
+        act = torch.nonzero(counts > r).squeeze(1)
+        act = act[logt[act].amax(dim=1) >= rc.LOG_EPS]
+        seg = starts[act].long() + r
+        accum[act], logt[act], logt_band[act] = rc._dual_segment(
+            blocks[seg], px[act], py[act], accum[act], logt[act], logt_band[act]
+        )
+    return accum[:, :, :DUAL_CHANNELS].contiguous(), logt, logt_band
+
+
+def dual_kernel_checks(torch, rc, stream, n_tiles: int, tag: str, require_exit_fault=True):
+    """B5 against its twin on one CSR stream with band bits, with B3's
+    tolerances: a tile is a boundary tile when the band carry's max logT at
+    one of its segment starts (B3's stash over the band rows, kernel and
+    twin) lies within BOUNDARY of LOG_EPS. Then the two bitwise identities:
+    the band carry equals B3's logT over the band rows, and with every band
+    bit set (accum, logT) equal B3's and the band carry the full one.
+    Planted faults (the exit tested on the full carry, the band column
+    ignored, the band read from column 15, logT_band scaled by 1.001) must be
+    rejected; the first shows only on a stream where the full composite
+    saturates a segment before the band, which `require_exit_fault` demands.
+    Returns (max abs error, the band stash, the band rows)."""
+    c = DUAL_CHANNELS
+    seg_tile = stream[1]
+    acc_k, lt_k, lb_k = rc.blend_csr_dual_fwd(*stream, n_tiles, c)
+    acc_p, lt_p, lb_p = rc.blend_csr_dual_fwd_plain(*stream, n_tiles, c)
+    banded = band_rows(rc, stream[0])
+    _, b3_lt, ent_k = rc.blend_csr_fwd(banded, *stream[1:], n_tiles, c, with_entry=True)
+    _, _, ent_p = rc.blend_csr_fwd_plain(banded, *stream[1:], n_tiles, c, with_entry=True)
+    in_grid = seg_tile < n_tiles
+    seg_near = ((torch.stack([ent_k, ent_p]).amax(dim=2) - rc.LOG_EPS).abs() < BOUNDARY).any(dim=0)
+    near = torch.zeros(n_tiles + 1, dtype=torch.bool, device="cuda")
+    near[seg_tile[seg_near & in_grid].long()] = True
+    near = near[:n_tiles]
+
+    def shares(acc, lt, lb):
+        chan = acc_p.abs().amax(dim=(0, 1))
+        acc_lim = (REL_TOL + (SKIP_ATOL - REL_TOL) * near.float())[:, None, None] * chan
+        out = [check_close(f"{tag} dual accum", acc, acc_p, acc_lim)]
+        for what, got, want in (("logT", lt, lt_p), ("band logT", lb, lb_p)):
+            out.append(check_close(f"{tag} dual {what}", got[~near], want[~near],
+                                   LOGT_ATOL + REL_TOL * want[~near].abs()))
+            out.append(check_close(f"{tag} dual {what} (boundary tiles)", got[near].exp(),
+                                   want[near].exp(), torch.tensor(SKIP_ATOL)))
+        return max(out)
+
+    share = shares(acc_k, lt_k, lb_k)
+    ones = stream[0].clone()
+    ones[:, rc.BAND_COL] = 1.0
+    acc_1, lt_1, lb_1 = rc.blend_csr_dual_fwd(ones, *stream[1:], n_tiles, c)
+    acc_3, lt_3 = rc.blend_csr_fwd(ones, *stream[1:], n_tiles, c)
+    if not torch.equal(lb_k, b3_lt):
+        raise AssertionError(f"{tag}: band logT is not bitwise B3's logT over the band rows")
+    if not (torch.equal(acc_1, acc_3) and torch.equal(lt_1, lt_3) and torch.equal(lb_1, lt_1)):
+        raise AssertionError(f"{tag}: with every band bit set B5 is not bitwise B3")
+    col15 = stream[0].clone()
+    col15[:, rc.BAND_COL] = col15[:, 15]
+    # the exit fault shows only where the full composite saturates a
+    # segment before the band; the random stream is built to have such tiles
+    exit_fault = dual_exit_on_full(torch, rc, stream, n_tiles)
+    exit_shows = not all(torch.equal(a, b) for a, b in zip(exit_fault, (acc_p, lt_p, lb_p)))
+    if exit_shows:
+        must_reject("exit tested on the full carry", lambda: shares(*exit_fault))
+    elif require_exit_fault:
+        raise AssertionError(f"{tag}: no tile saturates its full composite before its band")
+    must_reject("band column ignored", lambda: shares(acc_1, lt_1, lb_1))
+    must_reject("band read from column 15",
+                lambda: shares(*rc.blend_csr_dual_fwd(col15, *stream[1:], n_tiles, c)))
+    must_reject("band logT scaled by 1.001", lambda: shares(acc_k, lt_k, lb_k * 1.001))
+    err = max(float((acc_k - acc_p).abs().max()), float((lt_k[~near] - lt_p[~near]).abs().max()),
+              float((lb_k[~near] - lb_p[~near]).abs().max()))
+    print(f"{tag}: {seg_tile.shape[0]} segments ({int(in_grid.sum())} of tiles, "
+          f"{int((ent_k.amax(dim=1) < rc.LOG_EPS)[in_grid].sum())} skipped by the band exit), "
+          f"{int(near.sum())} boundary tiles; blend_csr_dual_fwd max_abs_err={err:.3e} "
+          f"({share:.3f} of tolerance); both identities bitwise; {3 + exit_shows} planted faults "
+          f"rejected")
+    return err, ent_k, banded
+
+
+def dual_pair_counts(torch, rc, stream, entry, n_tiles):
+    """(walked segments, walked pairs, live pairs, band-live pairs) of B5 on
+    a CSR stream: the segments the band exit walks (from B3's stash over the
+    band rows), their (row, pixel) pairs, those whose alpha is not zero, and
+    those among them whose row carries the band bit."""
+    data, seg_tile, seg_u0, seg_v0 = stream
+    walked_seg = (seg_tile < n_tiles) & (entry.amax(dim=1) >= rc.LOG_EPS)
+    blocks = data.view(-1, rc.CSEG, rc.N_ATTR)
+    live = band_live = 0
+    for chunk in torch.nonzero(walked_seg).squeeze(1).split(64):
+        px, py = rc._pixel_coords(seg_u0[chunk], seg_v0[chunk])
+        live_c = rc._segment_geometry(blocks[chunk], px, py)[5]
+        live += int(live_c.sum())
+        band_live += int((live_c & (blocks[chunk][:, :, rc.BAND_COL:rc.BAND_COL + 1] > 0)).sum())
+    n_walked = int(walked_seg.sum())
+    return n_walked, n_walked * rc.CSEG * rc.PX, live, band_live
+
+
+def capture_streams(blend: str, run):
+    """The CSR streams that one call of `run` hands to the rasterizer's
+    `blend` (blend_csr for B3, blend_csr_dual_fwd for B5), one per call:
+    [((entry rows, seg_tile, seg_u0, seg_v0), n_tiles, n_channels), ...]."""
+    from activesplat_tpu_torch.ops import raster_tiled
+
+    seen = []
+    real = getattr(raster_tiled, blend)
+    setattr(raster_tiled, blend, lambda *a: seen.append(a) or real(*a))
+    try:
+        run()
+    finally:
+        setattr(raster_tiled, blend, real)
+    return [((rows.detach().contiguous(), seg_tile, seg_u0, seg_v0), n_tiles, c)
+            for rows, seg_tile, seg_u0, seg_v0, n_tiles, c in seen]
+
+
+def query_pose(np, center):
+    """bench.py's camera orientation (looking down -z) at `center`."""
+    c2w = np.eye(4)
+    c2w[:3, :3] = np.diag([1.0, -1.0, -1.0])
+    c2w[:3, 3] = center
+    return c2w
+
+
+def small_query_check(torch, np):
+    """The port on the card against the port on the CPU (plain twins) on a
+    small scene (4,000 Gaussians of a single room): render_topdown's maps
+    equal but for pixels within 1e-5 of the 0.4 threshold, its free alpha
+    within 1e-5, and render_panorama's rgb, depth and invisibility within
+    1e-5 (the two differ in summation order only)."""
+    from activesplat_tpu_torch.models.gaussians import GaussianBuffer
+    from activesplat_tpu_torch.queries.panorama import render_panorama
+    from activesplat_tpu_torch.queries.topdown import render_topdown, topdown_config_from_bbox
+    from activesplat_tpu_torch.runtime.synthetic import BoxWorld
+
+    world = BoxWorld.single_room(seed=3)
+    pts = torch.from_numpy(world.sample_surface(4000, seed=3).astype(np.float32))
+    sx, sy, sz = world.size
+    cfg = topdown_config_from_bbox(np.array([[0, sx], [0, sy], [0, sz]]), 0.1, 1.6, pixel_max=96,
+                                   padding_ratio=0.02)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        buf = GaussianBuffer.empty(4096, device=dev)
+        n = len(pts)
+        buf.params.means3d[:n] = pts.to(dev)
+        buf.params.rgb[:n] = 0.5
+        buf.params.logit_opacities[:n] = 4.0
+        buf.params.log_scales[:n] = float(np.log(0.08))
+        buf.active[:n] = True
+        free, unobs, alpha = render_topdown(buf, cfg)
+        out[dev] = (np.stack([free, unobs]), alpha.cpu().numpy(),
+                    render_panorama(buf, query_pose(np, [sx / 2, 1.25, sz / 2]), scale=0.5))
+    (maps_c, alpha_c, pano_c), (maps_g, alpha_g, pano_g) = out["cpu"], out["cuda"]
+    differ = maps_c != maps_g
+    near = np.zeros_like(differ)
+    near[0] = np.abs(alpha_g - 0.4) < 1e-5
+    worst = max([float(np.abs(alpha_c - alpha_g).max())]
+                + [float(np.abs(a - b).max()) for a, b in zip(pano_c, pano_g)])
+    if (differ & ~near).any() or worst > 1e-5:
+        raise AssertionError(f"small query scene: {int((differ & ~near).sum())} map pixels differ, "
+                             f"max value difference {worst:.3e}")
+    print(f"small query scene: top-down maps equal ({int(differ.sum())} threshold-adjacent pixels "
+          f"differ), free alpha and panorama within {worst:.3e} of the port on the CPU")
 
 
 def main_path_rows(torch, buf, cam):
@@ -577,26 +808,26 @@ def small_scene_check(torch, np, exact_training="off", k_per_tile=64):
           f"max grad err {worst:.3e} of scale")
 
 
-def profile_iterations(torch, step, iters: int, timed_ms: float, card: str,
-                       tables=("device", "host")) -> None:
-    """Run `iters` chained steps under torch.profiler; print the device's
-    busy time and idle share per iteration and the top operators by device
-    and (if asked) host time."""
+def profile_calls(torch, fn, calls: int, timed_ms: float, card: str, label: str,
+                  tables=("device",)) -> None:
+    """Run `calls` calls of `fn` under torch.profiler; print the device's
+    busy time and idle share per call and the top operators by device and
+    (if asked) host time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(iters):
-            m = step()
-        float(m["loss"])
-        wall_ms = (time.perf_counter() - t0) / iters * 1e3
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / calls * 1e3
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / iters
-    print(f"profile of {iters} mapping_iterations on {card}: wall {wall_ms:.3f} ms/iter "
-          f"under the profiler ({timed_ms:.3f} without), device busy {busy_ms:.3f} ms/iter "
-          f"in {len(kernels) / iters:.0f} kernels/iter, idle share {1.0 - busy_ms / wall_ms:.3f} "
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / calls
+    print(f"profile of {calls} {label} calls on {card}: wall {wall_ms:.3f} ms/call "
+          f"under the profiler ({timed_ms:.3f} without), device busy {busy_ms:.3f} ms/call "
+          f"in {len(kernels) / calls:.0f} kernels/call, idle share {1.0 - busy_ms / wall_ms:.3f} "
           f"of the profiled wall time, {1.0 - busy_ms / timed_ms:.3f} of the unprofiled one")
     averages = prof.key_averages()
     for table in tables:
@@ -650,6 +881,8 @@ def main() -> int:
         errs[k] = max(errs[k], errs_p[k])
     csr_errs, _ = csr_kernel_checks(torch, rc, random_csr_stream(torch, seed=0), 256,
                                     "random CSR stream, 256 tiles")
+    dual_err, _, _ = dual_kernel_checks(torch, rc, random_dual_stream(torch, rc, seed=0), 256,
+                                        "random CSR stream with band bits, 256 tiles")
     torch.cuda.synchronize()
 
     # ---- phase 3: the mapping slice at the benchmark's size ------------ #
@@ -672,14 +905,14 @@ def main() -> int:
 
     by_phase = {}  # phase -> {kernel: launches}, counters set to 0 before each
 
-    def read_counts(phase, capped=0, csr=0, csr_bwd=None):
+    def read_counts(phase, capped=0, csr=0, csr_bwd=None, dual=0):
         """Read and reset the counters; the phase must have launched B1 and
-        B2 `capped` times each, B3 `csr` times and B4 `csr_bwd` times (by
-        default as often as B3)."""
+        B2 `capped` times each, B3 `csr` times, B4 `csr_bwd` times (by
+        default as often as B3) and B5 `dual` times."""
         counts = {fn.__name__: fn.launches for fn in rc.KERNELS}
         rc.reset_launch_counts()
         by_phase[phase] = counts
-        expect = dict(zip(counts, (capped, capped, csr, csr if csr_bwd is None else csr_bwd)))
+        expect = dict(zip(counts, (capped, capped, csr, csr if csr_bwd is None else csr_bwd, dual)))
         if counts != expect:
             raise AssertionError(f"{phase}: blend launches {counts}, not {expect}")
         return counts
@@ -744,7 +977,7 @@ def main() -> int:
             state[0], state[1], out = mapping_iteration(state[0], state[1], cam, rgb0, depth0, cfg_e)
             return out
 
-        profile_iterations(torch, step, iters, 1000.0 / timed_its, card, tables)
+        profile_calls(torch, step, iters, 1000.0 / timed_its, card, "mapping_iteration", tables)
 
     for ev in range(EVENTS):
         event(ev, cfg, f"mapping_phase {ev}", capped=EVENT_ITERS)
@@ -816,13 +1049,7 @@ def main() -> int:
     for mode in ("on", "hybrid"):
         small_scene_check(torch, np, exact_training=mode, k_per_tile=16)
 
-    launches = {fn.__name__: sum(c[fn.__name__] for c in by_phase.values()) for fn in rc.KERNELS}
-    for name, count in launches.items():
-        if count == 0:
-            raise AssertionError(f"{name} was never launched on the main path")
-    print(f"main-path launches by phase: {by_phase}")
-
-    # ---- phase 4: kernels at the main path's rows ---------------------- #
+    # ---- phase 4a: the mapping kernels at the main path's rows ---------- #
     rows, u0, v0 = main_path_rows(torch, buf, cam)
     t, k, _ = rows.shape
     errs_m, (entry, g_acc, g_lt) = kernel_checks(torch, rc, rows, u0, v0, f"main-path rows T={t} K={k}")
@@ -835,11 +1062,11 @@ def main() -> int:
     fwd_args = (rows, u0, v0, N_CHANNELS)
     bwd_args = (rows, u0, v0, entry, g_acc, g_lt, N_CHANNELS)
 
-    def bound(nbytes, walked, live, live_f32):
-        f32_ops = walked * WALKED_F32 + live * live_f32
+    def bound(nbytes, walked, live, live_f32, extra_f32=0, extra_sfu=0):
+        f32_ops = walked * WALKED_F32 + live * live_f32 + extra_f32
         times = {
             "bytes": nbytes / HBM_BYTES_PER_S * 1e3,
-            "operations": max(f32_ops / F32_FLOPS, live * LIVE_SFU / sfu_rate) * 1e3,
+            "operations": max(f32_ops / F32_FLOPS, (live * LIVE_SFU + extra_sfu) / sfu_rate) * 1e3,
         }
         by = max(times, key=times.get)
         return times[by], by
@@ -876,39 +1103,234 @@ def main() -> int:
     # per call of 100 back-to-back wrapper calls between CUDA events, which
     # includes the wrapper's helper kernels and, where the host is slower
     # than the device, its Python
-    kernels = []
-    for name, src, repl, run, plain, kernel, (b_ms, b_by), err in (
-        ("blend_tiles_fwd", "activesplat_tpu_torch/csrc/blend_fwd.cu", FWD_REPLACES,
-         lambda: rc.blend_tiles_fwd(*fwd_args, with_entry=True),
-         lambda: rc.blend_tiles_fwd_plain(*fwd_args, with_entry=True), "blend_fwd_kernel",
-         fwd_bound, max(errs["fwd"], errs_m["fwd"])),
-        ("blend_tiles_bwd", "activesplat_tpu_torch/csrc/blend_bwd.cu", BWD_REPLACES,
-         lambda: rc.blend_tiles_bwd(*bwd_args), lambda: rc.blend_tiles_bwd_plain(*bwd_args),
-         "blend_bwd_kernel", bwd_bound, max(errs["bwd"], errs_m["bwd"])),
-        ("blend_csr_fwd", "activesplat_tpu_torch/csrc/blend_csr_fwd.cu", CSR_FWD_REPLACES,
-         lambda: rc.blend_csr_fwd(*csr_args, with_entry=True),
-         lambda: rc.blend_csr_fwd_plain(*csr_args, with_entry=True), "blend_csr_fwd_kernel",
-         bound(csr_fwd_bytes, c_walked, c_live, live_f32_fwd(N_CHANNELS)),
-         max(csr_errs["fwd"], csr_errs_m["fwd"])),
-        ("blend_csr_bwd", "activesplat_tpu_torch/csrc/blend_csr_bwd.cu", CSR_BWD_REPLACES,
-         lambda: rc.blend_csr_bwd(*csr_bwd_args), lambda: rc.blend_csr_bwd_plain(*csr_bwd_args),
-         "blend_csr_bwd_kernel",
-         bound(csr_bwd_bytes, c_walked, c_live, live_f32_bwd(N_CHANNELS)),
-         max(csr_errs["bwd"], csr_errs_m["bwd"])),
-    ):
+    measured = []
+
+    def measure(name, src, repl, run, plain, kernel, b_ms_by, err, plain_reps=5):
         ms = kernel_device_ms(torch, run, kernel, 20)
         wrapper_ms = cuda_ms(run, 100)
-        plain_ms = cuda_ms(plain, 5)
-        phases = {phase: c[name] for phase, c in by_phase.items()}
-        print(f"{name}: max_abs_err={err:.3e} kernel {ms:.4f} ms (wrapper {wrapper_ms:.4f} ms "
-              f"per call), twin {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
-              f"{b_ms / ms:.3f} of it reached), launches {launches[name]} {phases} on {card}")
-        kernels.append({
+        plain_ms = cuda_ms(plain, plain_reps)
+        measured.append({
             "name": name, "route": "cuda", "source": src, "replaces": repl,
-            "launches": launches[name], "launches_by_phase": phases,
             "max_abs_err": err, "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "bound_ms": b_ms_by[0], "bound_by": b_ms_by[1], "library_ms": None,
         })
+
+    measure("blend_tiles_fwd", "activesplat_tpu_torch/csrc/blend_fwd.cu", FWD_REPLACES,
+            lambda: rc.blend_tiles_fwd(*fwd_args, with_entry=True),
+            lambda: rc.blend_tiles_fwd_plain(*fwd_args, with_entry=True), "blend_fwd_kernel",
+            fwd_bound, max(errs["fwd"], errs_m["fwd"]))
+    measure("blend_tiles_bwd", "activesplat_tpu_torch/csrc/blend_bwd.cu", BWD_REPLACES,
+            lambda: rc.blend_tiles_bwd(*bwd_args), lambda: rc.blend_tiles_bwd_plain(*bwd_args),
+            "blend_bwd_kernel", bwd_bound, max(errs["bwd"], errs_m["bwd"]))
+    measure("blend_csr_fwd", "activesplat_tpu_torch/csrc/blend_csr_fwd.cu", CSR_FWD_REPLACES,
+            lambda: rc.blend_csr_fwd(*csr_args, with_entry=True),
+            lambda: rc.blend_csr_fwd_plain(*csr_args, with_entry=True), "blend_csr_fwd_kernel",
+            bound(csr_fwd_bytes, c_walked, c_live, live_f32_fwd(N_CHANNELS)),
+            max(csr_errs["fwd"], csr_errs_m["fwd"]))
+    measure("blend_csr_bwd", "activesplat_tpu_torch/csrc/blend_csr_bwd.cu", CSR_BWD_REPLACES,
+            lambda: rc.blend_csr_bwd(*csr_bwd_args), lambda: rc.blend_csr_bwd_plain(*csr_bwd_args),
+            "blend_csr_bwd_kernel",
+            bound(csr_bwd_bytes, c_walked, c_live, live_f32_bwd(N_CHANNELS)),
+            max(csr_errs["bwd"], csr_errs_m["bwd"]))
+    del rows, stream, entry, g_acc, g_lt, c_entry, c_g_acc, c_g_lt, fwd_args, bwd_args
+    del csr_args, csr_bwd_args
+
+    # ---- phase 3c: the planner's map queries at 1,000,000 Gaussians ----- #
+    from activesplat_tpu_torch.queries.panorama import global_invisibility, local_invisibility
+    from activesplat_tpu_torch.queries.topdown import (
+        FREE_OPACITY_THRESHOLD,
+        IncrementalTopdown,
+        _topdown_binary,
+        _topdown_dual,
+        render_topdown,
+        topdown_camera,
+        topdown_config_from_bbox,
+    )
+    from activesplat_tpu_torch.utils.tracing import format_stage_report, reset_stages, stage_report_io
+
+    del scene, buf, fresh, store, grad_buf, exact_img, on_img, rgb0, depth0
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    qbuf = build_map(QUERY_GAUSSIANS, RES).buf
+    torch.cuda.synchronize()
+    print(f"query map: {QUERY_GAUSSIANS} Gaussians in a {qbuf.capacity}-slot buffer, built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    td_cfg = topdown_config_from_bbox(np.array(QUERY_BBOX), agent_foot=0.0, agent_head=1.5,
+                                      pixel_max=360)
+    rc.reset_launch_counts()
+    free, unobs, free_alpha = render_topdown(qbuf, td_cfg)
+    read_counts("render_topdown", dual=1)
+    if free.shape != (td_cfg.height, td_cfg.width) or not 0 < free.mean() < 1 or not 0 < unobs.mean() < 1:
+        raise AssertionError(f"render_topdown: maps {free.shape}, free share {free.mean():.3f}, "
+                             f"unobserved share {unobs.mean():.3f}")
+    t0 = time.perf_counter()
+    for _ in range(QUERY_REPS):
+        render_topdown(qbuf, td_cfg)
+    topdown_ms = (time.perf_counter() - t0) / QUERY_REPS * 1e3
+    read_counts("render_topdown timed", dual=QUERY_REPS)
+    profile_calls(torch, lambda: render_topdown(qbuf, td_cfg), QUERY_REPS, topdown_ms, card,
+                  "render_topdown")
+    [(dual_stream, dual_tiles, _)] = capture_streams("blend_csr_dual_fwd",
+                                                     lambda: render_topdown(qbuf, td_cfg))
+    runs = torch.bincount(dual_stream[1][dual_stream[1] < dual_tiles].long(), minlength=dual_tiles)
+    print(f"topdown_query_ms@{QUERY_GAUSSIANS}g = {topdown_ms:.3f} ({QUERY_REPS} calls host to host, "
+          f"{td_cfg.width}x{td_cfg.height} px, free share {free.mean():.4f}, unobserved share "
+          f"{unobs.mean():.4f}) on {card}; its CSR stream: {dual_stream[0].shape[0]} entry rows, "
+          f"{dual_stream[1].shape[0]} segments over {dual_tiles} tiles, largest run "
+          f"{int(runs.max())} segments")
+
+    # the dual walk against the pair of exact renders (B3 twice) on the card
+    td_cam = topdown_camera(td_cfg)
+    foot, head = td_cfg.agent_foot, td_cfg.agent_head
+    dual_u8, dual_alpha = _topdown_dual(qbuf, td_cam, foot, head, (0, 0, td_cfg.width, td_cfg.height),
+                                        height_axis=td_cfg.height_axis, k_per_tile=K_PER_TILE)
+    pair_u8, _ = _topdown_binary(qbuf, td_cam, foot, head, height_axis=td_cfg.height_axis,
+                                 chunk=256, k_per_tile=K_PER_TILE)
+    full_rgb = render(qbuf, td_cam, bg=torch.ones(3, device="cuda"), scale_modifier=0.01,
+                      k_per_tile=K_PER_TILE, exact=True).rgb
+    differ = (dual_u8 != pair_u8).cpu().numpy()
+    edge_free = ((dual_alpha - FREE_OPACITY_THRESHOLD).abs() < 1e-5).cpu().numpy()
+    step = full_rgb.clamp(0, 1) * 255.0
+    edge_gray = ((step - step.round()).abs() < 255.0 * 1e-5).any(dim=-1).cpu().numpy()
+    allowed = np.stack([edge_free, edge_gray])
+    for m, v, u in np.argwhere(differ):
+        print(f"  pair oracle: {('free', 'unobserved')[m]} map differs at (v={v}, u={u}), "
+              f"a threshold-adjacent pixel: {bool(allowed[m, v, u])}")
+    if (differ & ~allowed).any():
+        raise AssertionError(f"the dual maps differ from the pair oracle at "
+                             f"{int((differ & ~allowed).sum())} pixels")
+    print(f"pair oracle: the dual maps equal the two exact renders' but for "
+          f"{int(differ.sum())} threshold-adjacent pixels")
+
+    # the incremental cache through five refreshes; the snapshot is a copy
+    eng = IncrementalTopdown(td_cfg)
+    snap_bytes = sum(x.numel() * x.element_size() for x in (*qbuf.params.tensors(), qbuf.active))
+
+    def refresh(phase, want, dual, buf_r):
+        rc.reset_launch_counts()
+        maps = eng.refresh(buf_r)
+        read_counts(phase, dual=dual)
+        if eng.stats[want] < 1:
+            raise AssertionError(f"{phase}: stats {eng.stats}, expected a {want!r} refresh")
+        return maps
+
+    reset_stages()
+    refresh("IncrementalTopdown first", "full_first", 1, qbuf)
+    refresh("IncrementalTopdown unchanged", "clean", 0, qbuf)
+    means = qbuf.params.means3d
+    ball = ((means - means[0]).norm(dim=1) < 0.4) & qbuf.active
+    means[ball] += 0.05  # written in place: the snapshot must be a copy
+    win_maps = refresh("IncrementalTopdown window", "window", 1, qbuf)
+    fresh_maps = render_topdown(qbuf, td_cfg)[:2]
+    if not all(np.array_equal(a, b) for a, b in zip(win_maps, fresh_maps)):
+        raise AssertionError("the window refresh differs from a fresh render_topdown")
+    means[qbuf.active] += 0.01
+    refresh("IncrementalTopdown global move", "full_oversize", 1, qbuf)
+    refresh("IncrementalTopdown grown", "full_growth", 1, qbuf.grown(2 * qbuf.capacity))
+    print(f"IncrementalTopdown: {int(ball.sum())} Gaussians moved in the ball; stats {eng.stats}; "
+          f"the window refresh equals a fresh render bitwise; snapshot copy {snap_bytes} bytes "
+          f"on the device")
+    # the refreshes' stages (host wall-clock, no synchronize) and their
+    # device-to-host copies; the fresh render_topdown fetches outside a stage
+    print("IncrementalTopdown stages:\n" + format_stage_report())
+    print(f"IncrementalTopdown device-to-host copies by stage: {stage_report_io()}")
+
+    # the panorama queries at bench.py's nodes and scale, and the local one
+    view = query_pose(np, QUERY_VIEW)
+    nodes = np.array(QUERY_NODES)
+    rc.reset_launch_counts()
+    scores = global_invisibility(qbuf, view, nodes, scale=0.5)
+    read_counts("global_invisibility", csr=2 * 3, csr_bwd=0)
+    t0 = time.perf_counter()
+    for _ in range(QUERY_REPS):
+        global_invisibility(qbuf, view, nodes, scale=0.5)
+    pano_ms = (time.perf_counter() - t0) / QUERY_REPS * 1e3
+    read_counts("global_invisibility timed", csr=QUERY_REPS * 2 * 3, csr_bwd=0)
+    profile_calls(torch, lambda: global_invisibility(qbuf, view, nodes, scale=0.5), 2, pano_ms,
+                  card, "global_invisibility", ("device", "host"))
+    if len(scores) != 2 or not all(math.isfinite(s[0]) and s[1] >= 0 for s in scores):
+        raise AssertionError(f"global_invisibility scores {scores}")
+    print(f"panorama_query_ms@{QUERY_GAUSSIANS}g_2nodes = {pano_ms:.3f} ({QUERY_REPS} calls host "
+          f"to host, scale 0.5) on {card}; scores {scores}")
+    rc.reset_launch_counts()
+    total, best, invis = local_invisibility(qbuf, view)
+    read_counts("local_invisibility", csr=3, csr_bwd=0)
+    if invis.shape != (150, 360) or not math.isfinite(total):
+        raise AssertionError(f"local_invisibility: {invis.shape}, sum {total}")
+    print(f"local_invisibility (scale 1.0): sum {total:.3f}, reorientation "
+          f"{'proposed' if best is not None else 'none'}")
+    peak_gib = (torch.cuda.max_memory_allocated() - base_mem) / 2**30
+    print(f"query phase peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
+          f"allocated ({peak_gib:.3f} GiB above the map) on {card}")
+    small_query_check(torch, np)
+
+    launches = {fn.__name__: sum(c[fn.__name__] for c in by_phase.values()) for fn in rc.KERNELS}
+    for name, count in launches.items():
+        if count == 0:
+            raise AssertionError(f"{name} was never launched on the main path")
+    print(f"main-path launches by phase: {by_phase}")
+
+    # ---- phase 4b: B5 on the top-down query's own stream ---------------- #
+    dual_err_m, d_entry, _ = dual_kernel_checks(
+        torch, rc, dual_stream, dual_tiles,
+        f"top-down CSR stream, {dual_stream[1].shape[0]} segments", require_exit_fault=False)
+    d_seg, d_walked, d_live, d_band = dual_pair_counts(torch, rc, dual_stream, d_entry, dual_tiles)
+    print(f"top-down CSR stream: {d_seg} of {dual_stream[1].shape[0]} segments walked, {d_walked} "
+          f"(row, pixel) pairs walked, {d_live} of them live ({d_live / d_walked:.4f}), {d_band} "
+          f"of those in the band")
+    # bytes: the walked segments' rows, the per-tile segment ranges and the
+    # pixels' outputs (C colours and two log-transmittances)
+    dual_bytes = (d_seg * rc.CSEG * rc.N_ATTR * 4 + 2 * dual_tiles * 4
+                  + dual_tiles * rc.PX * 4 * (DUAL_CHANNELS + 2))
+    dual_args = (*dual_stream, dual_tiles, DUAL_CHANNELS)
+    measure("blend_csr_dual_fwd", "activesplat_tpu_torch/csrc/blend_csr_dual.cu", DUAL_REPLACES,
+            lambda: rc.blend_csr_dual_fwd(*dual_args), lambda: rc.blend_csr_dual_fwd_plain(*dual_args),
+            "blend_csr_dual_kernel",
+            # B3's count at C=3, plus the band's log1p and add per band-live pair
+            bound(dual_bytes, d_walked, d_live, live_f32_fwd(DUAL_CHANNELS), d_band, d_band),
+            max(dual_err, dual_err_m), plain_reps=2)
+    del dual_stream, dual_args, d_entry
+
+    # ---- phase 4c: B3 on the panorama views' own streams ---------------- #
+    # the six views of one global_invisibility call at 1M Gaussians (60x75
+    # px in 4x5 tiles): unlike the mapping stream, their edge tiles never
+    # saturate and walk their whole run. B4 never runs on this path.
+    t0 = time.perf_counter()
+    pano = capture_streams("blend_csr", lambda: global_invisibility(qbuf, view, nodes, scale=0.5))
+    if len(pano) != 2 * 3:
+        raise AssertionError(f"global_invisibility rendered {len(pano)} views, not 6")
+    pano_err, p_rows, p_seg, p_walked_seg, p_walked, p_live, p_run = 0.0, 0, 0, 0, 0, 0, 0
+    for i, (p_stream, p_tiles, p_c) in enumerate(pano):
+        p_errs, (p_entry, _, _) = csr_kernel_checks(
+            torch, rc, p_stream, p_tiles, f"panorama view {i} CSR stream", c=p_c, with_bwd=False)
+        pano_err = max(pano_err, p_errs["fwd"])
+        s, w, live = csr_pair_counts(torch, rc, p_stream, p_entry, p_tiles)
+        in_grid = p_stream[1][p_stream[1] < p_tiles].long()
+        p_rows += p_stream[0].shape[0]
+        p_seg += p_stream[1].shape[0]
+        p_walked_seg, p_walked, p_live = p_walked_seg + s, p_walked + w, p_live + live
+        p_run = max(p_run, int(torch.bincount(in_grid, minlength=p_tiles).max()))
+    del pano, p_stream, p_entry
+    b3 = next(m for m in measured if m["name"] == "blend_csr_fwd")
+    b3["max_abs_err"] = max(b3["max_abs_err"], pano_err)
+    print(f"panorama CSR streams (6 views, C={p_c}): {p_rows} entry rows, {p_walked_seg} of {p_seg} "
+          f"segments walked, largest run {p_run} segments, {p_walked} (row, pixel) pairs walked, "
+          f"{p_live} of them live ({p_live / p_walked:.4f}); blend_csr_fwd max_abs_err "
+          f"{pano_err:.3e}; checked in {time.perf_counter() - t0:.1f} s")
+
+    kernels = []
+    for entry_k in measured:
+        name = entry_k["name"]
+        phases = {phase: c[name] for phase, c in by_phase.items() if c[name]}
+        print(f"{name}: max_abs_err={entry_k['max_abs_err']:.3e} kernel {entry_k['ms']:.4f} ms "
+              f"(wrapper {entry_k['wrapper_ms']:.4f} ms per call), twin {entry_k['plain_ms']:.4f} ms, "
+              f"bound {entry_k['bound_ms']:.4f} ms ({entry_k['bound_by']}, "
+              f"{entry_k['bound_ms'] / entry_k['ms']:.3f} of it reached), launches {launches[name]} "
+              f"{phases} on {card}")
+        kernels.append({**entry_k, "launches": launches[name], "launches_by_phase": phases})
     torch.cuda.synchronize()
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -1,4 +1,5 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, its entry
+"""The port stands alone: it imports neither JAX nor the JAX package, nor
+OpenCV or scikit-learn (which the machine with the card lacks), its entry
 points run on CUDA unless told otherwise, and its smoke script refuses to run
 without a card."""
 
@@ -22,7 +23,7 @@ from activesplat_tpu_torch.ops import raster_cuda
 
 ROOT = Path(__file__).resolve().parent.parent
 PACKAGE = ROOT / "activesplat_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "activesplat_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "activesplat_tpu", "cv2", "sklearn")
 
 
 def port_modules():

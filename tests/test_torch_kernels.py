@@ -140,7 +140,8 @@ def test_cpu_path_launches_no_kernel():
     _, _, entry = rc.blend_csr_fwd(csr, seg, t_u0[::2], t_v0[::2], T // 2, C, with_entry=True)
     rc.blend_csr_bwd(csr, seg, t_u0[::2], t_v0[::2], entry, torch.zeros((T // 2, rc.PX, C)),
                      torch.zeros((T // 2, rc.PX)), T // 2, C)
-    assert [fn.launches for fn in rc.KERNELS] == [0, 0, 0, 0]
+    rc.blend_csr_dual_fwd(csr, seg, t_u0[::2], t_v0[::2], T // 2, C)
+    assert [fn.launches for fn in rc.KERNELS] == [0] * 5
 
 
 @pytest.mark.parametrize(

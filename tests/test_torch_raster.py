@@ -307,10 +307,14 @@ def test_render_matches_jax(k):
 
 
 def test_exact_renders_wait_for_a_later_slice():
-    """The exact renders run (tests/test_torch_exact.py); only the dual-
-    transmittance walk (band=, kernel B5) still waits for a later slice."""
+    """No exact render waits for a later slice any more: the dual-
+    transmittance walk (band=, kernel B5) runs, forward only, and with every
+    band bit set its band output is its own log-transmittance
+    (tests/test_torch_topdown.py holds it against JAX)."""
     d = tiled_inputs(10, n=100)
     args = [t(d[k]) for k in ("mean2d", "conic", "opacity", "colors", "valid", "radius", "depth")]
     band = torch.ones(100, dtype=torch.bool)
-    with pytest.raises(NotImplementedError, match="B5"):
-        ttiled.rasterize_tiled_exact(*args, band, width=W, height=H)
+    accum, logt, logt_band, dropped = ttiled.rasterize_tiled_exact(*args, band, width=W, height=H)
+    assert torch.equal(logt_band, logt) and dropped == 0
+    with pytest.raises(ValueError, match="forward-only"):
+        ttiled.rasterize_tiled_exact(*args, band, width=W, height=H, differentiable=True)
