@@ -75,7 +75,7 @@ class MapperConfig:
     densify_downscale_factor: int = 1
     new_gaussian_depth_limit: float = 5.0  # splatam.py:348
     # gradient-based clone/split densification (off by default, as in the
-    # reference); its gradient tap is not ported yet
+    # reference), fed by the mean2d gradient tap (mapper/step.py)
     use_gs_densification: bool = False
     densify_grad_thresh: float = 0.05
     densify_percent_dense: float = 0.01
@@ -93,16 +93,16 @@ class MapperConfig:
     # the tile-binned rasterizer (ops/raster_tiled.py)
     chunk: int = 256
     k_per_tile: int = 256
-    # k_per_tile overflow policy (read by the mapper driver, not yet ported)
+    # k_per_tile overflow policy (read by the mapper driver, mapper/splatam.py)
     k_per_tile_max: int = 1024
     k_overflow_tolerance: int = 0
     k_overflow_patience: int = 3
     k_overflow_min_active: int = 8192
     # Exact (uncapped) training compositing: "off" keeps the k-capped path,
     # "on" trains through the CSR blend, "hybrid" through the capped blend
-    # with CSR recompositing of harmfully overflowing tiles; "auto" starts
-    # k-capped and is switched by the mapper driver (not yet ported), so
-    # here it trains k-capped like "off".
+    # with CSR recompositing of harmfully overflowing tiles; "auto" trains
+    # k-capped until the mapper driver (mapper/splatam.py) switches it to
+    # "hybrid" at the k_per_tile ceiling.
     exact_training: str = "auto"
     exact_online_metrics: bool = True
     quantize_frame_transfer: bool = True

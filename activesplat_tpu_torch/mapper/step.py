@@ -1,16 +1,17 @@
 """The mapping computation: loss, one optimization iteration, the per-frame
-mapping event, first-frame initialization and pruning (counterpart of
-activesplat_tpu/mapper/step.py, single device, use_gs_densification=False).
+mapping event with the optional mean2d gradient tap, first-frame
+initialization, silhouette and gradient densification, and pruning
+(counterpart of activesplat_tpu/mapper/step.py, single device).
 
 Where the JAX package runs a mapping event as one compiled lax.scan, the port
 runs a Python loop of iterations; every iteration stays on the device (the
 keyframe draws for the whole event are made up front, so no iteration waits
-for the host except the visible-count slice of the tiled render).
+for the host except the host reads of the tiled render).
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,7 +27,8 @@ from activesplat_tpu_torch.models.gaussians import (
     insert_gaussians,
     prune_mask,
 )
-from activesplat_tpu_torch.ops.render import render
+from activesplat_tpu_torch.ops.projection import project_gaussians
+from activesplat_tpu_torch.ops.render import render, render_projected
 from activesplat_tpu_torch.ops.ssim import psnr, ssim
 
 
@@ -51,18 +53,14 @@ def mapping_loss(
     masked mean depth L1 + (0.8 L1 + 0.2 (1-SSIM)) RGB, black background.
     exact_training "on" trains through the exact CSR render and "hybrid"
     through the capped render with CSR recompositing of harmful tiles;
-    "off" and "auto" train k-capped (the mapper driver that switches
-    "auto" is not ported yet)."""
+    "off" and "auto" train k-capped ("auto" until the mapper driver,
+    mapper/splatam.py, switches its config to "hybrid")."""
     out = render(
         buf.replace(params=params),
         cam,
         chunk=cfg.chunk,
         k_per_tile=cfg.k_per_tile,
-        grad_exact=(
-            "hybrid"
-            if (cfg.k_per_tile and cfg.exact_training == "hybrid")
-            else bool(cfg.k_per_tile) and cfg.exact_training == "on"
-        ),
+        grad_exact=_grad_exact(cfg),
     )
 
     mask = depth_gt > 0
@@ -92,12 +90,66 @@ def mapping_loss(
     return loss, aux
 
 
+def _grad_exact(cfg: MapperConfig):
+    if cfg.k_per_tile and cfg.exact_training == "hybrid":
+        return "hybrid"
+    return bool(cfg.k_per_tile) and cfg.exact_training == "on"
+
+
+def mapping_loss_with_tap(
+    params: GaussianParams,
+    tap: torch.Tensor,  # (C, 2) zeros: the gradient tap on the projected means
+    buf: GaussianBuffer,
+    cam: Camera,
+    im_gt: torch.Tensor,
+    depth_gt: torch.Tensor,
+    cfg: MapperConfig,
+) -> Tuple[torch.Tensor, LossAux]:
+    """mapping_loss with an explicit mean2d gradient tap: differentiating
+    with respect to `tap` yields dLoss/d(mean2d), the densification signal
+    the reference captures via rendervar['means2D'].retain_grad()
+    (splatam.py:207-209). As in the JAX package (step.py:102-151), its
+    render names no backend, so the capped tiles blend in the reference's
+    XLA blend (autograd, no early exit; the CSR half of "on" and "hybrid"
+    runs in B3/B4), and the depth mask is depth_gt > 0 alone."""
+    proj = project_gaussians(
+        params.means3d, params.quats, params.log_scales, buf.active,
+        cam.w2c, cam.fx, cam.fy, cam.cx, cam.cy, cam.width, cam.height,
+        near=cam.near, far=cam.far,
+    )
+    proj = proj._replace(mean2d=proj.mean2d + tap)
+    out = render_projected(
+        proj, params.rgb, torch.sigmoid(params.logit_opacities), cam,
+        chunk=cfg.chunk, k_per_tile=cfg.k_per_tile, grad_exact=_grad_exact(cfg),
+        xla_blend=True,
+    )
+    mask = (depth_gt > 0).to(torch.float32)
+    depth_l1 = torch.sum(torch.abs(depth_gt - out.depth) * mask) / torch.clamp(mask.sum(), min=1.0)
+    rgb_l1 = torch.mean(torch.abs(out.rgb - im_gt))
+    ssim_val = ssim(out.rgb, im_gt)
+    loss = cfg.loss_w_im * (0.8 * rgb_l1 + 0.2 * (1.0 - ssim_val)) + cfg.loss_w_depth * depth_l1
+    aux = LossAux(
+        rgb_l1.detach(), depth_l1.detach(), ssim_val.detach(), out.radii.detach(),
+        psnr(out.rgb.detach(), im_gt), out.dropped,
+    )
+    return loss, aux
+
+
 def loss_and_grads(buf: GaussianBuffer, cam, im_gt, depth_gt, cfg):
     """(loss, aux, grads) of mapping_loss with respect to buf.params."""
     params = buf.params.map(lambda p: p.detach().requires_grad_(True))
     loss, aux = mapping_loss(params, buf, cam, im_gt, depth_gt, cfg)
     grads = torch.autograd.grad(loss, params.tensors())
     return loss.detach(), aux, GaussianParams(*grads)
+
+
+def loss_and_grads_with_tap(buf: GaussianBuffer, cam, im_gt, depth_gt, cfg):
+    """(loss, aux, grads, tap gradient (C, 2)) of mapping_loss_with_tap."""
+    params = buf.params.map(lambda p: p.detach().requires_grad_(True))
+    tap = torch.zeros_like(buf.params.means3d[:, :2], requires_grad=True)
+    loss, aux = mapping_loss_with_tap(params, tap, buf, cam, im_gt, depth_gt, cfg)
+    *grads, g_tap = torch.autograd.grad(loss, (*params.tensors(), tap))
+    return loss.detach(), aux, GaussianParams(*grads), g_tap
 
 
 def _step(buf, opt_state, grads, aux, cfg) -> Tuple[GaussianBuffer, AdamState]:
@@ -164,11 +216,10 @@ def mapping_phase(
 ):
     """One per-frame mapping event: keyframe selection, num_iters Adam
     iterations over keyframes drawn from the window, fresh optimizer state.
-    `generator` lies on the store's device. Returns (buf, store, metrics)."""
-    if cfg.use_gs_densification:
-        raise NotImplementedError(
-            "the gradient-densification tap comes with a later slice of the port"
-        )
+    `generator` lies on the store's device. With use_gs_densification each
+    iteration also accumulates the mean2d gradient norm of every Gaussian it
+    saw into grad_accum and denom (accumulate_mean2d_gradient,
+    slam_external.py:100-108). Returns (buf, store, metrics)."""
     store = store.with_scratch(cur_rgb, cur_depth, cur_w2c, cur_frame_id)
     sel_ids, sel_valid = select_keyframes_overlap(
         store, cur_depth, cur_w2c, cam.fx, cam.fy, cam.cx, cam.cy, generator,
@@ -188,8 +239,17 @@ def mapping_phase(
         im = store.rgb.index_select(0, idx)[0]
         dep = store.depth.index_select(0, idx)[0]
         cam_i = cam.replace(w2c=store.w2c.index_select(0, idx)[0])
-        loss, aux, grads = loss_and_grads(buf, cam_i, im, dep, cfg)
+        if cfg.use_gs_densification:
+            loss, aux, grads, g_tap = loss_and_grads_with_tap(buf, cam_i, im, dep, cfg)
+        else:
+            loss, aux, grads = loss_and_grads(buf, cam_i, im, dep, cfg)
         buf, opt_state = _step(buf, opt_state, grads, aux, cfg)
+        if cfg.use_gs_densification:
+            seen = aux.radii > 0
+            buf = buf.replace(
+                grad_accum=buf.grad_accum + torch.where(seen, torch.linalg.norm(g_tap, dim=-1), 0.0),
+                denom=buf.denom + seen.to(torch.float32),
+            )
         rows.append(
             torch.stack(
                 [loss, aux.psnr, aux.depth_l1, aux.dropped.float(), aux.rgb_l1, aux.ssim]
@@ -225,6 +285,99 @@ def first_frame_phase(
     buf, dropped = insert_gaussians(buf, cand, valid, 0.0)
     scene_radius = depth_gt.max() / cfg.scene_radius_depth_ratio
     return buf, dropped, scene_radius
+
+
+def _median(x: torch.Tensor) -> torch.Tensor:
+    """The median as jnp.median takes it: the mean of the two middle values
+    of an even count."""
+    return torch.quantile(x.reshape(-1), 0.5)
+
+
+@torch.no_grad()
+def densify_phase(
+    buf: GaussianBuffer,
+    cam: Camera,  # w2c = the current frame
+    rgb: torch.Tensor,
+    depth_gt: torch.Tensor,
+    frame_id: float,
+    cfg: MapperConfig,
+):
+    """Silhouette/depth-error densification (add_new_gaussians semantics,
+    splatam.py:332-379): pixels the map does not yet explain become new
+    Gaussians in free buffer slots, at the densification resolution
+    (cfg.densify_downscale_factor). The silhouette comes from an exact
+    render (B3 over CSR runs, forward only): a k-truncated silhouette reads
+    falsely low on dense tiles and re-adds present surfaces every map frame.
+    Returns (buf, num_dropped, num_inserted)."""
+    f = max(int(cfg.densify_downscale_factor), 1)
+    if f > 1:
+        cam = cam.replace(
+            width=cam.width // f, height=cam.height // f,
+            fx=cam.fx / f, fy=cam.fy / f, cx=cam.cx / f, cy=cam.cy / f,
+        )
+        rgb = rgb[::f, ::f][: cam.height, : cam.width]
+        depth_gt = depth_gt[::f, ::f][: cam.height, : cam.width]
+    out = render(buf, cam, chunk=cfg.chunk, k_per_tile=cfg.k_per_tile, exact=cfg.k_per_tile > 0)
+    sil, out_depth = out.alpha, out.depth
+    depth_error = torch.abs(depth_gt - out_depth) * (depth_gt > 0)
+    non_presence_depth = (
+        (out_depth > depth_gt)
+        & (depth_error > 2.0 * _median(depth_error))
+        & (sil > cfg.sil_thres)
+        & (depth_gt < cfg.new_gaussian_depth_limit)
+    )
+    non_presence = (sil < cfg.sil_thres) | non_presence_depth
+    valid = non_presence.reshape(-1) & (depth_gt.reshape(-1) > 0)
+    cand, cand_valid = gaussians_from_rgbd(
+        rgb, depth_gt, cam.fx, cam.fy, cam.cx, cam.cy, torch.linalg.inv(cam.w2c),
+        isotropic=cfg.gaussian_distribution == "isotropic",
+    )
+    before = buf.num_active()
+    buf, dropped = insert_gaussians(buf, cand, valid & cand_valid, frame_id)
+    return buf, dropped, buf.num_active() - before
+
+
+@torch.no_grad()
+def clone_split(buf: GaussianBuffer, scene_radius: float, frame_id: float, noise: torch.Tensor,
+                cfg: MapperConfig):
+    """densify_gradient_phase given its (C, 3) standard normal draws."""
+    avg_grad = buf.grad_accum / torch.clamp(buf.denom, min=1.0)
+    high = buf.active & (avg_grad > cfg.densify_grad_thresh)
+    p = buf.params
+    big = torch.exp(p.log_scales).amax(dim=-1) > cfg.densify_percent_dense * scene_radius
+    clone_mask = high & ~big
+    split_mask = (high & big)[:, None]
+    shrink = float(np.log(np.float32(1.6)))  # jnp.log(1.6): a float32 log
+    cand = p.replace(
+        means3d=torch.where(split_mask, p.means3d + noise * torch.exp(p.log_scales), p.means3d),
+        log_scales=torch.where(split_mask, p.log_scales - shrink, p.log_scales),
+    )
+    before = buf.num_active()
+    buf, dropped = insert_gaussians(buf, cand, clone_mask | split_mask[:, 0], frame_id)
+    # shrink the split originals (their inserted copies already are)
+    p = buf.params
+    buf = buf.replace(
+        params=p.replace(log_scales=torch.where(split_mask, p.log_scales - shrink, p.log_scales))
+    )
+    return buf, dropped, buf.num_active() - before
+
+
+def densify_gradient_phase(
+    buf: GaussianBuffer,
+    scene_radius: float,
+    frame_id: float,
+    generator: torch.Generator,
+    cfg: MapperConfig,
+):
+    """Gradient-driven clone/split (densify, slam_external.py:195-247): small
+    high-gradient Gaussians are cloned; big ones are split, a perturbed copy
+    inserted and the original's scale shrunk by 1.6. The perturbation's
+    normal draws come from `generator` (on the buffer's device), so they
+    differ from jax.random's. Returns (buf, num_dropped, num_new)."""
+    noise = torch.randn(
+        buf.params.means3d.shape, generator=generator, device=buf.device, dtype=torch.float32
+    )
+    return clone_split(buf, scene_radius, frame_id, noise, cfg)
 
 
 @torch.no_grad()

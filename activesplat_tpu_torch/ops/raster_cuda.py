@@ -1,6 +1,6 @@
-"""The blends: hand-written CUDA kernels, their plain PyTorch twins, and the
-autograd Functions that pair them (counterpart of
-activesplat_tpu/ops/raster_pallas.py, kernels B1-B5).
+"""The blends and the bin's slot search: hand-written CUDA kernels, their
+plain PyTorch twins, and the autograd Functions that pair the blends
+(counterpart of activesplat_tpu/ops/raster_pallas.py, kernels B1-B6).
 
 Tile blend (B1, B2): a tile's K depth-ordered Gaussians arrive as (K, 16)
 float32 rows [mx, my, a, b, c, opacity, col0..col7, pad, pad]; the forward
@@ -18,9 +18,14 @@ Dual CSR blend (B5, forward only): B3's walk carrying a second
 log-transmittance composited over the alphas masked by the band bit in
 column BAND_COL=14; the exit tests the band carry alone.
 
+Bin slot search (B6): for each tile, the depth-ordered member ids at list
+positions [off, off + K), from the tile's per-128-block member-count cumsum
+and one packed AABB word per Gaussian (the k-capped bin's kernel route,
+ops/raster_tiled.py).
+
 Each wrapper launches its CUDA kernel (csrc/blend_fwd.cu, blend_bwd.cu,
-blend_csr_fwd.cu, blend_csr_bwd.cu, blend_csr_dual.cu) for a CUDA tensor,
-or raises; it runs its
+blend_csr_fwd.cu, blend_csr_bwd.cu, blend_csr_dual.cu, bin_slots.cu) for a
+CUDA tensor, or raises; it runs its
 twin only for a tensor that lies on the CPU. The twins run the same
 algorithm in float32: the same segments, early exit and clamps, with a
 vectorised in-segment cumsum. The backward twins are the explicit analytic
@@ -46,6 +51,8 @@ N_ATTR = 16  # padded attribute count
 MAX_CHANNELS = 8
 BAND_COL = 14  # padding column of a CSR entry row carrying the band bit (B5)
 LOG_EPS = -5.55  # log(1/256): tile saturated below this transmittance
+BIN_BLOCK = 128  # Gaussians per block of the bin's counting front (B6)
+BIN_MAX_BLOCKS = 4096  # the bin kernel's gate: a tile's cum row fits in 16 KB
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -332,6 +339,7 @@ _INT_ARGS = {
     "blend_csr_fwd": (5, 6),
     "blend_csr_bwd": (8, 9),
     "blend_csr_dual_fwd": (5, 6),
+    "bin_slots": (2, 3, 4, 5, 6, 7),
 }
 
 
@@ -475,6 +483,61 @@ def blend_csr_bwd(entry_data, seg_tile, seg_u0, seg_v0, entry, g_accum, g_logt, 
     return d_data
 
 
+def bin_slots_plain(cum, aabb, k, slot_offset, tiles_x, n):
+    """The bin kernel's function in PyTorch (the CPU path), computed as the
+    reference's two-level slot search: each slot's block from the count of
+    blocks whose inclusive count is at most the slot, the block's membership
+    bits from the packed AABB words, and the in-block prefix."""
+    t, nb = cum.shape
+    ks = slot_offset + torch.arange(k, dtype=torch.int32, device=cum.device)
+    blk = torch.searchsorted(cum, ks.expand(t, k).contiguous(), right=True)  # (T, K)
+    blk_safe = blk.clamp(max=nb - 1)
+    prior = torch.where(
+        blk_safe > 0, torch.gather(cum, 1, (blk_safe - 1).clamp(min=0)), 0
+    )  # members of the tile before the block
+    words = aabb.view(nb, BIN_BLOCK)[blk_safe]  # (T, K, BLK)
+    tile = torch.arange(t, device=cum.device)
+    ttx = (tile % tiles_x)[:, None, None]
+    tty = torch.div(tile, tiles_x, rounding_mode="floor")[:, None, None]
+    bits = (
+        (((words >> 24) & 0xFF) <= ttx) & (ttx <= ((words >> 16) & 0xFF))
+        & (((words >> 8) & 0xFF) <= tty) & (tty <= (words & 0xFF))
+    )
+    local = torch.cumsum(bits.to(torch.int32), dim=2)
+    needed = (ks[None, :] - prior + 1)[:, :, None]
+    pos = (local < needed).sum(dim=2)
+    indices = blk_safe * BIN_BLOCK + pos
+    return torch.where(ks[None, :] < cum[:, -1:], indices, n)
+
+
+def bin_slots(cum, aabb, k, slot_offset, tiles_x, n):
+    """B6. The depth-ordered member ids at list positions [slot_offset,
+    slot_offset + k) of every tile: (T, k) int64, the sentinel n past a
+    tile's count. `cum` (T, nb) int32 holds each tile's inclusive cumsum of
+    member counts over 128-Gaussian blocks (nb <= BIN_MAX_BLOCKS); `aabb`
+    (nb * 128,) int32 one packed tile AABB per Gaussian, tx0 << 24 | tx1 <<
+    16 | ty0 << 8 | ty1, with tx0 = 255 for an invalid or padding Gaussian."""
+    if cum.dtype != torch.int32 or cum.dim() != 2 or not 1 <= cum.shape[1] <= BIN_MAX_BLOCKS:
+        raise ValueError(f"cum must be (T, nb) int32 with 1 <= nb <= {BIN_MAX_BLOCKS}: {cum.shape}")
+    t, nb = cum.shape
+    if aabb.dtype != torch.int32 or aabb.shape != (nb * BIN_BLOCK,) or aabb.device != cum.device:
+        raise ValueError(f"aabb must be ({nb * BIN_BLOCK},) int32 on cum's device")
+    if _device_kind(cum) == "cpu":
+        return bin_slots_plain(cum, aabb, k, slot_offset, tiles_x, n)
+    out = torch.empty((t, k), dtype=torch.int64, device=cum.device)
+    fn = _kernel("bin_slots", "bin_slots", 10)
+    with torch.cuda.device(cum.device):
+        ptrs = _cuda_args(cum, aabb, out)
+        rc = fn(
+            *ptrs[:2], t, nb, k, int(slot_offset), tiles_x, n, ptrs[2],
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"bin_slots launch failed: CUDA error {rc}")
+    bin_slots.launches += 1
+    return out
+
+
 def blend_csr_dual_fwd(entry_data, seg_tile, seg_u0, seg_v0, n_tiles, n_channels=3):
     """B5, forward only: B3's walk over the same stream, carrying a second
     log-transmittance over alpha * band, the band bit (0 or 1) in column
@@ -507,7 +570,10 @@ blend_tiles_bwd.launches = 0
 blend_csr_fwd.launches = 0
 blend_csr_bwd.launches = 0
 blend_csr_dual_fwd.launches = 0
-KERNELS = (blend_tiles_fwd, blend_tiles_bwd, blend_csr_fwd, blend_csr_bwd, blend_csr_dual_fwd)
+bin_slots.launches = 0
+KERNELS = (
+    blend_tiles_fwd, blend_tiles_bwd, blend_csr_fwd, blend_csr_bwd, blend_csr_dual_fwd, bin_slots
+)
 
 
 def reset_launch_counts() -> None:

@@ -4,13 +4,17 @@
 The k-capped path (rasterize_tiled):
   1. depth sort, with the binning attributes quantized exactly as the
      reference packs them (_sort_pack): tile membership depends on it;
-  2. per-tile lists of the K nearest members (bin_gaussians), by duplicating
-     each Gaussian once per overlapped tile and sorting the (tile, depth rank)
-     pairs — the lists the reference's counting hierarchy builds;
+  2. per-tile lists of the K nearest members (bin_gaussians), the lists the
+     reference's counting hierarchy builds: by default by duplicating each
+     Gaussian once per overlapped tile and sorting the (tile, depth rank)
+     pairs; with ACTIVESPLAT_BIN_KERNEL=1 (read at import, as the reference
+     reads it) by per-block member counts and the slot-search kernel B6;
   3. gather each tile's rows from the unsorted, differentiable attributes and
      blend them in the CUDA tile-blend kernels B1/B2 (ops/raster_cuda.py).
 With max_passes > 1 farther k-windows of each list fold in until every
 overflowing tile saturates or exhausts (the exact multi-pass walk).
+xla_blend=True blends in plain autograd PyTorch with no early exit, the
+reference's XLA tile blend, which its gradient tap renders with.
 
 The exact path (rasterize_tiled_exact) expands every (Gaussian, tile)
 membership without a cap into CSR runs, each tile's run padded to a CSEG
@@ -29,6 +33,7 @@ an overflow on the host and take the fallback in place of lax.cond.
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -37,15 +42,26 @@ import torch.nn.functional as F
 
 from activesplat_tpu_torch.ops.raster_cuda import (
     BAND_COL,
+    BIN_BLOCK,
+    BIN_MAX_BLOCKS,
     CSEG,
     LOG_EPS,
     N_ATTR,
     SEG,
     TILE,
+    _pixel_coords,
+    bin_slots,
     blend_csr,
     blend_csr_dual_fwd,
     blend_tiles,
 )
+from activesplat_tpu_torch.ops.raster_xla import ALPHA_MAX, ALPHA_MIN
+from activesplat_tpu_torch.utils.tracing import host_value
+
+# The bin kernel route (B6): read once at import, as the reference reads it
+# (raster_tiled.py:41-47); bin_gaussians(use_kernel=...) overrides it per
+# call. Set ACTIVESPLAT_BIN_KERNEL=1 before the process starts.
+_BIN_KERNEL = os.environ.get("ACTIVESPLAT_BIN_KERNEL", "0") == "1"
 
 # harmful-drop threshold: overflow counts only in tiles with > 2% end-of-list
 # transmittance left at some pixel
@@ -88,12 +104,21 @@ def bin_gaussians(
     height: int,
     k_per_tile: int,
     slot_offset: int = 0,
+    use_kernel: Optional[bool] = None,
 ) -> TileLists:
     """Fixed-capacity per-tile lists: the members at list positions
     [slot_offset, slot_offset + k) of each tile in depth order (the window
     pass p of the multi-pass walk reads, offset p*k), their count, and the
-    count past the window. Costs one host sync (the number of (tile,
-    Gaussian) pairs)."""
+    count past the window.
+
+    Two routes give the same lists. The kernel route (B6) runs when
+    `use_kernel` (None: the import-time ACTIVESPLAT_BIN_KERNEL switch) is
+    set and the reference's static gate holds (k a multiple of 128, at most
+    BIN_MAX_BLOCKS blocks of 128 Gaussians): per-(block, tile) member counts
+    from one product of the separable tile-interval indicators, their
+    cumsum over blocks, and the slot search in bin_slots. No host sync.
+    Otherwise the sort route: each membership becomes a (tile, depth rank)
+    pair, sorted by tile. One host sync (the number of pairs)."""
     n = mean2d.shape[0]
     dev = mean2d.device
     tiles_x = -(-width // TILE)
@@ -102,13 +127,22 @@ def bin_gaussians(
     valid, tx0, tx1, ty0, ty1 = tile_aabbs(
         mean2d[:, 0], mean2d[:, 1], radius, valid, tiles_x, tiles_y
     )
+    nb = -(-n // BIN_BLOCK)
+    if (
+        k_per_tile % BIN_BLOCK == 0
+        and nb <= BIN_MAX_BLOCKS
+        and (_BIN_KERNEL if use_kernel is None else use_kernel)
+    ):
+        return _bin_kernel_route(valid, tx0, tx1, ty0, ty1, tiles_x, tiles_y, k_per_tile, slot_offset)
     tx0, tx1, ty0, ty1 = (x.to(torch.int64) for x in (tx0, tx1, ty0, ty1))
     span_x = tx1 - tx0 + 1
     n_tiles = torch.where(valid, span_x * (ty1 - ty0 + 1), 0)
 
     # one (tile, rank) pair per membership; ranks ascend within each
     # Gaussian's run, so a stable sort by tile keeps depth order per tile
-    ids = torch.repeat_interleave(torch.arange(n, device=dev), n_tiles)
+    ids = torch.repeat_interleave(
+        torch.arange(n, device=dev), n_tiles, output_size=host_value(n_tiles.sum())
+    )
     first = torch.cumsum(n_tiles, 0) - n_tiles
     local = torch.arange(ids.shape[0], device=dev) - first[ids]
     tile = (ty0[ids] + local // span_x[ids]) * tiles_x + tx0[ids] + local % span_x[ids]
@@ -122,12 +156,46 @@ def bin_gaussians(
     indices = torch.full((t * k_per_tile + 1,), n, dtype=torch.int64, device=dev)
     dest = torch.where(keep, tile * k_per_tile + slot, t * k_per_tile)
     indices[dest] = ids  # entries outside the window land in the spare last cell
+    return _lists(indices[:-1].view(t, k_per_tile), count_full, k_per_tile, slot_offset)
+
+
+def _lists(indices, count_full, k_per_tile, slot_offset) -> TileLists:
     rest = count_full - slot_offset
     return TileLists(
-        indices=indices[:-1].view(t, k_per_tile),
+        indices=indices,
         count=torch.clamp(rest, 0, k_per_tile).to(torch.int32),
         overflow=torch.clamp(rest - k_per_tile, min=0).to(torch.int32),
     )
+
+
+def _bin_kernel_route(valid, tx0, tx1, ty0, ty1, tiles_x, tiles_y, k_per_tile, slot_offset):
+    """bin_gaussians through B6 (see there). The counting front is the
+    reference's (raster_tiled.py:136-156): the (block, tile) member counts
+    are one float32 product of the (nb, 128, tiles_y) and (nb, 128,
+    tiles_x) interval indicators, exact since a count is at most 128 and
+    TF32 is off. The packed AABB words carry the reference's invalid and
+    padding value tx0 = 255, an empty interval."""
+    n = valid.shape[0]
+    nb = -(-n // BIN_BLOCK)
+    pad = nb * BIN_BLOCK - n
+    dev = valid.device
+    cols = torch.arange(tiles_x, dtype=torch.float32, device=dev)
+    rows = torch.arange(tiles_y, dtype=torch.float32, device=dev)
+    in_x = ((cols >= tx0[:, None]) & (cols <= tx1[:, None]) & valid[:, None]).to(torch.float32)
+    in_y = ((rows >= ty0[:, None]) & (rows <= ty1[:, None])).to(torch.float32)
+    in_x = F.pad(in_x, (0, 0, 0, pad)).view(nb, BIN_BLOCK, tiles_x)
+    in_y = F.pad(in_y, (0, 0, 0, pad)).view(nb, BIN_BLOCK, tiles_y)
+    counts = torch.bmm(in_y.transpose(1, 2), in_x)  # (nb, ty, tx)
+    cum = counts.view(nb, tiles_x * tiles_y).to(torch.int32).cumsum(0, dtype=torch.int32)
+    cum = cum.T.contiguous()  # (T, nb): each tile's row, contiguous for the kernel
+
+    x0 = torch.where(valid, tx0, 255.0).to(torch.int64)
+    word = (x0 << 24) | (tx1.to(torch.int64) << 16) | (ty0.to(torch.int64) << 8) | ty1.to(torch.int64)
+    word = F.pad(word, (0, pad), value=255 << 24)
+    word = torch.where(word >= 1 << 31, word - (1 << 32), word).to(torch.int32)  # as int32 bits
+
+    indices = bin_slots(cum, word, k_per_tile, slot_offset, tiles_x, n)
+    return _lists(indices, cum[:, -1], k_per_tile, slot_offset)
 
 
 def _sort_pack(data: torch.Tensor, key: torch.Tensor, radius: torch.Tensor, valid: torch.Tensor):
@@ -167,7 +235,7 @@ def _prepare(mean2d, conic, opacity, colors, valid, radius, depth):
     key = torch.where(valid, depth, torch.full_like(depth, float("inf")))
     data = torch.cat([mean2d, conic, opacity[:, None], colors], -1)  # (N, 6 + C)
     packed, order = _sort_pack(data, key, radius, valid)
-    return data, packed, order, max(int(valid.sum()), 1)
+    return data, packed, order, max(host_value(valid.sum()), 1)
 
 
 def _pad_table(data):
@@ -229,17 +297,39 @@ def tile_rows(
     )
 
 
-def _capped_tiles(data, packed, order, b, *, width, height, k_per_tile, max_passes=1):
+def blend_tiles_xla(tile_data, tile_u0, tile_v0, n_channels=5):
+    """The reference's XLA tile blend (_blend_tile, raster_tiled.py:289-318)
+    in plain PyTorch, differentiable by autograd: every row of every tile
+    composited at once, with no early exit. Returns (accum (T, PX, C),
+    log_transmittance (T, PX))."""
+    px, py = _pixel_coords(tile_u0, tile_v0)  # (T, PX)
+    dx = tile_data[:, :, 0:1] - px[:, None, :]  # (T, K, PX)
+    dy = tile_data[:, :, 1:2] - py[:, None, :]
+    ca, cb, cc, op = (tile_data[:, :, i : i + 1] for i in range(2, 6))
+    power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
+    alpha = torch.clamp(op * torch.exp(power), max=ALPHA_MAX)
+    alpha = torch.where((power <= 0.0) & (alpha >= ALPHA_MIN), alpha, torch.zeros_like(alpha))
+    logs = torch.log1p(-alpha)
+    cum = torch.cumsum(logs, dim=1)
+    weight = alpha * torch.exp(cum - logs)
+    accum = torch.einsum("tkp,tkc->tpc", weight, tile_data[:, :, 6 : 6 + n_channels])
+    return accum, cum[:, -1]
+
+
+def _capped_tiles(data, packed, order, b, *, width, height, k_per_tile, max_passes=1,
+                  xla_blend=False):
     """The k-capped blend of every tile, with up to max_passes k-windows:
-    (accum_t (T, PX, C), logt_t (T, PX), overflow (T,) of the last window)."""
+    (accum_t (T, PX, C), logt_t (T, PX), overflow (T,) of the last window).
+    xla_blend blends in blend_tiles_xla in place of B1/B2."""
     k = min(k_per_tile, b)
+    blend = blend_tiles_xla if xla_blend else blend_tiles
 
     def blend_pass(slot_offset):
         rows, u0, v0, overflow = _window_rows(
             packed[:b], order, data, width=width, height=height, k_per_tile=k,
             slot_offset=slot_offset,
         )
-        return (*blend_tiles(rows, u0, v0, data.shape[1] - 6), overflow)
+        return (*blend(rows, u0, v0, data.shape[1] - 6), overflow)
 
     accum_t, logt_t, overflow = blend_pass(0)
     # Exact compositing: walk farther k-windows until every overflowing tile
@@ -248,7 +338,7 @@ def _capped_tiles(data, packed, order, b, *, width, height, k_per_tile, max_pass
     # each pass folds in with one multiply-add.
     for p in range(1, max_passes):
         unsat = logt_t.detach().amax(dim=1) > _SATURATED_LOG_T
-        if not bool(((overflow > 0) & unsat).any()):
+        if not host_value(((overflow > 0) & unsat).any()):
             break
         accum_p, logt_p, overflow = blend_pass(p * k)
         accum_t = accum_t + torch.exp(logt_t)[:, :, None] * accum_p
@@ -269,6 +359,7 @@ def rasterize_tiled(
     height: int,
     k_per_tile: int = 256,
     max_passes: int = 1,
+    xla_blend: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Tile-binned front-to-back compositing of each tile's nearest
     k_per_tile members, differentiable through the tile blend.
@@ -278,11 +369,12 @@ def rasterize_tiled(
     tiles that did not saturate (some pixel's end-of-list transmittance
     > 2%). max_passes > 1 composites farther k-windows until every tile
     saturates or exhausts: exact, like the uncapped reference, for
-    forward-only renders."""
+    forward-only renders. xla_blend=True blends in blend_tiles_xla (the
+    reference's XLA blend: autograd, no early exit) in place of B1/B2."""
     data, packed, order, b = _prepare(mean2d, conic, opacity, colors, valid, radius, depth)
     accum_t, logt_t, overflow = _capped_tiles(
         data, packed, order, b, width=width, height=height, k_per_tile=k_per_tile,
-        max_passes=max_passes,
+        max_passes=max_passes, xla_blend=xla_blend,
     )
     return (*_to_images(accum_t, logt_t, width, height), _harmful(logt_t, overflow))
 
@@ -345,7 +437,7 @@ def _csr_layout(packed, order, n, tiles_x, tiles_y, harm=None) -> CSRLayout:
     g_end = torch.cumsum(span, 0)
     budget = -(-max(min(4 * n, _ENTRY_CAP), CSEG) // CSEG) * CSEG
     kept = g_end <= budget
-    m_total, m_kept = torch.stack([g_end[-1], torch.where(kept, g_end, 0).max()]).tolist()
+    m_total, m_kept = host_value(torch.stack([g_end[-1], torch.where(kept, g_end, 0).max()]))
 
     ids = torch.repeat_interleave(
         torch.arange(packed.shape[0], device=dev), torch.where(kept, span, 0), output_size=m_kept
@@ -361,7 +453,7 @@ def _csr_layout(packed, order, n, tiles_x, tiles_y, harm=None) -> CSRLayout:
     count = torch.bincount(tile, minlength=t)
     seg_count = torch.div(count + CSEG - 1, CSEG, rounding_mode="floor")
     seg_end = torch.cumsum(seg_count, 0)
-    n_seg = int(seg_end[-1])
+    n_seg = host_value(seg_end[-1])
     rank = torch.arange(tile.shape[0], device=dev) - (torch.cumsum(count, 0) - count)[tile]
     global_ids = torch.full((n_seg * CSEG,), n, dtype=torch.int64, device=dev)
     global_ids[(seg_end - seg_count)[tile] * CSEG + rank] = order[ids[perm]]
@@ -472,6 +564,7 @@ def rasterize_tiled_hybrid(
     width: int,
     height: int,
     k_per_tile: int = 256,
+    xla_blend: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, int]:
     """Exact differentiable compositing at capped + O(harmful memberships)
     cost: the k-capped blend runs for every tile; tiles that overflow the cap
@@ -486,16 +579,20 @@ def rasterize_tiled_hybrid(
     reference's fallback, taken here without a second render, since the
     capped pass is the same computation). One sort serves both halves; no
     CSR launch when no tile is harmful. The running totals `.calls` and
-    `.harmful_tiles` on this function count calls and harmful tiles."""
+    `.harmful_tiles` on this function count calls and harmful tiles.
+    xla_blend=True blends the capped half in blend_tiles_xla, as the
+    reference's hybrid does with its XLA backend; the CSR half is B3/B4
+    either way."""
     tiles_x = -(-width // TILE)
     tiles_y = -(-height // TILE)
     data, packed, order, b = _prepare(mean2d, conic, opacity, colors, valid, radius, depth)
     accum_t, logt_t, overflow = _capped_tiles(
-        data, packed, order, b, width=width, height=height, k_per_tile=k_per_tile
+        data, packed, order, b, width=width, height=height, k_per_tile=k_per_tile,
+        xla_blend=xla_blend,
     )
     dropped = _harmful(logt_t, overflow)
     harm = (overflow > 0) & (logt_t.detach().amax(dim=1) > LOG_EPS)
-    n_harm = int(harm.sum())
+    n_harm = host_value(harm.sum())
     rasterize_tiled_hybrid.calls += 1
     rasterize_tiled_hybrid.harmful_tiles += n_harm
     csr_overflow = 0

@@ -58,6 +58,7 @@ def render_projected(
     k_per_tile: int = 0,
     exact: bool = False,
     grad_exact=False,
+    xla_blend: bool = False,
 ) -> RenderOutput:
     """Rasterize already-projected Gaussians (see `render`).
 
@@ -74,7 +75,11 @@ def render_projected(
     same fallback. `dropped` reports the capped path's harmful truncations
     where a capped blend ran (as telemetry for "hybrid") and 0 where every
     membership was composited. Each fallback costs a host sync in place of
-    the reference's lax.cond."""
+    the reference's lax.cond.
+
+    xla_blend=True blends the capped tiles in plain autograd PyTorch with no
+    early exit (raster_tiled.blend_tiles_xla): the reference's default
+    "xla" backend, which its mean2d gradient tap renders with."""
     dev = proj.depth.device
     if bg is None:
         bg = torch.zeros((3,), dtype=torch.float32, device=dev)
@@ -98,7 +103,8 @@ def render_projected(
         # the 3-sigma radius and valid mask for densification bookkeeping
         bin_radius, bin_valid = adaptive_cull_radius(proj.radius, proj.valid, opacities)
         args = (proj.mean2d, proj.conic, opacities, channels, bin_valid, bin_radius, proj.depth)
-        size = dict(width=cam.width, height=cam.height, k_per_tile=k_per_tile)
+        size = dict(width=cam.width, height=cam.height, k_per_tile=k_per_tile,
+                    xla_blend=xla_blend)
         if grad_exact == "hybrid":
             accum, log_t, dropped, _ = rasterize_tiled_hybrid(*args, **size)
         elif grad_exact or exact:

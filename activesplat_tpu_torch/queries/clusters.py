@@ -378,6 +378,38 @@ def resize_area(img: np.ndarray, width: int, height: int) -> np.ndarray:
     return out
 
 
+def resize_linear_u8(img: np.ndarray, width: int, height: int) -> np.ndarray:
+    """OpenCV's INTER_LINEAR resize of a uint8 image (H, W) to (width,
+    height), bitwise: source positions (d + 0.5) * scale - 0.5 in float32,
+    11-bit fixed-point weights rounded from float32, columns clamped to the
+    border (weight 1 on the edge pixel) and rows not (the border row taken
+    twice with both weights); the horizontal pass in integers, then the
+    vertical pass as OpenCV's vectorized path computes it,
+    ((r0 >> 4) * b0 >> 16) + ((r1 >> 4) * b1 >> 16), rounded by (+2) >> 2."""
+    src = np.asarray(img, np.int64)
+    sy, sy1, b0, b1 = _linear_taps(src.shape[0], height, clamp=False)
+    sx, sx1, a0, a1 = _linear_taps(src.shape[1], width, clamp=True)
+    rows = src[:, sx] * a0 + src[:, sx1] * a1  # (H, width), weights sum to 2048
+    out = (((rows[sy] >> 4) * b0[:, None]) >> 16) + (((rows[sy1] >> 4) * b1[:, None]) >> 16)
+    return np.clip((out + 2) >> 2, 0, 255).astype(np.uint8)
+
+
+def _linear_taps(ssize: int, dsize: int, clamp: bool):
+    """(first source index, second source index, weight0, weight1) per
+    destination index, the weights in 1/2048 units."""
+    scale = 1.0 / (dsize / ssize)
+    f = ((np.arange(dsize) + 0.5) * scale - 0.5).astype(np.float32)
+    s = np.floor(f).astype(np.int64)
+    f = f - s.astype(np.float32)
+    if clamp:
+        edge = (s < 0) | (s >= ssize - 1)
+        f = np.where(edge, np.float32(0.0), f)
+        s = np.clip(s, 0, ssize - 1)
+    w0 = np.rint((np.float32(1.0) - f) * np.float32(2048)).astype(np.int64)
+    w1 = np.rint(f * np.float32(2048)).astype(np.int64)
+    return np.clip(s, 0, ssize - 1), np.clip(s + 1, 0, ssize - 1), w0, w1
+
+
 def _area_weights(ssize: int, dsize: int, scale: float):
     """computeResizeAreaTab: (destination, source, float32 weight) triples
     in OpenCV's order."""

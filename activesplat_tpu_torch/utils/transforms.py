@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from scipy.spatial.transform import Rotation
 
 
 def quat_normalize(q: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -42,6 +43,14 @@ def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
         ],
         dim=-2,
     )
+
+
+def mat_to_q_pos(pose: np.ndarray):
+    """(4, 4) pose -> (wxyz quaternion, translation)
+    (semantics of src/utils/pose_utils.py:13-21), through scipy's rotation
+    as the JAX package computes it."""
+    q_xyzw = Rotation.from_matrix(np.asarray(pose[:3, :3], np.float64)).as_quat()
+    return np.roll(q_xyzw, 1, axis=-1), pose[:3, 3].copy()
 
 
 def rot_axis(view_c2w: np.ndarray, axis: str, angle_rad: float) -> np.ndarray:

@@ -12,7 +12,15 @@ Phases, each fatal on failure:
      and check that the comparisons reject planted faults; the dual CSR
      blend (B5) on a random CSR stream with band bits (bands all set, none
      and sparse, tiles whose full composite saturates a segment before the
-     band), with its two bitwise identities to B3;
+     band), with its two bitwise identities to B3; the bin's slot search
+     (B6) bitwise against its twin on the slot searches that
+     bin_gaussians' kernel route hands it (the two scenes of
+     tests/test_raster_tiled.py:324-332 at k=128 and 256, and a scene of
+     4,090 blocks of 128 splats, near the kernel's gate, each at slot
+     offsets 0, 128 and 256), the route's lists bitwise against the sort
+     route's, and planted faults (the slot off by one, the members before a
+     slot counted from its own block, the sentinel replaced by the window's
+     last member) rejected;
   3. drive the mapping slice at the benchmark's size (200,000 Gaussians in
      a 262,144-slot buffer, 256x256 sensor, k_per_tile=256,
      exact_training="off"): first_frame_phase, three mapping_phase events of
@@ -22,8 +30,10 @@ Phases, each fatal on failure:
      run 30 times, and B3/B4 never. Then run 20 more iterations under
      torch.profiler and print the device's busy time and idle share per
      iteration and the operators that take the most device and host time.
-     Then check the port on the card against the port on the CPU on a small
-     scene;
+     Then time the same iterations with the bin kernel route on
+     (raster_tiled._BIN_KERNEL, B6 launched once per iteration) between two
+     sort-route runs: sort, kernel, kernel, sort. Then check the port on
+     the card against the port on the CPU on a small scene;
   3b. on the same map, exact_training="on" (k=256) and "hybrid" (k=64): one
      mapping_phase event of 10 iterations and 10 timed iterations each, the
      counters read after each ("on": B3 = B4 = 10 and B1 = B2 = 0, which
@@ -36,7 +46,20 @@ Phases, each fatal on failure:
      render; B3/B4: the CSR stream of an exact render, first held against
      the twins as in phase 2) time each kernel (its own device time from
      torch.profiler, and its wrapper per call between CUDA events), its
-     twin, and work out its bound;
+     twin, and work out its bound; B6 on the slot searches of the map's
+     k-capped render (its visible prefix, k=256, offsets 0 and 256), held
+     against its twin and the sort route as in phase 2, timed the same way,
+     with the whole kernel route and the sort route timed beside it;
+  3d. the per-frame mapper driver with the bin kernel route on:
+     SplaTAMMapper with MapperConfig() fed 40 frames of BoxWorld.two_room(0)
+     at 256x256 and 90 degrees hfov along turns and short moves from the
+     hermetic episode's start; its per-frame wall time, Gaussian count,
+     metrics, shape history, stage report with host syncs, launches (B1,
+     B2, B3 and B6 each launched) and a profile of one more mapping frame;
+     then post_processing and a save_checkpoint / load_map round trip in a
+     temporary directory, the loaded map equal to the saved one; then the
+     driver on the card against the driver on the CPU over five 64x64
+     frames;
   3c. free the 200k map, build bench.py's query map (1,000,000 Gaussians)
      and drive the planner's queries at bench_queries' size: render_topdown
      (B5 once; 5 timed calls), the dual maps against the pair of exact
@@ -123,6 +146,25 @@ CSR_BWD_REPLACES = ("activesplat_tpu/ops/raster_pallas.py:736 "
                     "(_blend_csr_bwd_pallas / _blend_csr_bwd_kernel :628)")
 DUAL_REPLACES = ("activesplat_tpu/ops/raster_pallas.py:582 "
                  "(blend_csr_dual_pallas / _blend_csr_dual_kernel :514)")
+BIN_REPLACES = ("activesplat_tpu/ops/raster_pallas.py:898 "
+                "(bin_slots_pallas / _bin_slots_kernel :828)")
+
+# the bin's slot search does integer work: 64 INT32 results per clock per SM
+# (Hopper white paper), times the card's maximum SM clock
+INT32_PER_CLOCK_PER_SM = 64
+BIN_SCENES = ((1000, 256, 256), (500, 144, 96))  # tests/test_raster_tiled.py:324-332
+GATE_SCENE_BLOCKS = 4090  # a scene just inside the kernel's gate of 4,096 blocks
+BIN_FAULTS = ("slot off by one", "members before the slot counted from its own block",
+              "sentinel replaced by the window's last member")
+
+# the per-frame mapper driver at the hermetic episode's configuration
+# (activesplat_tpu/runtime/launch.py:33-69: two_room, seed 0, 256x256,
+# 90 degrees hfov, depth to 10 m, MapperConfig() defaults)
+DRIVER_FRAMES = 40
+DRIVER_STEP_NUM = 500  # the episode's step budget (make_synthetic_dataset)
+CAMERA_HEIGHT = 1.25  # RGBDSensor.position above the agent's base
+TURN_DEG = 10.0  # SyntheticDataset's turn and forward step
+FORWARD_STEP = 0.065
 
 # the planner's map queries at bench.py's query size (bench_queries,
 # bench.py:124-156, at its default of 1,000,000 Gaussians)
@@ -168,17 +210,20 @@ def kernel_device_ms(torch, fn, kernel: str, reps: int) -> float:
 
     fn()  # warm
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    times = [e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA and kernel in e.name]
-    # the trace may miss the first launches after it starts: average over
-    # those it holds, as long as it holds most
-    if not reps // 2 <= len(times) <= reps:
-        raise AssertionError(f"the profiler saw {len(times)} launches of {kernel} in {reps} calls")
-    return sum(times) / len(times) / 1e3
+    # the trace may miss the first launches after it starts, and once in a
+    # while a whole window: average over those it holds, as long as it holds
+    # most, and trace a fresh window (at most three) when it does not
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        times = [e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and kernel in e.name]
+        if reps // 2 <= len(times) <= reps:
+            return sum(times) / len(times) / 1e3
+        print(f"the profiler saw {len(times)} launches of {kernel} in {reps} calls; tracing again")
+    raise AssertionError(f"the profiler saw {len(times)} launches of {kernel} in {reps} calls")
 
 
 def random_tiles(torch, seed: int, t: int = 256, k: int = 256):
@@ -823,7 +868,13 @@ def profile_calls(torch, fn, calls: int, timed_ms: float, card: str, label: str,
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) / calls * 1e3
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # device activity, less the device-side spans of the tracing stages
+    # (record_function ranges), which cover the kernels they enclose
+    from activesplat_tpu_torch.utils.tracing import stage_report
+
+    stages = set(stage_report())
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False) and e.name not in stages]
     busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / calls
     print(f"profile of {calls} {label} calls on {card}: wall {wall_ms:.3f} ms/call "
           f"under the profiler ({timed_ms:.3f} without), device busy {busy_ms:.3f} ms/call "
@@ -833,6 +884,335 @@ def profile_calls(torch, fn, calls: int, timed_ms: float, card: str, label: str,
     for table in tables:
         sort_by = {"device": "self_device_time_total", "host": "self_cpu_time_total"}[table]
         print(averages.table(sort_by=sort_by, row_limit=20))
+
+
+def random_bin_scene(torch, n: int, w: int, h: int):
+    """tests/test_raster_tiled.py:324-332's bin inputs on the card: n splats
+    with means over the image and 20 px beyond it, radii of 1 to 25 px, 85%
+    valid."""
+    import numpy as np
+
+    rng = [np.random.default_rng(n + i) for i in range(3)]
+    return (torch.tensor(rng[0].uniform(-20, max(w, h) + 20, (n, 2)), dtype=torch.float32).cuda(),
+            torch.tensor(rng[1].uniform(1, 25, n), dtype=torch.float32).cuda(),
+            torch.from_numpy(rng[2].uniform(0, 1, n) > 0.15).cuda(), w, h)
+
+
+def bin_fault(torch, rc, indices, args, fault):
+    """B6's output with one planted fault. "slot off by one": the twin's
+    search for slot s + 1. "members before the slot counted from its own
+    block": with cum[b] in place of cum[b - 1] a slot's rank in its block
+    is negative, so it lands on the block's first Gaussian. "sentinel
+    replaced by the window's last member": past a tile's count, the last
+    member of its window in place of n."""
+    cum, aabb, k, off, tiles_x, n = args
+    if fault == BIN_FAULTS[0]:
+        return rc.bin_slots_plain(cum, aabb, k, off + 1, tiles_x, n)
+    if fault == BIN_FAULTS[1]:
+        return torch.where(indices < n, indices - indices % rc.BIN_BLOCK, indices)
+    filled = (cum[:, -1:].long() - off).clamp(0, k)  # (T, 1) members in the window
+    last = indices.gather(1, (filled - 1).clamp(min=0))
+    past = torch.arange(k, device=indices.device)[None, :] >= filled
+    return torch.where(past & (filled > 0), last, indices)
+
+
+def bin_checks(torch, rc, rt, scene, k: int, offsets, tag: str, rejected):
+    """B6 against its twin, bitwise, on the slot search that bin_gaussians'
+    kernel route hands it for `scene` at each slot offset, and the route's
+    lists (indices, count, overflow) bitwise against the sort route's. Each
+    planted fault that changes the output must be rejected; `rejected`
+    counts them. Returns [(offset, the slot search's arguments, lists)]."""
+    mean2d, radius, valid, w, h = scene
+    out = []
+    for off in offsets:
+        seen = []
+        real = rt.bin_slots
+        rt.bin_slots = lambda *a: seen.append(a) or real(*a)
+        try:
+            lists = rt.bin_gaussians(mean2d, radius, valid, w, h, k, off, use_kernel=True)
+        finally:
+            rt.bin_slots = real
+        if len(seen) != 1:
+            raise AssertionError(f"{tag}: the kernel route did not run at offset {off}")
+        args = seen[0]
+        plain = rc.bin_slots_plain(*args)
+
+        def same(idx):
+            if not torch.equal(idx, plain):
+                raise AssertionError(f"{tag} k={k} offset {off}: bin_slots differs from its twin "
+                                     f"at {int((idx != plain).sum())} slots")
+
+        same(lists.indices)
+        sort = rt.bin_gaussians(mean2d, radius, valid, w, h, k, off, use_kernel=False)
+        for f in ("indices", "count", "overflow"):
+            if not torch.equal(getattr(lists, f), getattr(sort, f)):
+                raise AssertionError(f"{tag} k={k} offset {off}: the kernel route's {f} differ "
+                                     f"from the sort route's")
+        shown = []
+        for fault in BIN_FAULTS:
+            bad = bin_fault(torch, rc, lists.indices, args, fault)
+            if not torch.equal(bad, lists.indices):
+                must_reject(fault, lambda: same(bad))
+                rejected[fault] += 1
+                shown.append(fault)
+        n = args[5]
+        print(f"{tag} k={k} offset {off}: {args[0].shape[1]} blocks, "
+              f"{int((lists.indices < n).sum())} of {lists.indices.numel()} slots filled; bitwise "
+              f"equal to the twin and the sort route; {len(shown)} planted faults rejected")
+        out.append((off, args, lists))
+    return out
+
+
+def bin_bound(torch, rc, args, indices, int_rate: float):
+    """B6's bound on these inputs: the bytes it must move (the tile rows of
+    cum, the AABB words of every block that a filled slot lands in, the
+    int64 output) at the HBM rate, or its integer operations (per filled
+    slot the block search, ceil(log2 nb) + 1 compares, and four compares for
+    each of the block's 128 members; per empty slot one compare) at the
+    INT32 rate, whichever is longer."""
+    cum, aabb, k, off, tiles_x, n = args
+    t, nb = cum.shape
+    filled = indices < n
+    n_filled = int(filled.sum())
+    blocks = int(torch.unique(indices[filled] // rc.BIN_BLOCK).numel())
+    nbytes = cum.numel() * 4 + blocks * rc.BIN_BLOCK * 4 + indices.numel() * 8
+    ops = n_filled * (math.ceil(math.log2(nb)) + 1 + 4 * rc.BIN_BLOCK) + (t * k - n_filled)
+    times = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3, "operations": ops / int_rate * 1e3}
+    by = max(times, key=times.get)
+    return (times[by], by), (n_filled, blocks, nbytes, ops)
+
+
+def driver_phase(torch, np, rc, rt, card, by_phase, int_rate: float) -> None:
+    """Phase 3d: the per-frame mapper driver with the bin kernel route on
+    (see the module docstring). Its launches go into by_phase["mapper
+    driver"]: B2 and B6 once per mapping iteration (B1 and B6 also in any
+    exact render's fallback), B3 in every densify and exact online render,
+    B5 never."""
+    import dataclasses
+    import os
+    import tempfile
+
+    from activesplat_tpu_torch.io.params_io import load_params
+    from activesplat_tpu_torch.io.png import read_png
+    from activesplat_tpu_torch.mapper import MapperState
+    from activesplat_tpu_torch.mapper.config import MapperConfig
+    from activesplat_tpu_torch.mapper.splatam import SplaTAMMapper
+    from activesplat_tpu_torch.ops.render import render
+    from activesplat_tpu_torch.runtime.synthetic import BoxWorld
+    from activesplat_tpu_torch.utils import tracing
+
+    world = BoxWorld.two_room(seed=0)
+    intr = driver_intrinsics(np, RES)
+    t0 = time.perf_counter()
+    frames = driver_frames(np, world, intr, DRIVER_FRAMES + 1)
+    print(f"driver: {len(frames)} frames of two_room at {RES}x{RES} rendered in "
+          f"{time.perf_counter() - t0:.1f} s (set-up)")
+    rt._BIN_KERNEL = True
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            mapper = SplaTAMMapper(MapperConfig(), RES, RES, intr, DRIVER_STEP_NUM,
+                                   results_dir=tmp, device="cuda")
+            tracing.reset_stages()
+            torch.cuda.synchronize()
+            rc.reset_launch_counts()
+            frame_ms, states, mapping_ms = [], [], []
+            for batch in frames[:DRIVER_FRAMES]:
+                iters_before = mapper.mapping_iter_time_count
+                t0 = time.perf_counter()
+                states.append(mapper.run(batch))
+                torch.cuda.synchronize()
+                frame_ms.append((time.perf_counter() - t0) * 1e3)
+                if mapper.mapping_iter_time_count > iters_before:
+                    mapping_ms.append(frame_ms[-1])
+            counts = {fn.__name__: fn.launches for fn in rc.KERNELS}
+            rc.reset_launch_counts()
+            by_phase["mapper driver"] = counts
+            iters = mapper.mapping_iter_time_count
+            n_gauss = mapper.num_gaussians()
+            met = mapper.last_metrics
+            print(f"driver frame wall ms: {[round(x, 3) for x in frame_ms]}")
+            print(f"mapper_frame_ms@two_room_{RES}px = {sum(frame_ms) / len(frame_ms):.3f} "
+                  f"({DRIVER_FRAMES} frames, {iters} mapping iterations, host clock to a "
+                  f"synchronize) on {card}")
+            print(f"driver: {n_gauss} Gaussians in a {mapper.buf.capacity}-slot buffer, "
+                  f"map_version {mapper.map_version}, keyframes {mapper.keyframe_time_indices}")
+            print(f"driver last_metrics: {met}")
+            print(f"driver shape_history: {mapper.shape_history}")
+            print(f"driver truncation bias: {mapper.truncation_bias()}")
+            print("driver stages (host wall-clock; total, calls, longest call):")
+            for name, (tot, calls, longest) in sorted(tracing.stage_report_full().items()):
+                print(f"  {name:<26} {tot * 1e3:10.3f} ms / {calls:4d} calls, longest "
+                      f"{longest * 1e3:9.3f} ms")
+            print(f"driver host syncs and device-to-host copies by stage: "
+                  f"{tracing.stage_report_io()}")
+            print(f"driver launches: {counts}")
+            if states != [MapperState.BOOTSTRAP] + [MapperState.MAPPING] * (DRIVER_FRAMES - 1):
+                raise AssertionError(f"driver states {states}")
+            if not (counts["blend_tiles_bwd"] == iters > 0 and counts["blend_tiles_fwd"] >= iters
+                    and counts["bin_slots"] >= iters and counts["blend_csr_fwd"] > 0
+                    and counts["blend_csr_dual_fwd"] == 0):
+                raise AssertionError(f"driver launches {counts} for {iters} mapping iterations")
+            # a sanity floor (an empty map scores about 5 dB); correctness is
+            # small_driver_check's
+            if not (all(math.isfinite(v) for v in met.values()) and met["psnr"] > 10.0
+                    and n_gauss > RES * RES):
+                raise AssertionError(f"driver: {n_gauss} Gaussians, last metrics {met}")
+
+            # one more frame, a mapping frame, under the profiler; B6 checked
+            # and timed on the last slot search it hands the kernel
+            seen = []
+            real_slots = rt.bin_slots
+            rt.bin_slots = lambda *a: seen.append(a) or real_slots(*a)
+            try:
+                # the unprofiled reference: the mean of the frames that mapped
+                profile_calls(torch, lambda: mapper.run(frames[DRIVER_FRAMES]), 1,
+                              sum(mapping_ms) / len(mapping_ms), card,
+                              "mapper frame (a mapping frame)", ("device", "host"))
+            finally:
+                rt.bin_slots = real_slots
+            rc.reset_launch_counts()
+            if not seen:
+                raise AssertionError("driver: the profiled mapping frame ran no slot search")
+            args = seen[-1]
+            got = rc.bin_slots(*args)
+            if not torch.equal(got, rc.bin_slots_plain(*args)):
+                raise AssertionError("driver: bin_slots differs from its twin")
+            (b_ms, by), (n_filled, n_blocks, nbytes, ops) = bin_bound(torch, rc, args, got, int_rate)
+            ms = kernel_device_ms(torch, lambda: rc.bin_slots(*args), "bin_slots_kernel", 20)
+            print(f"driver bin at k={args[2]}: {args[0].shape[1]} blocks, {n_filled} of "
+                  f"{got.numel()} slots filled from {n_blocks} blocks; bin_slots bitwise equal to "
+                  f"its twin, kernel {ms:.4f} ms, bound {b_ms:.4f} ms ({by}: {nbytes} bytes, {ops} "
+                  f"integer operations) on {card}")
+            rc.reset_launch_counts()
+
+            # the outputs and a checkpoint round trip
+            path = mapper.post_processing()
+            out_dir = os.path.dirname(path)
+            params = load_params(path)
+            kf = sorted(os.listdir(os.path.join(out_dir, "keyframes")))
+            side = read_png(os.path.join(out_dir, "keyframes", kf[0]))
+            with open(os.path.join(out_dir, "transforms.json")) as fh:
+                n_manifest = fh.read().count('"transform_matrix"')
+            if (params["means3D"].shape[0] != mapper.num_gaussians() or side.shape != (RES, 2 * RES, 3)
+                    or n_manifest != mapper.tracking_idx or len(kf) != mapper.store.count):
+                raise AssertionError(f"driver outputs: {params['means3D'].shape[0]} Gaussians in "
+                                     f"params.npz, keyframe dump {side.shape}, {n_manifest} "
+                                     f"manifest frames, {len(kf)} keyframe files")
+            ckpt = mapper.save_checkpoint(os.path.join(tmp, "ckpt"), mapper.tracking_idx - 1)
+            back = SplaTAMMapper(dataclasses.replace(mapper.cfg, initial_capacity=mapper.buf.capacity),
+                                 RES, RES, intr, DRIVER_STEP_NUM, device="cuda")
+            back.load_map(ckpt)
+            a, b = mapper.buf, back.buf
+            cam = mapper._camera(np.linalg.inv(frames[0]["c2w"]))
+            with torch.no_grad():
+                img_a, img_b = (render(x, cam, k_per_tile=mapper.cfg.k_per_tile, exact=True).rgb
+                                for x in (a, b))
+            same = (torch.equal(a.active, b.active)
+                    and all(torch.equal(x[a.active], y[b.active])
+                            for x, y in zip(a.params.tensors(), b.params.tensors()))
+                    and all(torch.equal(getattr(mapper.store, f)[:mapper.store.count],
+                                        getattr(back.store, f)[:back.store.count])
+                            for f in ("rgb", "depth", "w2c", "frame_id"))
+                    and back.tracking_idx == mapper.tracking_idx
+                    and back.keyframe_time_indices == mapper.keyframe_time_indices
+                    and torch.equal(back.generator.get_state(), mapper.generator.get_state())
+                    and torch.equal(img_a, img_b))
+            if not same:
+                raise AssertionError("driver: the loaded checkpoint differs from the saved map")
+            print(f"driver outputs: params.npz with {params['means3D'].shape[0]} Gaussians, "
+                  f"{n_manifest} manifest frames, {len(kf)} keyframe dumps of {side.shape}; the "
+                  f"checkpoint at frame {mapper.tracking_idx - 1} loads back bitwise (buffer, "
+                  f"keyframe store, counters, generator state, an exact render)")
+        small_driver_check(torch, np, world)
+    finally:
+        rt._BIN_KERNEL = False
+
+
+def small_driver_check(torch, np, world, res: int = 64, frames: int = 5) -> None:
+    """The driver on the card (kernels, B6 included) against the driver on
+    the CPU (plain twins) over the first frames of the driver phase's
+    stream at 64x64: the same slots and Gaussian count; metrics within 1e-4
+    relative; parameters within 1e-4 but for at most 0.1% of them, each
+    within two learning rates per Adam step (both blends exit a saturated
+    tile early, and a segment at the exit threshold may be walked on one
+    side only: its Gaussians' zero-versus-tiny gradients become whole Adam
+    steps, tests/test_torch_splatam.py)."""
+    import dataclasses
+
+    from activesplat_tpu_torch.mapper.config import MapperConfig
+    from activesplat_tpu_torch.mapper.splatam import SplaTAMMapper
+
+    intr = driver_intrinsics(np, res)
+    stream = driver_frames(np, world, intr, frames, res)
+    cfg = MapperConfig(initial_capacity=1 << 13, keyframe_capacity=16)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        m = SplaTAMMapper(cfg, res, res, intr, DRIVER_STEP_NUM, device=dev)
+        for batch in stream:
+            m.run(batch)
+        out[dev] = m
+    a, b = out["cpu"], out["cuda"]
+    steps = a.mapping_iter_time_count
+    lrs = dataclasses.asdict(cfg.lrs)
+    worst = 0.0
+    same = (torch.equal(a.buf.active, b.buf.active.cpu())
+            and torch.equal(a.buf.timestep, b.buf.timestep.cpu())
+            and a.map_version == b.map_version and a.shape_history == b.shape_history)
+    for f, x, y in zip(("means3d", "rgb", "quats", "logit_opacities", "log_scales"),
+                       a.buf.params.tensors(), b.buf.params.tensors()):
+        err = (x - y.cpu()).abs()
+        off = err > 1e-4 + 1e-4 * x.abs()
+        worst = max(worst, float(err.max()))
+        same = same and float(off.float().mean()) <= 1e-3 and bool((err[off] <= 2 * steps * lrs[f]).all())
+    for key, v in a.last_metrics.items():
+        same = same and abs(b.last_metrics[key] - v) <= 1e-4 * abs(v) + 1e-6
+    if not same:
+        raise AssertionError(f"small driver: the card's map or metrics differ from the CPU's "
+                             f"(max parameter difference {worst:.3e}; {a.last_metrics} vs "
+                             f"{b.last_metrics})")
+    print(f"small driver ({frames} frames at {res}x{res}, {steps} mapping iterations): the card's "
+          f"map equals the CPU's slot for slot, parameters within {worst:.3e}, metrics within 1e-4")
+
+
+def driver_intrinsics(np, res: int):
+    """The episode's sensor (RGBDSensor.from_fov): 90 degrees hfov, square
+    pixels, cx = W/2 - 1."""
+    from activesplat_tpu_torch.utils.transforms import compute_intrinsics
+
+    fx, fy, cx, cy = compute_intrinsics(res, res, math.radians(90.0))
+    return np.array([[fx, 0.0, cx], [0.0, fy, cy], [0.0, 0.0, 1.0]])
+
+
+def driver_frames(np, world, intr, frames: int, res=None):
+    """The driver phase's frames at res x res (default RES), rendered up
+    front: from the hermetic
+    episode's start (make_synthetic_dataset's search for a free spot near
+    the room centre) three left turns of TURN_DEG, then one forward step of
+    FORWARD_STEP (skipped where blocked), over and over; each frame the
+    agent's camera (SyntheticDataset.camera_c2w) at CAMERA_HEIGHT."""
+    from activesplat_tpu_torch.utils.transforms import rot_axis
+
+    res = res or RES
+    sx, _, sz = world.size
+    pos = next(c for c in (np.array([sx / 2 + dx, 0.0, sz / 4])
+                           for dx in np.linspace(0, min(sx, sz) / 2 - 0.5, 8))
+               if world.is_free(c[[0, 2]], 0.2))
+    yaw, out = 0.0, []
+    for i in range(frames):
+        c2w = np.eye(4)
+        c2w[:3, :3] = np.diag([1.0, -1.0, -1.0])
+        c2w[:3, 3] = pos + [0.0, CAMERA_HEIGHT, 0.0]
+        c2w = rot_axis(c2w, "y", np.deg2rad(-yaw))
+        rgb, depth = world.render(c2w, intr, res, res, depth_max=10.0, depth_min=0.0)
+        out.append({"frame_id": i, "rgb": rgb, "depth": depth, "c2w": c2w})
+        if i % 4 == 3:
+            ahead = pos + FORWARD_STEP * np.array([-np.sin(np.deg2rad(yaw)), 0.0,
+                                                   -np.cos(np.deg2rad(yaw))])
+            if world.is_free(ahead[[0, 2]], 0.1):
+                pos = ahead
+        else:
+            yaw = (yaw + TURN_DEG) % 360
+    return out
 
 
 def main() -> int:
@@ -867,7 +1247,9 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
     print(card)  # name, power limit as nvidia-smi reports them
     print(f"max SM clock {max_sm_mhz:.0f} MHz")
-    sfu_rate = SFU_PER_CLOCK_PER_SM * torch.cuda.get_device_properties(0).multi_processor_count * max_sm_mhz * 1e6
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    sfu_rate = SFU_PER_CLOCK_PER_SM * n_sm * max_sm_mhz * 1e6
+    int_rate = INT32_PER_CLOCK_PER_SM * n_sm * max_sm_mhz * 1e6
 
     # ---- phase 2: kernels against their twins -------------------------- #
     rows, u0, v0 = random_tiles(torch, seed=0)
@@ -883,6 +1265,20 @@ def main() -> int:
                                     "random CSR stream, 256 tiles")
     dual_err, _, _ = dual_kernel_checks(torch, rc, random_dual_stream(torch, rc, seed=0), 256,
                                         "random CSR stream with band bits, 256 tiles")
+    from activesplat_tpu_torch.ops import raster_tiled as rt
+
+    bin_rejected = dict.fromkeys(BIN_FAULTS, 0)
+    for n_b, w_b, h_b in BIN_SCENES:
+        scene_b = random_bin_scene(torch, n_b, w_b, h_b)
+        for k_b in (128, 256):
+            bin_checks(torch, rc, rt, scene_b, k_b, (0, 128, 256),
+                       f"bin scene of {n_b} splats at {w_b}x{h_b}", bin_rejected)
+    gate_n = GATE_SCENE_BLOCKS * rc.BIN_BLOCK
+    bin_checks(torch, rc, rt, random_bin_scene(torch, gate_n, RES, RES), K_PER_TILE, (0, 128, 256),
+               f"bin scene of {gate_n} splats at {RES}x{RES}", bin_rejected)
+    if not all(bin_rejected.values()):
+        raise AssertionError(f"a planted bin fault never showed on the random scenes: {bin_rejected}")
+    del scene_b
     torch.cuda.synchronize()
 
     # ---- phase 3: the mapping slice at the benchmark's size ------------ #
@@ -905,16 +1301,17 @@ def main() -> int:
 
     by_phase = {}  # phase -> {kernel: launches}, counters set to 0 before each
 
-    def read_counts(phase, capped=0, csr=0, csr_bwd=None, dual=0):
+    def read_counts(phase, capped=0, csr=0, csr_bwd=None, dual=0, bins=0):
         """Read and reset the counters; the phase must have launched B1 and
         B2 `capped` times each, B3 `csr` times, B4 `csr_bwd` times (by
-        default as often as B3) and B5 `dual` times."""
+        default as often as B3), B5 `dual` times and B6 `bins` times."""
         counts = {fn.__name__: fn.launches for fn in rc.KERNELS}
         rc.reset_launch_counts()
         by_phase[phase] = counts
-        expect = dict(zip(counts, (capped, capped, csr, csr if csr_bwd is None else csr_bwd, dual)))
+        expect = dict(zip(counts, (capped, capped, csr, csr if csr_bwd is None else csr_bwd, dual,
+                                   bins)))
         if counts != expect:
-            raise AssertionError(f"{phase}: blend launches {counts}, not {expect}")
+            raise AssertionError(f"{phase}: kernel launches {counts}, not {expect}")
         return counts
 
     rc.reset_launch_counts()
@@ -951,7 +1348,7 @@ def main() -> int:
               f"psnr {float(met['psnr'][-1]):.3f}, dropped {int(met['dropped'].max())}, "
               f"window {int(met['num_window'])}, launches {counts}")
 
-    def timed(cfg_e, iters, phase, capped=0, csr=0):
+    def timed(cfg_e, iters, phase, capped=0, csr=0, bins=0):
         """`iters` chained mapping_iterations from a fresh optimizer state;
         returns (iterations/s by the host clock, the last metrics)."""
         nonlocal buf
@@ -965,7 +1362,7 @@ def main() -> int:
             acc = acc + m["loss"] + 1e-20 * (m["psnr"] + m["depth_l1"])
         final = float(acc)  # synchronises and reads the chain's value
         dt = time.perf_counter() - t0
-        read_counts(phase, capped, csr)
+        read_counts(phase, capped, csr, bins=bins)
         if not math.isfinite(final):
             raise AssertionError(f"{phase}: non-finite loss")
         return iters / dt, m
@@ -990,6 +1387,21 @@ def main() -> int:
           f"({1000.0 / its:.3f} ms/iter, {TIMED_ITERS} iterations, loss "
           f"{float(m['loss']):.5f}, dropped {int(m['dropped'])}) on {card}")
     profile(cfg, PROFILE_ITERS, its, ("device", "host"))
+
+    # the same iterations with the bin kernel route on (B6 once per
+    # iteration), in turns with the sort route: sort (above), kernel,
+    # kernel, sort; the switch is flipped for these runs only
+    rt._BIN_KERNEL = True
+    try:
+        its_b = [timed(cfg, TIMED_ITERS, f"timed bin kernel {i}", capped=TIMED_ITERS,
+                       bins=TIMED_ITERS)[0] for i in (1, 2)]
+        profile(cfg, PROFILE_EXACT_ITERS, its_b[-1], ("device",))
+    finally:
+        rt._BIN_KERNEL = False
+    its_s2, m = timed(cfg, TIMED_ITERS, "timed 2", capped=TIMED_ITERS)
+    print(f"mapping_iters_per_sec_bin_kernel@{N_GAUSSIANS}g_{RES}px = {sum(its_b) / 2:.3f} "
+          f"(runs {its_b[0]:.3f}, {its_b[1]:.3f}; the sort route's before and after: {its:.3f}, "
+          f"{its_s2:.3f}; {TIMED_ITERS} iterations each) on {card}")
     small_scene_check(torch, np)
 
     # ---- phase 3b: exact and hybrid training, the exact render ---------- #
@@ -1134,6 +1546,41 @@ def main() -> int:
             max(csr_errs["bwd"], csr_errs_m["bwd"]))
     del rows, stream, entry, g_acc, g_lt, c_entry, c_g_acc, c_g_lt, fwd_args, bwd_args
     del csr_args, csr_bwd_args
+
+    # B6 on the slot searches of the map's k-capped render: the bin inputs
+    # of its visible prefix, at offsets 0 and k (the multi-pass walk's second
+    # window)
+    seen = []
+    real_bin = rt.bin_gaussians
+    rt.bin_gaussians = lambda *a, **kw: seen.append(a) or real_bin(*a, **kw)
+    try:
+        with torch.no_grad():
+            render(buf, cam, k_per_tile=K_PER_TILE)
+    finally:
+        rt.bin_gaussians = real_bin
+    prefix, k_main = seen[0][:5], seen[0][5]
+    main_rejected = dict.fromkeys(BIN_FAULTS, 0)
+    [(_, bin_args, bin_lists), _] = bin_checks(
+        torch, rc, rt, prefix, k_main, (0, k_main),
+        f"main-path bin, visible prefix of {prefix[0].shape[0]} splats", main_rejected)
+    if not all(main_rejected.values()):
+        raise AssertionError(f"a planted bin fault never showed on the main path: {main_rejected}")
+    b6_bound, (n_filled, n_blocks, b6_bytes, b6_ops) = bin_bound(
+        torch, rc, bin_args, bin_lists.indices, int_rate)
+    route_ms = cuda_ms(lambda: rt.bin_gaussians(*prefix, k_main, 0, use_kernel=True), 20)
+    sort_ms = cuda_ms(lambda: rt.bin_gaussians(*prefix, k_main, 0, use_kernel=False), 20)
+    measure("bin_slots", "activesplat_tpu_torch/csrc/bin_slots.cu", BIN_REPLACES,
+            lambda: rc.bin_slots(*bin_args), lambda: rc.bin_slots_plain(*bin_args),
+            "bin_slots_kernel", b6_bound, 0.0)
+    measured[-1].update(route_ms=route_ms, sort_route_ms=sort_ms)
+    print(f"main-path bin at offset 0: {n_filled} of {bin_lists.indices.numel()} slots filled from "
+          f"{n_blocks} of {bin_args[0].shape[1]} blocks; bound {b6_bytes} bytes, {b6_ops} integer "
+          f"operations; the whole kernel route (counts, cumsum, AABB words, B6) {route_ms:.4f} ms "
+          f"per call, the sort route {sort_ms:.4f} ms per call (CUDA events, 20 calls) on {card}")
+    del seen, prefix, bin_args, bin_lists
+
+    # ---- phase 3d: the per-frame mapper driver ------------------------- #
+    driver_phase(torch, np, rc, rt, card, by_phase, int_rate)
 
     # ---- phase 3c: the planner's map queries at 1,000,000 Gaussians ----- #
     from activesplat_tpu_torch.queries.panorama import global_invisibility, local_invisibility

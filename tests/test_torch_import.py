@@ -1,7 +1,7 @@
 """The port stands alone: it imports neither JAX nor the JAX package, nor
-OpenCV or scikit-learn (which the machine with the card lacks), its entry
-points run on CUDA unless told otherwise, and its smoke script refuses to run
-without a card."""
+OpenCV, scikit-learn, PIL or imageio (which the machine with the card lacks),
+its entry points run on CUDA unless told otherwise, and its smoke script
+refuses to run without a card."""
 
 import ast
 import importlib.util
@@ -17,13 +17,15 @@ import torch
 import activesplat_tpu_torch
 from activesplat_tpu_torch.convert import buffer_from_numpy
 from activesplat_tpu_torch.device import resolve_device
+from activesplat_tpu_torch.mapper.config import MapperConfig
 from activesplat_tpu_torch.mapper.keyframes import KeyframeStore
+from activesplat_tpu_torch.mapper.splatam import SplaTAMMapper
 from activesplat_tpu_torch.models.gaussians import GaussianBuffer, make_camera
 from activesplat_tpu_torch.ops import raster_cuda
 
 ROOT = Path(__file__).resolve().parent.parent
 PACKAGE = ROOT / "activesplat_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "activesplat_tpu", "cv2", "sklearn")
+FORBIDDEN = ("jax", "jaxlib", "flax", "activesplat_tpu", "cv2", "sklearn", "PIL", "imageio")
 
 
 def port_modules():
@@ -116,6 +118,8 @@ def test_entry_points_default_to_cuda(monkeypatch):
         lambda **kw: make_camera(64, 48, intr, np.eye(4), **kw),
         lambda **kw: KeyframeStore.empty(4, 48, 64, **kw),
         lambda **kw: buffer_from_numpy(d, **kw),
+        lambda **kw: SplaTAMMapper(MapperConfig(initial_capacity=1024, keyframe_capacity=2),
+                                   64, 48, intr, 10, **kw),
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
