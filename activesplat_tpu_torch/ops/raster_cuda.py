@@ -18,6 +18,12 @@ Dual CSR blend (B5, forward only): B3's walk carrying a second
 log-transmittance composited over the alphas masked by the band bit in
 column BAND_COL=14; the exit tests the band carry alone.
 
+B3 and B5 launch two passes written once in csrc/blend_csr_walk.cuh:
+every segment composited by itself from transmittance 1 (one block per
+segment), then a per-tile combine that walks the segments' partials in
+order with the exit test; csr_partials_plain and csr_combine_plain are the
+passes' plain versions.
+
 Bin slot search (B6): for each tile, the depth-ordered member ids at list
 positions [off, off + K), from the tile's per-128-block member-count cumsum
 and one packed AABB word per Gaussian (the k-capped bin's kernel route,
@@ -319,27 +325,107 @@ def blend_csr_dual_fwd_plain(entry_data, seg_tile, seg_u0, seg_v0, n_tiles, n_ch
     return accum[:, :, :n_channels].contiguous(), logt, logt_band
 
 
+def partial_width(n_channels, dual=False):
+    """Floats per pixel of a segment's partials: C colours, the log step
+    and, for B5, the band log step."""
+    return n_channels + 1 + int(dual)
+
+
+def csr_partials_plain(entry_data, seg_u0, seg_v0, n_channels=5, dual=False):
+    """Pass 1 in PyTorch: every segment composited by itself from
+    transmittance 1 (`_blend_segment` with logT 0), 1,024 segments at a
+    time to bound memory. Returns (n_seg, PX, partial_width): per pixel the
+    colour partial sum_j alpha_j exp(excl_j) col_j, the log step
+    sum_j log1p(-alpha_j) and, with `dual`, the band step over
+    alpha_j * band_j. Padding segments are computed too (nothing reads
+    them)."""
+    n_seg = entry_data.shape[0] // CSEG
+    blocks = entry_data.view(n_seg, CSEG, N_ATTR)
+    out = entry_data.new_empty((n_seg, PX, partial_width(n_channels, dual)))
+    chunk = 1024
+    for lo in range(0, n_seg, chunk):
+        block = blocks[lo : lo + chunk]
+        px, py = _pixel_coords(seg_u0[lo : lo + chunk], seg_v0[lo : lo + chunk])
+        alpha, contrib, step = _blend_segment(block, px, py, torch.zeros_like(px))
+        out[lo : lo + chunk, :, :n_channels] = contrib[:, :, :n_channels]
+        out[lo : lo + chunk, :, n_channels] = step
+        if dual:
+            band = block[:, :, BAND_COL : BAND_COL + 1]
+            out[lo : lo + chunk, :, n_channels + 1] = torch.cumsum(
+                torch.log1p(-alpha * band), dim=1
+            )[:, -1]
+    return out
+
+
+def csr_combine_plain(partials, seg_tile, n_tiles, n_channels=5, dual=False, with_entry=False):
+    """Pass 2 in PyTorch: each tile's segments in order from their partials.
+    At each segment start the whole-tile exit (max logT < LOG_EPS, the band
+    carry with `dual`), the stash takes the entry logT, then accum +=
+    exp(logT) P and logT += L (the band carry likewise). Partials of
+    segments after the exit are never used. Returns (accum, logT[, band
+    logT][, entry]) as the wrappers do."""
+    starts, counts = _tile_segments(seg_tile, n_tiles)
+    n_seg = partials.shape[0]
+    accum = partials.new_zeros((n_tiles, PX, n_channels))
+    logt = partials.new_zeros((n_tiles, PX))
+    logt_band = partials.new_zeros((n_tiles, PX))
+    entry = partials.new_zeros((n_seg, PX))
+    for r in range(int(counts.max()) if n_tiles and n_seg else 0):
+        act = torch.nonzero(counts > r).squeeze(1)
+        seg = starts[act].long() + r
+        entry[seg] = logt[act]
+        walk = ((logt_band if dual else logt)[act].amax(dim=1) >= LOG_EPS)[:, None]
+        q = partials[seg]
+        lt = logt[act]
+        accum[act] = torch.where(
+            walk[:, :, None], accum[act] + torch.exp(lt)[:, :, None] * q[:, :, :n_channels],
+            accum[act],
+        )
+        logt[act] = torch.where(walk, lt + q[:, :, n_channels], lt)
+        if dual:
+            logt_band[act] = torch.where(walk, logt_band[act] + q[:, :, n_channels + 1],
+                                         logt_band[act])
+    return (accum, logt) + ((logt_band,) if dual else ()) + ((entry,) if with_entry else ())
+
+
+DEAD_MARGIN = 1e-3  # log-domain margin of the CSR forward kernels' dead-pair test
+
+
+def dead_pair_threshold(op, margin=DEAD_MARGIN):
+    """The CSR forward kernels' per-row dead-pair threshold, in float32 as
+    they compute it: log(ALPHA_MIN) - log(op) - margin, +inf for op <= 0. A
+    (row, pixel) pair whose power is above 0 or below it has alpha 0 by the
+    full formula, so the kernels skip its special functions."""
+    op = op.to(torch.float32)
+    log_min = torch.log(torch.tensor(ALPHA_MIN, dtype=torch.float32))
+    thr = log_min - torch.log(op) - margin
+    return torch.where(op <= 0, torch.full_like(op, float("inf")), thr)
+
+
 # --------------------------------------------------------------------------- #
 # Kernel wrappers
 # --------------------------------------------------------------------------- #
 
 
-def _kernel(library: str, symbol: str, n_args: int):
+def _kernel(library: str, symbol: str):
     fn = getattr(_build.load(library), symbol)
     if fn.argtypes is None:
-        fn.argtypes = [_P if i not in _INT_ARGS[symbol] else _I for i in range(n_args)]
+        fn.argtypes = [_ARG_TYPES[a] for a in _SIGNATURES[symbol]]
         fn.restype = ctypes.c_int
     return fn
 
 
-# positions of the int arguments of each C entry point (the rest are pointers)
-_INT_ARGS = {
-    "blend_tiles_fwd": (3, 4, 5),
-    "blend_tiles_bwd": (6, 7, 8),
-    "blend_csr_fwd": (5, 6),
-    "blend_csr_bwd": (8, 9),
-    "blend_csr_dual_fwd": (5, 6),
-    "bin_slots": (2, 3, 4, 5, 6, 7),
+# the arguments of each C entry point: p pointer (or stream), i int, f float
+_ARG_TYPES = {"p": _P, "i": _I, "f": ctypes.c_float}
+_SIGNATURES = {
+    "blend_tiles_fwd": "pppiiipppp",
+    "blend_tiles_bwd": "ppppppiiipp",
+    "blend_csr_fwd_partials": "ppppiiifpppp",
+    "blend_csr_fwd_combine": "pppiipppp",
+    "blend_csr_bwd": "ppppppppiipp",
+    "blend_csr_dual_partials": "ppppiiifpppp",
+    "blend_csr_dual_combine": "pppiipppp",
+    "bin_slots": "ppiiiiiipp",
 }
 
 
@@ -354,7 +440,7 @@ def blend_tiles_fwd(tile_data, tile_u0, tile_v0, n_channels=5, with_entry=False)
     accum = tile_data.new_empty((t, PX, n_channels))
     logt = tile_data.new_empty((t, PX))
     entry = tile_data.new_empty((t, k // SEG, PX)) if with_entry else None
-    fn = _kernel("blend_fwd", "blend_tiles_fwd", 10)
+    fn = _kernel("blend_fwd", "blend_tiles_fwd")
     with torch.cuda.device(tile_data.device):
         ptrs = _cuda_args(tile_data, tile_u0, tile_v0, accum, logt)
         rc = fn(
@@ -387,7 +473,7 @@ def blend_tiles_bwd(tile_data, tile_u0, tile_v0, entry, g_accum, g_logt, n_chann
             tile_data, tile_u0, tile_v0, entry, g_accum, g_logt, n_channels
         )
     d_rows = torch.empty_like(tile_data)
-    fn = _kernel("blend_bwd", "blend_tiles_bwd", 11)
+    fn = _kernel("blend_bwd", "blend_tiles_bwd")
     with torch.cuda.device(tile_data.device):
         ptrs = _cuda_args(tile_data, tile_u0, tile_v0, entry, g_accum, g_logt, d_rows)
         rc = fn(
@@ -432,24 +518,61 @@ def blend_csr_fwd(entry_data, seg_tile, seg_u0, seg_v0, n_tiles, n_channels=5,
         return blend_csr_fwd_plain(
             entry_data, seg_tile, seg_u0, seg_v0, n_tiles, n_channels, with_entry
         )
-    starts, counts = _tile_segments(seg_tile, n_tiles)
-    accum = entry_data.new_empty((n_tiles, PX, n_channels))
-    logt = entry_data.new_empty((n_tiles, PX))
-    entry = entry_data.new_zeros((entry_data.shape[0] // CSEG, PX)) if with_entry else None
-    fn = _kernel("blend_csr_fwd", "blend_csr_fwd", 11)
-    with torch.cuda.device(entry_data.device):
-        ptrs = _cuda_args(entry_data, seg_u0, seg_v0, starts, counts, accum, logt)
-        rc = fn(
-            *ptrs[:5], n_tiles, n_channels, *ptrs[5:],
-            None if entry is None else _cuda_args(entry)[0],
-            torch.cuda.current_stream().cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"blend_csr_fwd launch failed: CUDA error {rc}")
+    partials = csr_partials_cuda(entry_data, seg_tile, seg_u0, seg_v0, n_tiles, n_channels)
+    out = csr_combine_cuda(partials, seg_tile, n_tiles, n_channels, with_entry=with_entry)
     blend_csr_fwd.launches += 1
-    if with_entry:
-        return accum, logt, entry
-    return accum, logt
+    return out
+
+
+def _launch(fn, name, *args):
+    """Call a C entry point on the current stream; raise on a CUDA error."""
+    rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+
+
+def csr_partials_cuda(entry_data, seg_tile, seg_u0, seg_v0, n_tiles, n_channels=5, dual=False,
+                      margin=DEAD_MARGIN, out=None, audit=None):
+    """Pass 1 of B3 (or of B5 with `dual`) on the card: the partials of
+    csr_partials_plain, (n_seg, PX, partial_width), for every segment of a
+    tile that the kernel does not skip. The skipped segments (after one
+    that saturates its tile by itself) and padding segments keep what `out`
+    held (default: torch.empty). `margin` is the dead-pair test's; `audit`,
+    an int32 (1,) tensor, counts the pairs that test kills although the
+    full formula keeps them. The wrappers' pass; the smoke checks it."""
+    n_seg = entry_data.shape[0] // CSEG
+    if out is None:
+        out = entry_data.new_empty((n_seg, PX, partial_width(n_channels, dual)))
+    # the per-tile index of the first segment that saturates its tile by itself
+    skip_from = torch.full((max(n_tiles, 1),), 2**31 - 1, dtype=torch.int32,
+                           device=entry_data.device)
+    lib, sym = ("blend_csr_dual", "blend_csr_dual_partials") if dual else (
+        "blend_csr_fwd", "blend_csr_fwd_partials")
+    with torch.cuda.device(entry_data.device):
+        ptrs = _cuda_args(entry_data, seg_tile, seg_u0, seg_v0, skip_from, out)
+        _launch(_kernel(lib, sym), sym, *ptrs[:4], n_seg, n_tiles, n_channels, margin, *ptrs[4:],
+                None if audit is None else _cuda_args(audit)[0])
+    return out
+
+
+def csr_combine_cuda(partials, seg_tile, n_tiles, n_channels=5, dual=False, with_entry=False):
+    """Pass 2 of B3 (or of B5 with `dual`) on the card: csr_combine_plain's
+    outputs from the partials of pass 1 (B5 has no stash). The wrappers'
+    pass; the smoke checks it."""
+    starts, counts = _tile_segments(seg_tile, n_tiles)
+    accum = partials.new_empty((n_tiles, PX, n_channels))
+    logt = partials.new_empty((n_tiles, PX))
+    third = None  # B5's band carry, or B3's stash
+    if dual:
+        third = partials.new_empty((n_tiles, PX))
+    elif with_entry:
+        third = partials.new_zeros((partials.shape[0], PX))  # padding segments keep zeros
+    sym = "blend_csr_dual_combine" if dual else "blend_csr_fwd_combine"
+    with torch.cuda.device(partials.device):
+        ptrs = _cuda_args(partials, starts, counts, accum, logt)
+        _launch(_kernel("blend_csr_dual" if dual else "blend_csr_fwd", sym), sym, *ptrs[:3],
+                n_tiles, n_channels, *ptrs[3:], None if third is None else _cuda_args(third)[0])
+    return (accum, logt) if third is None else (accum, logt, third)
 
 
 def blend_csr_bwd(entry_data, seg_tile, seg_u0, seg_v0, entry, g_accum, g_logt, n_tiles,
@@ -470,7 +593,7 @@ def blend_csr_bwd(entry_data, seg_tile, seg_u0, seg_v0, entry, g_accum, g_logt, 
         )
     starts, counts = _tile_segments(seg_tile, n_tiles)
     d_data = torch.zeros_like(entry_data)  # padding segments are never walked
-    fn = _kernel("blend_csr_bwd", "blend_csr_bwd", 12)
+    fn = _kernel("blend_csr_bwd", "blend_csr_bwd")
     with torch.cuda.device(entry_data.device):
         ptrs = _cuda_args(entry_data, seg_u0, seg_v0, starts, counts, entry, g_accum, g_logt, d_data)
         rc = fn(
@@ -525,7 +648,7 @@ def bin_slots(cum, aabb, k, slot_offset, tiles_x, n):
     if _device_kind(cum) == "cpu":
         return bin_slots_plain(cum, aabb, k, slot_offset, tiles_x, n)
     out = torch.empty((t, k), dtype=torch.int64, device=cum.device)
-    fn = _kernel("bin_slots", "bin_slots", 10)
+    fn = _kernel("bin_slots", "bin_slots")
     with torch.cuda.device(cum.device):
         ptrs = _cuda_args(cum, aabb, out)
         rc = fn(
@@ -548,21 +671,11 @@ def blend_csr_dual_fwd(entry_data, seg_tile, seg_u0, seg_v0, n_tiles, n_channels
     _check_csr(entry_data, seg_tile, seg_u0, seg_v0, n_tiles, n_channels)
     if _device_kind(entry_data) == "cpu":
         return blend_csr_dual_fwd_plain(entry_data, seg_tile, seg_u0, seg_v0, n_tiles, n_channels)
-    starts, counts = _tile_segments(seg_tile, n_tiles)
-    accum = entry_data.new_empty((n_tiles, PX, n_channels))
-    logt = entry_data.new_empty((n_tiles, PX))
-    logt_band = entry_data.new_empty((n_tiles, PX))
-    fn = _kernel("blend_csr_dual", "blend_csr_dual_fwd", 11)
-    with torch.cuda.device(entry_data.device):
-        ptrs = _cuda_args(entry_data, seg_u0, seg_v0, starts, counts, accum, logt, logt_band)
-        rc = fn(
-            *ptrs[:5], n_tiles, n_channels, *ptrs[5:],
-            torch.cuda.current_stream().cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"blend_csr_dual_fwd launch failed: CUDA error {rc}")
+    partials = csr_partials_cuda(entry_data, seg_tile, seg_u0, seg_v0, n_tiles, n_channels,
+                                 dual=True)
+    out = csr_combine_cuda(partials, seg_tile, n_tiles, n_channels, dual=True)
     blend_csr_dual_fwd.launches += 1
-    return accum, logt, logt_band
+    return out
 
 
 blend_tiles_fwd.launches = 0

@@ -21,6 +21,15 @@ Phases, each fatal on failure:
      route's, and planted faults (the slot off by one, the members before a
      slot counted from its own block, the sentinel replaced by the window's
      last member) rejected;
+     B3 and B5 run as two passes (each segment alone, then a per-tile
+     combine): on every CSR stream checked here and below, each pass is
+     held against its plain version (split_checks: pass 1 into a NaN-filled
+     scratch with the dead-pair audit, which must count 0 live pairs
+     killed; the combine fed the kernel's own partials gives the plain
+     combine's logT and stash bitwise; the wrapper equals its two passes
+     bitwise), and planted faults (the combine reading its partials one
+     segment off, the exit tested after accumulating, the dead-pair margin's
+     sign flipped) are rejected;
   3. drive the mapping slice at the benchmark's size (200,000 Gaussians in
      a 262,144-slot buffer, 256x256 sensor, k_per_tile=256,
      exact_training="off"): first_frame_phase, three mapping_phase events of
@@ -70,10 +79,13 @@ Phases, each fatal on failure:
      three times), each phase's launches asserted; the peak device memory;
      the small scene on both devices;
   4b. B5 on the top-down query's own CSR stream, checked and timed as in
-     4a;
+     4a, and its pass 1 timed again with the dead-pair test off (the same
+     for B3's panorama entry in 4c);
   4c. B3 held against its twin (forward, as in phase 2) on the CSR streams
-     of the six views of one global_invisibility call; print one
-     {"kernels": [...]} line;
+     of the six views of one global_invisibility call, each view timed, the
+     view with the most walked pairs measured as B3's panorama entry; print
+     one {"kernels": [...]} line (B3 twice: the training and the panorama
+     stream, each with the launches of its own phases);
   5. print the device line last.
 
 It needs one CUDA card and exits non-zero without one, or without the rest of
@@ -137,6 +149,13 @@ REL_TOL = 1e-5  # of each output column's largest value, and of |logT|
 LOGT_ATOL = 1e-4
 BOUNDARY = 1e-3  # a segment-start max logT this close to LOG_EPS may skip on one side only
 SKIP_ATOL = 5e-3  # > exp(LOG_EPS): the most a skipped segment moves a value
+# a segment's log step summed in two orders (sequential, cumsum): the
+# worst-case float32 rounding of a 256-term sum of same-sign terms, per side
+STEP_RTOL = 2 * 256 * 2.0 ** -24
+# a pair whose raw alpha lies this close (relative) to ALPHA_MIN may be live
+# on one side only: the kernels contract the power's products into FMAs,
+# the plain versions round each one (a few ulps of the power)
+EDGE_RTOL = 1e-4
 
 FWD_REPLACES = "activesplat_tpu/ops/raster_pallas.py:296 (_blend_fwd_pallas / _blend_kernel :52)"
 BWD_REPLACES = "activesplat_tpu/ops/raster_pallas.py:239 (_blend_bwd_pallas / _blend_bwd_kernel :123)"
@@ -156,6 +175,13 @@ BIN_SCENES = ((1000, 256, 256), (500, 144, 96))  # tests/test_raster_tiled.py:32
 GATE_SCENE_BLOCKS = 4090  # a scene just inside the kernel's gate of 4,096 blocks
 BIN_FAULTS = ("slot off by one", "members before the slot counted from its own block",
               "sentinel replaced by the window's last member")
+# planted faults of the CSR forward kernels' two passes (split_checks)
+SPLIT_FAULTS = ("the combine reading its partials one segment off",
+                "the exit tested after accumulating", "the dead-pair margin's sign flipped")
+# kernels of one B3 or B5 wrapper call: each segment alone, then the per-tile combine
+CSR_PASSES = ("csr_partials_kernel", "csr_combine_kernel")
+# the query phases whose B3 launches render panorama views
+PANORAMA_PHASES = ("global_invisibility", "global_invisibility timed", "local_invisibility")
 
 # the per-frame mapper driver at the hermetic episode's configuration
 # (activesplat_tpu/runtime/launch.py:33-69: two_room, seed 0, 256x256,
@@ -199,12 +225,13 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def kernel_device_ms(torch, fn, kernel: str, reps: int) -> float:
-    """The device time of one launch of the CUDA kernel whose name contains
-    `kernel`, averaged over `reps` calls of its wrapper `fn` under
-    torch.profiler: the wrapper's host work and its small helper kernels
-    are left out (back-to-back wrapper calls measure the host when the
-    kernel is shorter than the wrapper's Python)."""
+def kernel_device_ms(torch, fn, kernels, reps: int) -> dict:
+    """The device time per call of each CUDA kernel of one wrapper call:
+    {name: ms} for each name in `kernels` (a kernel is the one whose name
+    contains it, launched once per call), averaged over `reps` calls of the
+    wrapper `fn` under torch.profiler. The wrapper's host work and its small
+    helper kernels are left out (back-to-back wrapper calls measure the host
+    when the kernels are shorter than the wrapper's Python)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -218,12 +245,13 @@ def kernel_device_ms(torch, fn, kernel: str, reps: int) -> float:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        times = [e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == DeviceType.CUDA and kernel in e.name]
-        if reps // 2 <= len(times) <= reps:
-            return sum(times) / len(times) / 1e3
-        print(f"the profiler saw {len(times)} launches of {kernel} in {reps} calls; tracing again")
-    raise AssertionError(f"the profiler saw {len(times)} launches of {kernel} in {reps} calls")
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        times = {k: [e.time_range.elapsed_us() for e in events if k in e.name] for k in kernels}
+        seen = {k: len(t) for k, t in times.items()}
+        if all(reps // 2 <= n <= reps for n in seen.values()):
+            return {k: sum(t) / len(t) / 1e3 for k, t in times.items()}
+        print(f"the profiler saw {seen} launches in {reps} calls; tracing again")
+    raise AssertionError(f"the profiler saw {seen} launches in {reps} calls")
 
 
 def random_tiles(torch, seed: int, t: int = 256, k: int = 256):
@@ -440,7 +468,158 @@ def csr_bwd_carry_leak(torch, rc, stream, entry, g_acc, g_lt, n_tiles):
     return walk(later)[0]
 
 
-def csr_kernel_checks(torch, rc, stream, n_tiles: int, tag: str, c: int = N_CHANNELS,
+def threshold_pairs(torch, rc, stream, segs):
+    """Per (segment of `segs`, pixel): the pairs whose raw alpha lies within
+    EDGE_RTOL of ALPHA_MIN (power <= 0), as float32 counts."""
+    data, _, seg_u0, seg_v0 = stream
+    blocks = data.view(-1, rc.CSEG, rc.N_ATTR)
+    out = torch.zeros((segs.numel(), rc.PX), device=data.device)
+    for i, chunk in enumerate(segs.split(64)):
+        px, py = rc._pixel_coords(seg_u0[chunk], seg_v0[chunk])
+        _, _, power, raw, _, _ = rc._segment_geometry(blocks[chunk], px, py)
+        edge = (power <= 0) & ((raw / rc.ALPHA_MIN - 1).abs() < EDGE_RTOL)
+        out[64 * i:64 * i + chunk.numel()] = edge.sum(dim=1)
+    return out
+
+
+def dead_test_off(torch, rc, entry_k, stream, n_tiles, c, dual, card):
+    """Pass 1's device time with the dead-pair test off (margin +inf kills
+    no pair, so every pair pays its special functions) beside its time
+    with it, from the measured entry `entry_k`."""
+    off = kernel_device_ms(torch, lambda: rc.csr_partials_cuda(
+        *stream, n_tiles, c, dual, margin=math.inf), (CSR_PASSES[0],), 20)[CSR_PASSES[0]]
+    print(f"{entry_k['name']} ({entry_k['stream']}): pass 1 {entry_k['pass_ms'][CSR_PASSES[0]]:.4f} "
+          f"ms with the dead-pair test, {off:.4f} ms without it on {card}")
+
+
+def combine_exit_late(torch, rc, partials, seg_tile, n_tiles, c, dual):
+    """csr_combine_plain with one planted fault: the exit is tested after
+    accumulating, so the first segment whose entry carry is already below
+    LOG_EPS is still composited before the tile stops."""
+    starts, counts = rc._tile_segments(seg_tile, n_tiles)
+    accum = partials.new_zeros((n_tiles, rc.PX, c))
+    logt = partials.new_zeros((n_tiles, rc.PX))
+    band = partials.new_zeros((n_tiles, rc.PX))
+    entry = partials.new_zeros((partials.shape[0], rc.PX))
+    stopped = torch.zeros(n_tiles, dtype=torch.bool, device=partials.device)
+    for r in range(int(counts.max()) if n_tiles else 0):
+        has = torch.nonzero(counts > r).squeeze(1)
+        entry[starts[has].long() + r] = logt[has]
+        act = torch.nonzero((counts > r) & ~stopped).squeeze(1)
+        seg = starts[act].long() + r
+        saturated = (band if dual else logt)[act].amax(dim=1) < rc.LOG_EPS
+        q = partials[seg]
+        accum[act] = accum[act] + torch.exp(logt[act])[:, :, None] * q[:, :, :c]
+        logt[act] = logt[act] + q[:, :, c]
+        if dual:
+            band[act] = band[act] + q[:, :, c + 1]
+        stopped[act[saturated]] = True
+    return (accum, logt) + ((band,) if dual else (entry,))
+
+
+def split_checks(torch, rc, stream, n_tiles, c, dual, walked, wrapper_out, tag, rejected):
+    """Each pass of B3 (or B5 with `dual`) against its plain version on one
+    CSR stream. Pass 1 runs into a NaN-filled scratch with the dead-pair
+    audit on: no pair that the dead-pair test kills may be live by the full
+    formula; no padding segment is computed and every segment that the
+    sequential walk walks (`walked`) is; the computed segments' partials
+    agree with csr_partials_plain (log steps to LOGT_ATOL + STEP_RTOL |step|:
+    the plain version sums them with cumsum; colour partials to REL_TOL of
+    each channel's largest value plus LOGT_ATOL of their own value, the log
+    prefix's tolerance carried through exp; where a pair's raw alpha lies
+    within EDGE_RTOL of ALPHA_MIN, what that pair alone can move). The
+    combine, fed the kernel's own partials, gives csr_combine_plain's logT
+    and stash (B5: band logT) bitwise and its image to REL_TOL, and the same
+    outputs bitwise with 1e30 in the partials of every segment it does not
+    walk; the wrapper's outputs `wrapper_out` equal the two passes' bitwise,
+    whatever the kernel skipped. Planted faults (SPLIT_FAULTS) that change
+    the result must be rejected; `rejected` counts them. Returns (segments
+    computed, segments walked)."""
+    seg_tile = stream[1]
+    in_grid = seg_tile < n_tiles
+    width = rc.partial_width(c, dual)
+    audit = torch.zeros(1, dtype=torch.int32, device="cuda")
+    part = torch.full((seg_tile.shape[0], rc.PX, width), float("nan"), device="cuda")
+    rc.csr_partials_cuda(*stream, n_tiles, c, dual, out=part, audit=audit)
+
+    def none_killed(count):
+        if count:
+            raise AssertionError(f"{tag}: the dead-pair test killed {count} live pairs")
+
+    none_killed(int(audit))
+    computed = ~torch.isnan(part).any(dim=(1, 2))
+    if bool((computed & ~in_grid).any()) or bool((walked & ~computed).any()):
+        raise AssertionError(f"{tag}: pass 1 computed {int((computed & ~in_grid).sum())} padding "
+                             f"segments and left {int((walked & ~computed).sum())} walked ones")
+    plain = rc.csr_partials_plain(stream[0], stream[2], stream[3], c, dual)
+    got, want = part[computed], plain[computed]
+    col_max = want[:, :, :c].abs().amax(dim=(0, 1))
+    # each pair at the alpha threshold may flip: it moves a log step by at
+    # most -log1p(-ALPHA_MIN) and a colour partial by ALPHA_MIN (|col| + |P|)
+    edge = threshold_pairs(torch, rc, stream, torch.nonzero(computed).squeeze(1))[:, :, None]
+    a_edge = rc.ALPHA_MIN * (1 + EDGE_RTOL)
+    col_rows = stream[0][:, 6:6 + c].abs().amax(dim=0)
+    # a colour partial weighs each row by exp(excl): the log prefix's
+    # tolerance, carried through exp, allows LOGT_ATOL of the value itself
+    share1 = max(check_close(f"{tag} pass 1 colour partials", got[:, :, :c], want[:, :, :c],
+                             REL_TOL * col_max + LOGT_ATOL * want[:, :, :c].abs()
+                             + edge * a_edge * (col_rows + want[:, :, :c].abs())),
+                 check_close(f"{tag} pass 1 log steps", got[:, :, c:], want[:, :, c:],
+                             LOGT_ATOL + STEP_RTOL * want[:, :, c:].abs()
+                             - edge * math.log1p(-a_edge)))
+
+    with_entry = not dual
+    comb = rc.csr_combine_cuda(part, seg_tile, n_tiles, c, dual, with_entry)
+    acc_max = comb[0].abs().amax(dim=(0, 1))
+
+    def combine_share(candidate):
+        """The combine's outputs against `candidate` (csr_combine_plain's, or
+        a faulty version): logT and the third output bitwise, accum to
+        REL_TOL of each channel's largest value."""
+        for what, k, p in zip(("logT", "band logT" if dual else "stash"), comb[1:], candidate[1:]):
+            if not torch.equal(k, p):
+                raise AssertionError(f"{tag}: the combine's {what} is not bitwise its plain "
+                                     f"version's at {int((k != p).sum())} values")
+        return check_close(f"{tag} combine accum", candidate[0], comb[0], REL_TOL * acc_max)
+
+    plain_comb = rc.csr_combine_plain(part, seg_tile, n_tiles, c, dual, with_entry)
+    share2 = combine_share(plain_comb)
+    # what the scratch holds for a segment the walk does not take (skipped
+    # by pass 1 or past the exit) must not matter, even a huge step
+    junk = torch.where(walked[:, None, None], part, torch.full_like(part, 1e30))
+    if not all(torch.equal(a, b) for a, b in
+               zip(rc.csr_combine_cuda(junk, seg_tile, n_tiles, c, dual, with_entry), comb)):
+        raise AssertionError(f"{tag}: the combine's outputs depend on partials it does not walk")
+    if not all(torch.equal(a, b) for a, b in zip(wrapper_out, comb)):
+        raise AssertionError(f"{tag}: the wrapper's outputs differ from its two passes'")
+
+    flip = torch.zeros(1, dtype=torch.int32, device="cuda")
+    rc.csr_partials_cuda(*stream, n_tiles, c, dual, margin=-rc.DEAD_MARGIN, audit=flip)
+    late = combine_exit_late(torch, rc, part, seg_tile, n_tiles, c, dual)
+    faults = {
+        SPLIT_FAULTS[0]: (lambda: combine_share(rc.csr_combine_plain(
+            part.roll(1, 0), seg_tile, n_tiles, c, dual, with_entry))),
+        SPLIT_FAULTS[1]: (lambda: combine_share(late)),
+        SPLIT_FAULTS[2]: (lambda: none_killed(int(flip))),
+    }
+    shows = {SPLIT_FAULTS[0]: bool(in_grid.any()),
+             SPLIT_FAULTS[1]: not all(torch.equal(a, b) for a, b in zip(late, plain_comb)),
+             SPLIT_FAULTS[2]: int(flip) > 0}
+    for name, check in faults.items():
+        if shows[name]:
+            must_reject(name, check)
+            rejected[name] += 1
+    n_computed, n_walked = int(computed.sum()), int(walked.sum())
+    print(f"{tag}: pass 1 computed {n_computed} of {int(in_grid.sum())} tile segments "
+          f"({n_walked} walked; {int(edge.sum())} pairs at the alpha threshold), 0 live pairs killed by the dead-pair test ({int(flip)} with its "
+          f"margin flipped), partials within {share1:.3f} of tolerance; the combine's logT and "
+          f"{'band logT' if dual else 'stash'} bitwise its plain version's, image within "
+          f"{share2:.3f}; the wrapper equals its passes bitwise; {sum(shows.values())} planted "
+          f"faults rejected")
+    return n_computed, n_walked
+
+
+def csr_kernel_checks(torch, rc, stream, n_tiles: int, tag: str, rejected, c: int = N_CHANNELS,
                       with_bwd: bool = True):
     """B3 and B4 against their twins on one CSR stream of C colour channels,
     with the tolerances of kernel_checks; a tile is a boundary tile when the
@@ -448,7 +627,10 @@ def csr_kernel_checks(torch, rc, stream, n_tiles: int, tag: str, c: int = N_CHAN
     either side. Planted faults (a stash shifted by one segment, logT scaled
     by 1.001, and with `with_bwd` each live gradient column zeroed and the
     carry not reset at tile boundaries) must be rejected. Without `with_bwd`
-    (a stream only B3 walks) B4 is not run: errs["bwd"] is None."""
+    (a stream only B3 walks) B4 is not run: errs["bwd"] is None. Each pass
+    of B3 is held against its plain version (split_checks, which counts the
+    planted faults it rejects in `rejected`); errs["segments"] is (computed,
+    walked)."""
     seg_tile = stream[1]
     shares = {}
     acc_k, lt_k, ent_k = rc.blend_csr_fwd(*stream, n_tiles, c, with_entry=True)
@@ -485,6 +667,9 @@ def csr_kernel_checks(torch, rc, stream, n_tiles: int, tag: str, c: int = N_CHAN
     if shift_shows:
         must_reject("stash shifted by one segment", lambda: fwd_shares(acc_k, lt_k, shifted))
     must_reject("logT scaled by 1.001", lambda: fwd_shares(acc_k, lt_k * 1.001, ent_k))
+    segments = split_checks(torch, rc, stream, n_tiles, c, False,
+                            in_grid & (ent_k.amax(dim=1) >= rc.LOG_EPS), (acc_k, lt_k, ent_k),
+                            tag, rejected)
     err_fwd = max(float((acc_k - acc_p).abs().max()),
                   float((lt_k[~near] - lt_p[~near]).abs().max()),
                   float((ent_k[strict_seg] - ent_p[strict_seg]).abs().max()))
@@ -495,7 +680,7 @@ def csr_kernel_checks(torch, rc, stream, n_tiles: int, tag: str, c: int = N_CHAN
             f"({shares['fwd']:.3f} of tolerance)")
     if not with_bwd:
         print(f"{head}; {'the stash shift and ' if shift_shows else ''}the logT scale rejected")
-        return {"fwd": err_fwd, "bwd": None}, (ent_k, None, None)
+        return {"fwd": err_fwd, "bwd": None, "segments": segments}, (ent_k, None, None)
 
     g = torch.Generator(device="cuda").manual_seed(2)
     g_acc = torch.randn(acc_k.shape, generator=g, device="cuda")
@@ -517,7 +702,7 @@ def csr_kernel_checks(torch, rc, stream, n_tiles: int, tag: str, c: int = N_CHAN
     leak = csr_bwd_carry_leak(torch, rc, stream, ent_k, g_acc, g_lt, n_tiles)
     must_reject("carry not reset at tile boundaries", lambda: bwd_share(leak))
 
-    errs = {"fwd": err_fwd, "bwd": float((d_k - d_p).abs().max())}
+    errs = {"fwd": err_fwd, "bwd": float((d_k - d_p).abs().max()), "segments": segments}
     print(f"{head}, blend_csr_bwd max_abs_err={errs['bwd']:.3e} "
           f"({shares['bwd']:.3f} of tolerance); bwd max err per column / column max: "
           + " ".join(f"{float(x):.1e}" for x in per_col[:6 + c]))
@@ -570,7 +755,8 @@ def dual_exit_on_full(torch, rc, stream, n_tiles):
     return accum[:, :, :DUAL_CHANNELS].contiguous(), logt, logt_band
 
 
-def dual_kernel_checks(torch, rc, stream, n_tiles: int, tag: str, require_exit_fault=True):
+def dual_kernel_checks(torch, rc, stream, n_tiles: int, tag: str, rejected,
+                       require_exit_fault=True):
     """B5 against its twin on one CSR stream with band bits, with B3's
     tolerances: a tile is a boundary tile when the band carry's max logT at
     one of its segment starts (B3's stash over the band rows, kernel and
@@ -581,7 +767,9 @@ def dual_kernel_checks(torch, rc, stream, n_tiles: int, tag: str, require_exit_f
     ignored, the band read from column 15, logT_band scaled by 1.001) must be
     rejected; the first shows only on a stream where the full composite
     saturates a segment before the band, which `require_exit_fault` demands.
-    Returns (max abs error, the band stash, the band rows)."""
+    Each pass of B5 is held against its plain version (split_checks, which
+    counts the planted faults it rejects in `rejected`). Returns (max abs
+    error, the band stash, the band rows, (segments computed, walked))."""
     c = DUAL_CHANNELS
     seg_tile = stream[1]
     acc_k, lt_k, lb_k = rc.blend_csr_dual_fwd(*stream, n_tiles, c)
@@ -629,6 +817,9 @@ def dual_kernel_checks(torch, rc, stream, n_tiles: int, tag: str, require_exit_f
     must_reject("band read from column 15",
                 lambda: shares(*rc.blend_csr_dual_fwd(col15, *stream[1:], n_tiles, c)))
     must_reject("band logT scaled by 1.001", lambda: shares(acc_k, lt_k, lb_k * 1.001))
+    segments = split_checks(torch, rc, stream, n_tiles, c, True,
+                            in_grid & (ent_k.amax(dim=1) >= rc.LOG_EPS), (acc_k, lt_k, lb_k),
+                            tag, rejected)
     err = max(float((acc_k - acc_p).abs().max()), float((lt_k[~near] - lt_p[~near]).abs().max()),
               float((lb_k[~near] - lb_p[~near]).abs().max()))
     print(f"{tag}: {seg_tile.shape[0]} segments ({int(in_grid.sum())} of tiles, "
@@ -636,7 +827,7 @@ def dual_kernel_checks(torch, rc, stream, n_tiles: int, tag: str, require_exit_f
           f"{int(near.sum())} boundary tiles; blend_csr_dual_fwd max_abs_err={err:.3e} "
           f"({share:.3f} of tolerance); both identities bitwise; {3 + exit_shows} planted faults "
           f"rejected")
-    return err, ent_k, banded
+    return err, ent_k, banded, segments
 
 
 def dual_pair_counts(torch, rc, stream, entry, n_tiles):
@@ -1078,7 +1269,8 @@ def driver_phase(torch, np, rc, rt, card, by_phase, int_rate: float) -> None:
             if not torch.equal(got, rc.bin_slots_plain(*args)):
                 raise AssertionError("driver: bin_slots differs from its twin")
             (b_ms, by), (n_filled, n_blocks, nbytes, ops) = bin_bound(torch, rc, args, got, int_rate)
-            ms = kernel_device_ms(torch, lambda: rc.bin_slots(*args), "bin_slots_kernel", 20)
+            ms = kernel_device_ms(torch, lambda: rc.bin_slots(*args), ("bin_slots_kernel",),
+                                  20)["bin_slots_kernel"]
             print(f"driver bin at k={args[2]}: {args[0].shape[1]} blocks, {n_filled} of "
                   f"{got.numel()} slots filled from {n_blocks} blocks; bin_slots bitwise equal to "
                   f"its twin, kernel {ms:.4f} ms, bound {b_ms:.4f} ms ({by}: {nbytes} bytes, {ops} "
@@ -1261,10 +1453,15 @@ def main() -> int:
     errs_p, _ = kernel_checks(torch, rc, rows_p.contiguous(), u0_p, v0_p, "padded K=192->256")
     for k in errs:
         errs[k] = max(errs[k], errs_p[k])
+    split_rejected = dict.fromkeys(SPLIT_FAULTS, 0)  # planted faults of the two passes
     csr_errs, _ = csr_kernel_checks(torch, rc, random_csr_stream(torch, seed=0), 256,
-                                    "random CSR stream, 256 tiles")
-    dual_err, _, _ = dual_kernel_checks(torch, rc, random_dual_stream(torch, rc, seed=0), 256,
-                                        "random CSR stream with band bits, 256 tiles")
+                                    "random CSR stream, 256 tiles", split_rejected)
+    dual_err, _, _, _ = dual_kernel_checks(torch, rc, random_dual_stream(torch, rc, seed=0), 256,
+                                           "random CSR stream with band bits, 256 tiles",
+                                           split_rejected)
+    if not all(split_rejected.values()):
+        raise AssertionError(f"a planted fault of the two passes never showed on the random "
+                             f"streams: {split_rejected}")
     from activesplat_tpu_torch.ops import raster_tiled as rt
 
     bin_rejected = dict.fromkeys(BIN_FAULTS, 0)
@@ -1492,7 +1689,7 @@ def main() -> int:
     stream, n_tiles = main_path_csr(torch, buf, cam)
     n_seg = stream[1].shape[0]
     csr_errs_m, (c_entry, c_g_acc, c_g_lt) = csr_kernel_checks(
-        torch, rc, stream, n_tiles, f"main-path CSR stream, {n_seg} segments"
+        torch, rc, stream, n_tiles, f"main-path CSR stream, {n_seg} segments", split_rejected
     )
     c_seg, c_walked, c_live = csr_pair_counts(torch, rc, stream, c_entry, n_tiles)
     visited = int(torch.unique(stream[1][stream[1] < n_tiles]).numel())
@@ -1507,41 +1704,45 @@ def main() -> int:
                      + visited * rc.PX * 4 * (N_CHANNELS + 1) + n_seg * c_seg_bytes)
     csr_args = (*stream, n_tiles, N_CHANNELS)
     csr_bwd_args = (*stream, c_entry, c_g_acc, c_g_lt, n_tiles, N_CHANNELS)
-    print(f"main-path CSR stream: {c_seg} of {n_seg} segments walked ({visited} tiles with "
-          f"entries), {c_walked} (row, pixel) pairs walked, {c_live} of them live "
-          f"({c_live / c_walked:.4f})")
+    print(f"main-path CSR stream: {c_seg} of {n_seg} segments walked, "
+          f"{csr_errs_m['segments'][0]} computed by pass 1 ({visited} tiles with entries), "
+          f"{c_walked} (row, pixel) pairs walked, {c_live} of them live ({c_live / c_walked:.4f})")
 
-    # "ms" is the kernel's own device time (profiler); "wrapper_ms" the time
-    # per call of 100 back-to-back wrapper calls between CUDA events, which
-    # includes the wrapper's helper kernels and, where the host is slower
-    # than the device, its Python
+    # "ms" is the kernel's own device time (profiler; B3 and B5: both passes
+    # summed, each in "pass_ms"); "wrapper_ms" the time per call of 100
+    # back-to-back wrapper calls between CUDA events, which includes the
+    # wrapper's helper kernels and, where the host is slower than the
+    # device, its Python. "stream" names the inputs where a kernel is timed
+    # on two; its launches then count the phases that feed that stream.
     measured = []
 
-    def measure(name, src, repl, run, plain, kernel, b_ms_by, err, plain_reps=5):
-        ms = kernel_device_ms(torch, run, kernel, 20)
+    def measure(name, src, repl, run, plain, kernels, b_ms_by, err, plain_reps=5, **extra):
+        pass_ms = kernel_device_ms(torch, run, kernels, 20)
         wrapper_ms = cuda_ms(run, 100)
         plain_ms = cuda_ms(plain, plain_reps)
         measured.append({
             "name": name, "route": "cuda", "source": src, "replaces": repl,
-            "max_abs_err": err, "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms_by[0], "bound_by": b_ms_by[1], "library_ms": None,
+            "max_abs_err": err, "ms": sum(pass_ms.values()), "wrapper_ms": wrapper_ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms_by[0], "bound_by": b_ms_by[1],
+            "library_ms": None, **({"pass_ms": pass_ms} if len(kernels) > 1 else {}), **extra,
         })
 
     measure("blend_tiles_fwd", "activesplat_tpu_torch/csrc/blend_fwd.cu", FWD_REPLACES,
             lambda: rc.blend_tiles_fwd(*fwd_args, with_entry=True),
-            lambda: rc.blend_tiles_fwd_plain(*fwd_args, with_entry=True), "blend_fwd_kernel",
+            lambda: rc.blend_tiles_fwd_plain(*fwd_args, with_entry=True), ("blend_fwd_kernel",),
             fwd_bound, max(errs["fwd"], errs_m["fwd"]))
     measure("blend_tiles_bwd", "activesplat_tpu_torch/csrc/blend_bwd.cu", BWD_REPLACES,
             lambda: rc.blend_tiles_bwd(*bwd_args), lambda: rc.blend_tiles_bwd_plain(*bwd_args),
-            "blend_bwd_kernel", bwd_bound, max(errs["bwd"], errs_m["bwd"]))
+            ("blend_bwd_kernel",), bwd_bound, max(errs["bwd"], errs_m["bwd"]))
     measure("blend_csr_fwd", "activesplat_tpu_torch/csrc/blend_csr_fwd.cu", CSR_FWD_REPLACES,
             lambda: rc.blend_csr_fwd(*csr_args, with_entry=True),
-            lambda: rc.blend_csr_fwd_plain(*csr_args, with_entry=True), "blend_csr_fwd_kernel",
+            lambda: rc.blend_csr_fwd_plain(*csr_args, with_entry=True), CSR_PASSES,
             bound(csr_fwd_bytes, c_walked, c_live, live_f32_fwd(N_CHANNELS)),
-            max(csr_errs["fwd"], csr_errs_m["fwd"]))
+            max(csr_errs["fwd"], csr_errs_m["fwd"]), stream="training (main-path CSR stream)",
+            segments={"walked": c_seg, "computed": csr_errs_m["segments"][0], "all": n_seg})
     measure("blend_csr_bwd", "activesplat_tpu_torch/csrc/blend_csr_bwd.cu", CSR_BWD_REPLACES,
             lambda: rc.blend_csr_bwd(*csr_bwd_args), lambda: rc.blend_csr_bwd_plain(*csr_bwd_args),
-            "blend_csr_bwd_kernel",
+            ("blend_csr_bwd_kernel",),
             bound(csr_bwd_bytes, c_walked, c_live, live_f32_bwd(N_CHANNELS)),
             max(csr_errs["bwd"], csr_errs_m["bwd"]))
     del rows, stream, entry, g_acc, g_lt, c_entry, c_g_acc, c_g_lt, fwd_args, bwd_args
@@ -1571,7 +1772,7 @@ def main() -> int:
     sort_ms = cuda_ms(lambda: rt.bin_gaussians(*prefix, k_main, 0, use_kernel=False), 20)
     measure("bin_slots", "activesplat_tpu_torch/csrc/bin_slots.cu", BIN_REPLACES,
             lambda: rc.bin_slots(*bin_args), lambda: rc.bin_slots_plain(*bin_args),
-            "bin_slots_kernel", b6_bound, 0.0)
+            ("bin_slots_kernel",), b6_bound, 0.0)
     measured[-1].update(route_ms=route_ms, sort_route_ms=sort_ms)
     print(f"main-path bin at offset 0: {n_filled} of {bin_lists.indices.numel()} slots filled from "
           f"{n_blocks} of {bin_args[0].shape[1]} blocks; bound {b6_bytes} bytes, {b6_ops} integer "
@@ -1721,13 +1922,14 @@ def main() -> int:
     print(f"main-path launches by phase: {by_phase}")
 
     # ---- phase 4b: B5 on the top-down query's own stream ---------------- #
-    dual_err_m, d_entry, _ = dual_kernel_checks(
+    dual_err_m, d_entry, _, (d_computed, _) = dual_kernel_checks(
         torch, rc, dual_stream, dual_tiles,
-        f"top-down CSR stream, {dual_stream[1].shape[0]} segments", require_exit_fault=False)
+        f"top-down CSR stream, {dual_stream[1].shape[0]} segments", split_rejected,
+        require_exit_fault=False)
     d_seg, d_walked, d_live, d_band = dual_pair_counts(torch, rc, dual_stream, d_entry, dual_tiles)
-    print(f"top-down CSR stream: {d_seg} of {dual_stream[1].shape[0]} segments walked, {d_walked} "
-          f"(row, pixel) pairs walked, {d_live} of them live ({d_live / d_walked:.4f}), {d_band} "
-          f"of those in the band")
+    print(f"top-down CSR stream: {d_seg} of {dual_stream[1].shape[0]} segments walked, {d_computed} "
+          f"computed by pass 1, {d_walked} (row, pixel) pairs walked, {d_live} of them live "
+          f"({d_live / d_walked:.4f}), {d_band} of those in the band")
     # bytes: the walked segments' rows, the per-tile segment ranges and the
     # pixels' outputs (C colours and two log-transmittances)
     dual_bytes = (d_seg * rc.CSEG * rc.N_ATTR * 4 + 2 * dual_tiles * 4
@@ -1735,10 +1937,12 @@ def main() -> int:
     dual_args = (*dual_stream, dual_tiles, DUAL_CHANNELS)
     measure("blend_csr_dual_fwd", "activesplat_tpu_torch/csrc/blend_csr_dual.cu", DUAL_REPLACES,
             lambda: rc.blend_csr_dual_fwd(*dual_args), lambda: rc.blend_csr_dual_fwd_plain(*dual_args),
-            "blend_csr_dual_kernel",
+            CSR_PASSES,
             # B3's count at C=3, plus the band's log1p and add per band-live pair
             bound(dual_bytes, d_walked, d_live, live_f32_fwd(DUAL_CHANNELS), d_band, d_band),
-            max(dual_err, dual_err_m), plain_reps=2)
+            max(dual_err, dual_err_m), plain_reps=2, stream="top-down query",
+            segments={"walked": d_seg, "computed": d_computed, "all": dual_stream[1].shape[0]})
+    dead_test_off(torch, rc, measured[-1], dual_stream, dual_tiles, DUAL_CHANNELS, True, card)
     del dual_stream, dual_args, d_entry
 
     # ---- phase 4c: B3 on the panorama views' own streams ---------------- #
@@ -1749,35 +1953,68 @@ def main() -> int:
     pano = capture_streams("blend_csr", lambda: global_invisibility(qbuf, view, nodes, scale=0.5))
     if len(pano) != 2 * 3:
         raise AssertionError(f"global_invisibility rendered {len(pano)} views, not 6")
-    pano_err, p_rows, p_seg, p_walked_seg, p_walked, p_live, p_run = 0.0, 0, 0, 0, 0, 0, 0
+    pano_err, views = 0.0, []
     for i, (p_stream, p_tiles, p_c) in enumerate(pano):
         p_errs, (p_entry, _, _) = csr_kernel_checks(
-            torch, rc, p_stream, p_tiles, f"panorama view {i} CSR stream", c=p_c, with_bwd=False)
+            torch, rc, p_stream, p_tiles, f"panorama view {i} CSR stream", split_rejected, c=p_c,
+            with_bwd=False)
         pano_err = max(pano_err, p_errs["fwd"])
-        s, w, live = csr_pair_counts(torch, rc, p_stream, p_entry, p_tiles)
         in_grid = p_stream[1][p_stream[1] < p_tiles].long()
-        p_rows += p_stream[0].shape[0]
-        p_seg += p_stream[1].shape[0]
-        p_walked_seg, p_walked, p_live = p_walked_seg + s, p_walked + w, p_live + live
-        p_run = max(p_run, int(torch.bincount(in_grid, minlength=p_tiles).max()))
-    del pano, p_stream, p_entry
-    b3 = next(m for m in measured if m["name"] == "blend_csr_fwd")
-    b3["max_abs_err"] = max(b3["max_abs_err"], pano_err)
-    print(f"panorama CSR streams (6 views, C={p_c}): {p_rows} entry rows, {p_walked_seg} of {p_seg} "
-          f"segments walked, largest run {p_run} segments, {p_walked} (row, pixel) pairs walked, "
-          f"{p_live} of them live ({p_live / p_walked:.4f}); blend_csr_fwd max_abs_err "
-          f"{pano_err:.3e}; checked in {time.perf_counter() - t0:.1f} s")
+        views.append({"rows": p_stream[0].shape[0], "segments": p_stream[1].shape[0],
+                      "computed": p_errs["segments"][0],
+                      "run": int(torch.bincount(in_grid, minlength=p_tiles).max()),
+                      **dict(zip(("walked_seg", "walked", "live"),
+                                 csr_pair_counts(torch, rc, p_stream, p_entry, p_tiles)))})
+    del p_entry
+    total_v = {k: sum(v[k] for v in views) for k in views[0]}
+    print(f"panorama CSR streams (6 views, C={p_c}): {total_v['rows']} entry rows, "
+          f"{total_v['walked_seg']} of {total_v['segments']} segments walked, "
+          f"{total_v['computed']} computed by pass 1, largest run {max(v['run'] for v in views)} "
+          f"segments, {total_v['walked']} (row, pixel) pairs walked, {total_v['live']} of them live "
+          f"({total_v['live'] / total_v['walked']:.4f}); blend_csr_fwd max_abs_err {pano_err:.3e}; "
+          f"checked in {time.perf_counter() - t0:.1f} s")
+    # each view's kernel time (both passes); the view with the most walked
+    # pairs is measured in full as B3's panorama entry
+    view_ms = [sum(kernel_device_ms(torch, lambda: rc.blend_csr_fwd(*st, nt, c), CSR_PASSES,
+                                    10).values()) for st, nt, c in pano]
+    for i, v in enumerate(views):
+        print(f"  panorama view {i}: {v['segments']} segments, {v['walked_seg']} walked, "
+              f"{v['computed']} computed, largest run {v['run']}, {v['walked']} pairs walked, "
+              f"{v['live']} live; blend_csr_fwd {view_ms[i]:.4f} ms on {card}")
+    print(f"panorama views: blend_csr_fwd {sum(view_ms) / len(view_ms):.4f} ms a view on average "
+          f"(both passes, torch.profiler, 10 calls each) on {card}")
+    big = max(range(len(views)), key=lambda i: views[i]["walked"])
+    p_stream, p_tiles, p_c = pano[big]
+    v = views[big]
+    # bytes: the walked segments' rows, the per-tile segment ranges, the
+    # pixels' outputs (no stash: the panorama renders forward only)
+    pano_bytes = (v["walked_seg"] * rc.CSEG * rc.N_ATTR * 4 + 2 * p_tiles * 4
+                  + p_tiles * rc.PX * 4 * (p_c + 1))
+    measure("blend_csr_fwd", "activesplat_tpu_torch/csrc/blend_csr_fwd.cu", CSR_FWD_REPLACES,
+            lambda: rc.blend_csr_fwd(*p_stream, p_tiles, p_c),
+            lambda: rc.blend_csr_fwd_plain(*p_stream, p_tiles, p_c), CSR_PASSES,
+            bound(pano_bytes, v["walked"], v["live"], live_f32_fwd(p_c)), pano_err,
+            stream=f"panorama view {big}",
+            segments={"walked": v["walked_seg"], "computed": v["computed"], "all": v["segments"]})
+    dead_test_off(torch, rc, measured[-1], p_stream, p_tiles, p_c, False, card)
+    del pano, p_stream
+    print(f"planted faults of the CSR forward's two passes rejected (streams): {split_rejected}")
 
     kernels = []
     for entry_k in measured:
         name = entry_k["name"]
-        phases = {phase: c[name] for phase, c in by_phase.items() if c[name]}
-        print(f"{name}: max_abs_err={entry_k['max_abs_err']:.3e} kernel {entry_k['ms']:.4f} ms "
-              f"(wrapper {entry_k['wrapper_ms']:.4f} ms per call), twin {entry_k['plain_ms']:.4f} ms, "
-              f"bound {entry_k['bound_ms']:.4f} ms ({entry_k['bound_by']}, "
-              f"{entry_k['bound_ms'] / entry_k['ms']:.3f} of it reached), launches {launches[name]} "
-              f"{phases} on {card}")
-        kernels.append({**entry_k, "launches": launches[name], "launches_by_phase": phases})
+        # B3 is measured on two streams: each entry counts the phases of its own
+        split = "stream" in entry_k and name == "blend_csr_fwd"
+        phases = {phase: c[name] for phase, c in by_phase.items() if c[name] and (
+            not split or (phase in PANORAMA_PHASES) == entry_k["stream"].startswith("panorama"))}
+        n_launches = sum(phases.values())
+        print(f"{name}{' (' + entry_k['stream'] + ')' if 'stream' in entry_k else ''}: "
+              f"max_abs_err={entry_k['max_abs_err']:.3e} kernel {entry_k['ms']:.4f} ms "
+              f"{entry_k.get('pass_ms', '')} (wrapper {entry_k['wrapper_ms']:.4f} ms per call), "
+              f"twin {entry_k['plain_ms']:.4f} ms, bound {entry_k['bound_ms']:.4f} ms "
+              f"({entry_k['bound_by']}, {entry_k['bound_ms'] / entry_k['ms']:.3f} of it reached), "
+              f"launches {n_launches} {phases} on {card}")
+        kernels.append({**entry_k, "launches": n_launches, "launches_by_phase": phases})
     torch.cuda.synchronize()
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
