@@ -6,184 +6,423 @@
 //
 // What bounds it on an H100: not memory. A tile reads its K rows, the stashed
 // entry log-transmittances and the pixel cotangents and writes K rows, about
-// 11 MB for 256 tiles at K=256 (3 us at 3.35 TB/s). The function needs, per
-// (row, pixel) pair whose alpha is not zero, three special-function results
-// (exp of the power, log1p(-alpha), exp of the prefix logT) and about 50
-// float32 operations at C=5, the pixel sums of the row's gradients included;
-// the float32 rate bounds it. This kernel spends four special-function calls
-// on every pair of a walked segment, live or not: expf and log1pf in the
-// prefix pass, expf of the power and of the prefix in the walk.
+// 11 MB for 256 tiles at K=256 (3 us at 3.35 TB/s). The function needs the
+// power of every (row, pixel) pair of a walked segment and, only where alpha
+// is not zero, three special-function results (exp of the power,
+// log1p(-alpha), exp of the prefix logT) and about 50 float32 operations at
+// C=5, the pixel sums of the row's gradients included: the float32 and
+// special-function rates bound it. About nine pairs in ten of a walked
+// segment are dead (alpha 0), and in the main path's rows four warp-rows in
+// five hold no live pair.
 //
-// Design: one 256-thread block per tile, one thread per pixel, segments of
-// SEG=64 rows walked back to front starting from the forward's stashed entry
-// logT (no forward re-walk over the tile). A segment whose stashed entry
-// logT is below LOG_EPS at every pixel was skipped by the forward and gets
-// zero rows. Otherwise the block stages the segment's rows (4 KB), each
-// thread writes its exclusive in-segment log prefix for the 64 rows into
-// dynamic shared memory (64 x 256 floats = 64 KB, its own column only), then
-// walks the rows back to front carrying the suffix colour-dot
-//     B_k(p) = sum_{j>k} w_j(p) (col_j . g_accum(p))
-// in a register:
+// Design. The Pallas kernel walks a tile's SEG=64-row segments back to front
+// in one grid step, carrying the suffix colour-dot
+//     b(p) = sum over the rows behind of w_j(p) s_j(p),  s_j = col_j . g_accum(p),
+// and adds each segment's total S_s(p) = sum_j w_j s_j to it in one step
+// (raster_pallas.py:224). A segment's total depends only on its stashed
+// entry logT and the cotangent, not on b, so the carry into segment s is a
+// fold of the later totals, b_in(s) = ((0 + S_{n-1}) + S_{n-2}) + ... +
+// S_{s+1}, and the segments need not run in series. Two launches:
+//   Pass 1 (tile_bwd_suffix_kernel), one 256-thread block per (tile,
+//   segment), one thread per pixel: a segment the forward skipped (entry
+//   logT below LOG_EPS at every pixel) writes S = 0; otherwise the block
+//   stages its 64 rows (4 KB) and walks them front to back from the stashed
+//   entry logT, the log prefix carried in a register as the forward carries
+//   it, and writes S_s(p). Scratch (T, K/SEG, PX) float32, every entry
+//   written.
+//   Pass 2 (tile_bwd_walk_kernel), one block per (tile, segment): a skipped
+//   segment writes zero rows; otherwise each pixel folds the later totals in
+//   the order above (at most 15 loads at K=1,024) and walks its segment
+//   front to back, the log prefix again in a register, with the suffix
+//   behind row k formed as the plain version forms it, total minus the
+//   inclusive sum:
+//     B_k = b_in + (S_s - sum_{j<=k} w_j s_j),
 //     dL/dalpha_k = T_k s_k - (B_k + g_logT) / max(1 - alpha_k, 1/256),
-// chained through alpha = min(op exp(power), 0.99) as the Pallas kernel does
-// (raster_pallas.py:182-224). Each row's 14 gradients are reduced over the
-// tile's pixels with warp shuffles into per-warp partials in shared memory,
-// which one pass after the walk sums in a fixed order (deterministic).
+//   chained through alpha = min(op exp(power), 0.99) as the Pallas kernel
+//   does (raster_pallas.py:182-224). The fold reads only totals that pass 1
+//   wrote, so the result does not depend on which block ends first, and
+//   needs no per-tile counter.
+// A back-to-front walk needs every row's exclusive log prefix in reverse
+// order: 64 KB of shared memory a block (two blocks a SM), or a front-to-back
+// pre-pass and a refill of each 16-row sub-chunk's prefix (16 KB), which
+// evaluates every pair three times. Walking front to back from the segment's
+// own total evaluates each pair once and keeps no prefix.
 //
-// C interface (loaded with ctypes): returns cudaGetLastError() after launch.
+// Footprint: 4 KB of rows and 32 KB of per-warp partials (8 warps x 64 rows
+// x 16 columns) a block, about 50 registers a thread; __launch_bounds__(256,
+// 4) keeps four blocks (32 warps) resident a SM. Pass 1: 4 KB, eight blocks.
+//
+// Pixels: warp w holds the tile's 8x4-pixel block (x 8(w%2)..+7, y
+// 4(w/2)..+3), more compact than a 16x2 strip, so fewer warps straddle a
+// Gaussian's edge: in the main path's rows 16.5% of warp-rows hold a live
+// pair, against 20.2% with strips.
+//
+// The pixel sum. A row's 6+C gradients (padded to 16 values) are summed over
+// each warp by a reduce-scatter butterfly: at offset 16 each lane keeps the
+// half of its values that its lane bit 4 selects and adds the partner's copy
+// of that half (8 shuffles), then likewise at offsets 8, 4 and 2 (4, 2 and 1
+// shuffles), and at offset 1 the two lanes of a pair add their one value:
+// 16 shuffles, after which lanes 2c and 2c+1 hold column c's warp sum. The
+// even lane writes it to the per-warp partials; after the walk one thread per
+// (row, column) sums the eight warps in a fixed order, so the result is
+// deterministic. A warp-row with no live pair (every value +-0) skips the
+// exchange and writes zeros.
+//
+// Dead pairs: per row, thr = log(ALPHA_MIN) - log(op) - margin (+inf for
+// op <= 0, so padding rows are dead), as blend_csr_walk.cuh computes it. A
+// pair with power > 0 or power < thr has alpha 0 by the full formula; it
+// skips every expf and log1pf in both passes, its colour FMAs and its
+// gradients, whose values were exact zeros. The margin (1e-3 in the log
+// domain) is far above the error of logf, expf and the product's rounding.
+// Per row and warp, a reach mask rules out whole warp-rows: power >= thr is
+// an ellipse whose bounding box, widened by 0.1% and 0.01 px, misses the
+// warp's pixel block. With `audit` set, pass 1 evaluates every pair and
+// counts those that the test or the mask kills although the full formula
+// keeps them (the smoke requires 0).
+//
+// Tensor cores do not serve the walk: a pair's power is a 6-term quadratic
+// form, and expanding it into a product cancels catastrophically in float32
+// at pixel coordinates in the hundreds; TF32 is off by the port's rule
+// (device.py); the two colour products of a pair (s_j = col_j . g and the
+// colour gradients w_j g) are C-wide, 2C FMAs per live pair, fewer than the
+// special functions beside them.
+//
+// C interface (loaded with ctypes): each entry point returns
+// cudaGetLastError() after its launch (cudaErrorInvalidValue for C outside
+// 1..8).
 
 #include <cuda_runtime.h>
+
+#include <cmath>
+#include <type_traits>
 
 namespace {
 
 constexpr int TILE = 16;
-constexpr int PX = TILE * TILE;
-constexpr int SEG = 64;
+constexpr int PX = TILE * TILE;  // pixels per tile = threads per block
+constexpr int SEG = 64;          // rows per segment (the forward's)
 constexpr int N_ATTR = 16;
-constexpr int MAX_C = 8;
-constexpr int N_GRAD = 6 + MAX_C;  // d(mx, my, a, b, c, op, col0..7)
+constexpr int REACH_COL = 14;    // the staged copy's padding columns: the row's warp mask...
+constexpr int THR_COL = 15;      // ...and its dead-pair threshold
 constexpr int N_WARPS = PX / 32;
+constexpr int N_COLS = 16;       // values a lane feeds the butterfly (6 + C, zero padded)
+constexpr unsigned FULL = 0xffffffffu;
+constexpr unsigned ALL_WARPS = (1u << N_WARPS) - 1;
 constexpr float LOG_EPS = -5.55f;
 constexpr float ALPHA_MAX = 0.99f;
 constexpr float ALPHA_MIN = 1.0f / 255.0f;
+constexpr float DEAD_MARGIN = 1e-3f;
 
-constexpr size_t SMEM_BYTES =
-    sizeof(float) * (SEG * N_ATTR + SEG * PX + SEG * N_WARPS * N_GRAD);
+// The tile-local pixel (y * 16 + x) of thread p: warp w takes the 8x4 block
+// at x = 8 (w % 2), y = 4 (w / 2), lane l its pixel (l % 8, l / 8).
+__device__ __forceinline__ int local_pixel(int p) {
+  const int w = p / 32, l = p % 32;
+  return (4 * (w / 2) + l / 8) * TILE + 8 * (w % 2) + l % 8;
+}
 
+// The warps of the tile that may hold a pair of this row with power >= thr,
+// a bit each. power >= thr is the ellipse a dx^2 + 2b dx dy + c dy^2 <=
+// reach = -2 thr, whose extent is |dx| <= sqrt(reach c / det), |dy| <=
+// sqrt(reach a / det); the extents are widened by 0.1% and 0.01 px, far
+// above the rounding of the power. A row whose conic is not clearly
+// positive definite reaches every warp.
+__device__ __forceinline__ unsigned reach_mask(const float* r, float thr, float x0, float y0) {
+  if (thr == INFINITY) return 0u;  // op <= 0: every pair is dead
+  const float a = r[2], b = r[3], c = r[4];
+  const float det = a * c - b * b;
+  const float reach = -2.0f * thr;
+  if (!(reach > 0.0f && reach < INFINITY && a > 0.0f && c > 0.0f && det > 1e-3f * a * c))
+    return ALL_WARPS;
+  const float ex = sqrtf(reach * c / det) * 1.001f + 0.01f;
+  const float ey = sqrtf(reach * a / det) * 1.001f + 0.01f;
+  unsigned mask = 0u;
+#pragma unroll
+  for (int w = 0; w < N_WARPS; ++w) {
+    const float xl = x0 + 8 * (w % 2), yl = y0 + 4 * (w / 2);
+    if (!(r[0] + ex < xl || r[0] - ex > xl + 7.0f || r[1] + ey < yl || r[1] - ey > yl + 3.0f))
+      mask |= 1u << w;
+  }
+  return mask;
+}
+
+// Stage a segment's 64 rows (one float4 a thread) and write each row's
+// dead-pair threshold and warp mask into its padding columns.
+__device__ __forceinline__ void stage_rows(const float* __restrict__ rows, size_t first_row,
+                                           float* seg, float margin, float x0, float y0, int p) {
+  reinterpret_cast<float4*>(seg)[p] = reinterpret_cast<const float4*>(rows + first_row * N_ATTR)[p];
+  __syncthreads();
+  if (p < SEG) {
+    float* r = seg + p * N_ATTR;
+    const float op = r[5];
+    const float thr = op <= 0.0f ? INFINITY : logf(ALPHA_MIN) - logf(op) - margin;
+    r[THR_COL] = thr;
+    r[REACH_COL] = __uint_as_float(reach_mask(r, thr, x0, y0));
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ bool in_reach(const float* r, int warp) {
+  return (__float_as_uint(r[REACH_COL]) >> warp) & 1u;
+}
+
+__device__ __forceinline__ float pair_power(const float* r, float px, float py, float& dx,
+                                            float& dy) {
+  dx = r[0] - px;
+  dy = r[1] - py;
+  return -0.5f * (r[2] * dx * dx + r[4] * dy * dy) - r[3] * dx * dy;
+}
+
+// Halve the values a lane holds: keep those its lane bit selects, plus the
+// partner's (lane ^ OFF) copy of them.
+template <int HALF, int OFF>
+__device__ __forceinline__ void butterfly_step(float (&v)[N_COLS], int lane) {
+  const bool upper = lane & OFF;
+#pragma unroll
+  for (int i = 0; i < HALF; ++i) {
+    const float keep = upper ? v[i + HALF] : v[i];
+    const float send = upper ? v[i] : v[i + HALF];
+    v[i] = keep + __shfl_xor_sync(FULL, send, OFF);
+  }
+}
+
+// Reduce-scatter over the warp: returns the warp sum of column lane >> 1.
+__device__ __forceinline__ float warp_column_sum(float (&v)[N_COLS], int lane) {
+  butterfly_step<8, 16>(v, lane);
+  butterfly_step<4, 8>(v, lane);
+  butterfly_step<2, 4>(v, lane);
+  butterfly_step<1, 2>(v, lane);
+  return v[0] + __shfl_xor_sync(FULL, v[0], 1);
+}
+
+template <int C>
 __global__ void __launch_bounds__(PX)
-blend_bwd_kernel(const float* __restrict__ rows, const int* __restrict__ u0,
-                 const int* __restrict__ v0, const float* __restrict__ entry,
-                 const float* __restrict__ g_accum, const float* __restrict__ g_logt,
-                 int k, int n_channels, float* __restrict__ d_rows) {
-  extern __shared__ __align__(16) float smem[];
-  float* seg = smem;                     // (SEG, N_ATTR) staged rows
-  float* prefix = seg + SEG * N_ATTR;    // (SEG, PX) exclusive log prefix
-  float* partial = prefix + SEG * PX;    // (SEG, N_WARPS, N_GRAD)
+tile_bwd_suffix_kernel(const float* __restrict__ rows, const int* __restrict__ u0,
+                       const int* __restrict__ v0, const float* __restrict__ entry,
+                       const float* __restrict__ g_accum, int n_seg, float margin,
+                       float* __restrict__ suffix, int* __restrict__ audit) {
+  __shared__ __align__(16) float seg[SEG * N_ATTR];
+  const int tile = blockIdx.x / n_seg;
+  const int s = blockIdx.x % n_seg;
+  const int p = threadIdx.x;
+  const int warp = p / 32;
+  const int lp = local_pixel(p);
+  const size_t at = (static_cast<size_t>(tile) * n_seg + s) * PX + lp;
+  const float logt_in = entry[at];
+  if (!__syncthreads_or(logt_in >= LOG_EPS)) {  // the forward skipped this segment
+    suffix[at] = 0.0f;
+    return;
+  }
+  const float x0 = static_cast<float>(u0[tile]);
+  const float y0 = static_cast<float>(v0[tile]);
+  stage_rows(rows, (static_cast<size_t>(tile) * n_seg + s) * SEG, seg, margin, x0, y0, p);
 
-  const int tile = blockIdx.x;
+  const float px = x0 + static_cast<float>(lp % TILE);
+  const float py = y0 + static_cast<float>(lp / TILE);
+  const size_t pix = static_cast<size_t>(tile) * PX + lp;
+  float g[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) g[c] = g_accum[pix * C + c];
+
+  float run = 0.0f;    // exclusive in-segment log prefix
+  float total = 0.0f;  // S_s(p)
+#pragma unroll 2
+  for (int j = 0; j < SEG; ++j) {
+    const float* r = seg + j * N_ATTR;
+    const bool reached = in_reach(r, warp);
+    if (!reached && audit == nullptr) continue;  // the whole warp is dead for this row
+    float dx, dy;
+    const float power = pair_power(r, px, py, dx, dy);
+    if (!reached || power > 0.0f || power < r[THR_COL]) {  // dead: alpha is 0
+      if (audit != nullptr && power <= 0.0f && fminf(r[5] * expf(power), ALPHA_MAX) >= ALPHA_MIN)
+        atomicAdd(audit, 1);
+      continue;
+    }
+    const float alpha = fminf(r[5] * expf(power), ALPHA_MAX);
+    if (!(power <= 0.0f && alpha >= ALPHA_MIN)) continue;
+    float s_k = 0.0f;
+#pragma unroll
+    for (int c = 0; c < C; ++c) s_k += r[6 + c] * g[c];
+    const float w = alpha * expf(logt_in + run);
+    total += w * s_k;
+    run += log1pf(-alpha);
+  }
+  suffix[at] = total;
+}
+
+template <int C>
+__global__ void __launch_bounds__(PX, 4)
+tile_bwd_walk_kernel(const float* __restrict__ rows, const int* __restrict__ u0,
+                     const int* __restrict__ v0, const float* __restrict__ entry,
+                     const float* __restrict__ g_accum, const float* __restrict__ g_logt,
+                     const float* __restrict__ suffix, int n_seg, int row_skip,
+                     float* __restrict__ d_rows) {
+  constexpr int NV = 6 + C;  // d(mx, my, a, b, c, op, col0..C-1)
+  static_assert(NV <= N_COLS, "the butterfly carries 16 columns");
+  __shared__ __align__(16) float seg[SEG * N_ATTR];
+  __shared__ float partial[N_WARPS * SEG * N_COLS];  // (warp, row, column) warp sums
+
+  const int tile = blockIdx.x / n_seg;
+  const int s = blockIdx.x % n_seg;
   const int p = threadIdx.x;
   const int lane = p % 32;
   const int warp = p / 32;
-  const float px = static_cast<float>(u0[tile] + p % TILE);
-  const float py = static_cast<float>(v0[tile] + p / TILE);
-  const int n_seg = k / SEG;
-  const size_t pix = static_cast<size_t>(tile) * PX + p;
+  const int lp = local_pixel(p);
+  const size_t first_row = (static_cast<size_t>(tile) * n_seg + s) * SEG;
+  const size_t at = (static_cast<size_t>(tile) * n_seg + s) * PX + lp;
+  const float logt_in = entry[at];
+  if (!__syncthreads_or(logt_in >= LOG_EPS)) {  // skipped by the forward: zero rows
+    reinterpret_cast<float4*>(d_rows + first_row * N_ATTR)[p] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    return;
+  }
+  // the carry behind this segment, folded in the reference's order
+  float b_in = 0.0f;
+  for (int later = n_seg - 1; later > s; --later)
+    b_in += suffix[(static_cast<size_t>(tile) * n_seg + later) * PX + lp];
+  const float total = suffix[at];  // this segment's own S_s
+  const float x0 = static_cast<float>(u0[tile]);
+  const float y0 = static_cast<float>(v0[tile]);
+  stage_rows(rows, first_row, seg, DEAD_MARGIN, x0, y0, p);
 
-  float g[MAX_C];
+  const float px = x0 + static_cast<float>(lp % TILE);
+  const float py = y0 + static_cast<float>(lp / TILE);
+  const size_t pix = static_cast<size_t>(tile) * PX + lp;
+  float g[C];
 #pragma unroll
-  for (int c = 0; c < MAX_C; ++c) g[c] = c < n_channels ? g_accum[pix * n_channels + c] : 0.0f;
+  for (int c = 0; c < C; ++c) g[c] = g_accum[pix * C + c];
   const float glt = g_logt[pix];
-  float b_suffix = 0.0f;
 
-  for (int s = n_seg - 1; s >= 0; --s) {
-    const float logt_in = entry[(static_cast<size_t>(tile) * n_seg + s) * PX + p];
-    float4* d_out = reinterpret_cast<float4*>(
-        d_rows + (static_cast<size_t>(tile) * k + static_cast<size_t>(s) * SEG) * N_ATTR);
-    if (!__syncthreads_or(logt_in >= LOG_EPS)) {
-      // saturated: the forward skipped this segment (one float4 per thread)
-      d_out[p] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      continue;
+  float run = 0.0f;   // exclusive in-segment log prefix, as pass 1 carries it
+  float incl = 0.0f;  // inclusive in-segment sum of w_j s_j
+#pragma unroll 2
+  for (int j = 0; j < SEG; ++j) {
+    const float* r = seg + j * N_ATTR;
+    float v[N_COLS];
+#pragma unroll
+    for (int n = 0; n < N_COLS; ++n) v[n] = 0.0f;
+    bool live = false;
+    bool maybe = in_reach(r, warp);
+    float dx = 0.0f, dy = 0.0f, power = 0.0f;
+    if (maybe) {
+      power = pair_power(r, px, py, dx, dy);
+      maybe = !(power > 0.0f || power < r[THR_COL]);  // else dead: alpha is 0
     }
-    reinterpret_cast<float4*>(seg)[p] = reinterpret_cast<const float4*>(
-        rows + (static_cast<size_t>(tile) * k + static_cast<size_t>(s) * SEG) * N_ATTR)[p];
-    __syncthreads();
-
-    float run = 0.0f;
-    for (int j = 0; j < SEG; ++j) {
-      const float* r = seg + j * N_ATTR;
-      const float dx = r[0] - px;
-      const float dy = r[1] - py;
-      const float power = -0.5f * (r[2] * dx * dx + r[4] * dy * dy) - r[3] * dx * dy;
-      float alpha = fminf(r[5] * expf(power), ALPHA_MAX);
-      if (!(power <= 0.0f && alpha >= ALPHA_MIN)) alpha = 0.0f;
-      prefix[j * PX + p] = run;
-      run += log1pf(-alpha);
-    }
-
-    for (int j = SEG - 1; j >= 0; --j) {
-      const float* r = seg + j * N_ATTR;
+    if (maybe) {
       const float ca = r[2], cb = r[3], cc = r[4], op = r[5];
-      const float dx = r[0] - px;
-      const float dy = r[1] - py;
-      const float power = -0.5f * (ca * dx * dx + cc * dy * dy) - cb * dx * dy;
       const float exp_power = expf(power);
       const float raw = op * exp_power;
-      float alpha = fminf(raw, ALPHA_MAX);
-      const bool live = power <= 0.0f && alpha >= ALPHA_MIN;
-      if (!live) alpha = 0.0f;
-      const bool unclipped = live && raw < ALPHA_MAX;
-
-      const float t_k = expf(logt_in + prefix[j * PX + p]);
-      float s_k = 0.0f;
+      const float alpha = fminf(raw, ALPHA_MAX);
+      live = power <= 0.0f && alpha >= ALPHA_MIN;
+      if (live) {
+        const bool unclipped = raw < ALPHA_MAX;
+        const float t_k = expf(logt_in + run);
+        float s_k = 0.0f;
 #pragma unroll
-      for (int c = 0; c < MAX_C; ++c) s_k += r[6 + c] * g[c];
-      const float w = alpha * t_k;
-      const float one_minus = fmaxf(1.0f - alpha, 1.0f / 256.0f);
-      const float d_alpha = alpha > 0.0f ? t_k * s_k - (b_suffix + glt) / one_minus : 0.0f;
-      b_suffix += w * s_k;
-
-      const float d_raw = unclipped ? d_alpha : 0.0f;
-      const float d_power = d_raw * alpha;  // alpha == raw where unclipped
-
-      float v[N_GRAD];
-      v[0] = d_power * (-(ca * dx + cb * dy));
-      v[1] = d_power * (-(cc * dy + cb * dx));
-      v[2] = d_power * (-0.5f * dx * dx);
-      v[3] = d_power * (-dx * dy);
-      v[4] = d_power * (-0.5f * dy * dy);
-      // exp_power may be inf where power > 0; such a pair is never unclipped
-      v[5] = unclipped ? d_raw * exp_power : 0.0f;
+        for (int c = 0; c < C; ++c) s_k += r[6 + c] * g[c];
+        const float w = alpha * t_k;
+        incl += w * s_k;
+        const float b_k = b_in + (total - incl);  // the rows behind k
+        const float one_minus = fmaxf(1.0f - alpha, 1.0f / 256.0f);
+        const float d_alpha = t_k * s_k - (b_k + glt) / one_minus;
+        run += log1pf(-alpha);
+        const float d_raw = unclipped ? d_alpha : 0.0f;
+        const float d_power = d_raw * alpha;  // alpha == raw where unclipped
+        v[0] = d_power * (-(ca * dx + cb * dy));
+        v[1] = d_power * (-(cc * dy + cb * dx));
+        v[2] = d_power * (-0.5f * dx * dx);
+        v[3] = d_power * (-dx * dy);
+        v[4] = d_power * (-0.5f * dy * dy);
+        v[5] = unclipped ? d_raw * exp_power : 0.0f;
 #pragma unroll
-      for (int c = 0; c < MAX_C; ++c) v[6 + c] = w * g[c];
-#pragma unroll
-      for (int i = 0; i < N_GRAD; ++i) {
-        float x = v[i];
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) x += __shfl_down_sync(0xffffffffu, x, off);
-        v[i] = x;
-      }
-      if (lane == 0) {
-#pragma unroll
-        for (int i = 0; i < N_GRAD; ++i) partial[(j * N_WARPS + warp) * N_GRAD + i] = v[i];
+        for (int c = 0; c < C; ++c) v[6 + c] = w * g[c];
       }
     }
-    __syncthreads();
-
-    // SEG * N_ATTR outputs, four consecutive columns per thread; columns
-    // 14 and 15 are padding and stay zero
-    const int j = p / 4;
-    const int col0 = (p % 4) * 4;
-    float out[4];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int col = col0 + q;
-      float sum = 0.0f;
-      if (col < N_GRAD) {
-        for (int w8 = 0; w8 < N_WARPS; ++w8) sum += partial[(j * N_WARPS + w8) * N_GRAD + col];
-      }
-      out[q] = sum;
-    }
-    d_out[p] = make_float4(out[0], out[1], out[2], out[3]);
-    __syncthreads();  // seg and partial are reused by the next segment
+    float sum = 0.0f;
+    if (!row_skip || __any_sync(FULL, live)) sum = warp_column_sum(v, lane);
+    if (lane % 2 == 0) partial[(warp * SEG + j) * N_COLS + lane / 2] = sum;
   }
+  __syncthreads();
+
+  // the 64 x 16 outputs, four (row, column) pairs a thread; columns from
+  // 6 + C on (unused colours and the two padding columns) are zero
+  for (int o = p; o < SEG * N_COLS; o += PX) {
+    float out = 0.0f;
+    if (o % N_COLS < NV) {
+#pragma unroll
+      for (int w8 = 0; w8 < N_WARPS; ++w8) out += partial[w8 * SEG * N_COLS + o];
+    }
+    d_rows[first_row * N_ATTR + o] = out;
+  }
+}
+
+// Call f with std::integral_constant<int, C> for the run-time channel count.
+template <int C = 1, typename F>
+int with_channels(int n_channels, F&& f) {
+  if constexpr (C > 8) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    if (n_channels != C) return with_channels<C + 1>(n_channels, f);
+    return f(std::integral_constant<int, C>{});
+  }
+}
+
+// registers, static shared bytes, dynamic shared bytes, local bytes, resident blocks per SM
+template <typename K>
+cudaError_t kernel_occupancy(K kernel, int* out) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.sharedSizeBytes);
+  out[2] = 0;
+  out[3] = static_cast<int>(attr.localSizeBytes);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + 4, kernel, PX, 0);
 }
 
 }  // namespace
 
-extern "C" int blend_tiles_bwd(const void* rows, const void* u0, const void* v0,
-                               const void* entry, const void* g_accum,
-                               const void* g_logt, int n_tiles, int k,
-                               int n_channels, void* d_rows, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      blend_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(SMEM_BYTES));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (n_tiles > 0) {
-    blend_bwd_kernel<<<n_tiles, PX, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(rows), static_cast<const int*>(u0),
-        static_cast<const int*>(v0), static_cast<const float*>(entry),
-        static_cast<const float*>(g_accum), static_cast<const float*>(g_logt), k,
-        n_channels, static_cast<float*>(d_rows));
-  }
-  return static_cast<int>(cudaGetLastError());
+extern "C" int tile_bwd_suffix(const void* rows, const void* u0, const void* v0,
+                               const void* entry, const void* g_accum, int n_tiles, int k,
+                               int n_channels, float margin, void* suffix, void* audit,
+                               void* stream) {
+  const int n_seg = k / SEG;
+  return with_channels(n_channels, [&](auto c) {
+    constexpr int C = decltype(c)::value;
+    if (n_tiles > 0 && n_seg > 0)
+      tile_bwd_suffix_kernel<C><<<n_tiles * n_seg, PX, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const float*>(rows), static_cast<const int*>(u0),
+          static_cast<const int*>(v0), static_cast<const float*>(entry),
+          static_cast<const float*>(g_accum), n_seg, margin, static_cast<float*>(suffix),
+          static_cast<int*>(audit));
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+
+extern "C" int tile_bwd_walk(const void* rows, const void* u0, const void* v0,
+                             const void* entry, const void* g_accum, const void* g_logt,
+                             const void* suffix, int n_tiles, int k, int n_channels,
+                             int row_skip, void* d_rows, void* stream) {
+  const int n_seg = k / SEG;
+  return with_channels(n_channels, [&](auto c) {
+    constexpr int C = decltype(c)::value;
+    if (n_tiles > 0 && n_seg > 0)
+      tile_bwd_walk_kernel<C><<<n_tiles * n_seg, PX, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const float*>(rows), static_cast<const int*>(u0),
+          static_cast<const int*>(v0), static_cast<const float*>(entry),
+          static_cast<const float*>(g_accum), static_cast<const float*>(g_logt),
+          static_cast<const float*>(suffix), n_seg, row_skip, static_cast<float*>(d_rows));
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+
+// out[0:5] pass 1, out[5:10] pass 2, each: registers a thread, static and
+// dynamic shared bytes a block, local (spill) bytes a thread, resident
+// blocks per SM at 256 threads.
+extern "C" int tile_bwd_occupancy(int n_channels, void* out) {
+  int* o = static_cast<int*>(out);
+  return with_channels(n_channels, [&](auto c) {
+    constexpr int C = decltype(c)::value;
+    cudaError_t err = kernel_occupancy(tile_bwd_suffix_kernel<C>, o);
+    if (err == cudaSuccess) err = kernel_occupancy(tile_bwd_walk_kernel<C>, o + 5);
+    return static_cast<int>(err);
+  });
 }

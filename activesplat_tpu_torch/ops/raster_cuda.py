@@ -8,7 +8,11 @@ composites them front to back over the tile's 16x16 pixels, in SEG=64-row
 segments, and stops walking a tile once every pixel's log-transmittance is
 below LOG_EPS (tested at each segment start). The backward walks the
 segments back to front from the forward's stashed per-segment entry
-log-transmittance.
+log-transmittance. B2 launches two passes: every segment's own suffix
+total from its stashed entry logT (one block per tile segment), then each
+segment walked back to front from the fold of the later segments' totals
+(one block per tile segment); tile_bwd_suffix_plain and
+tile_bwd_walk_plain are the passes' plain versions.
 
 CSR blend (B3, B4): the same over each tile's whole list, the lists of all
 tiles concatenated as (E, 16) rows with each tile's run padded to a
@@ -235,6 +239,40 @@ def blend_tiles_bwd_plain(tile_data, tile_u0, tile_v0, entry, g_accum, g_logt, n
     return d_rows
 
 
+def tile_bwd_suffix_plain(tile_data, tile_u0, tile_v0, entry, g_accum, n_channels=5):
+    """Pass 1 of B2 in PyTorch: each segment's total S_s(p) = sum_j w_j s_j
+    (the reference's per-segment sum of ws) from its stashed entry logT,
+    `_bwd_segment` with carry 0, one segment at a time as the sequential
+    twin runs it; 0 for a segment the forward skipped. (T, K/SEG, PX)."""
+    t, k, _ = tile_data.shape
+    px, py = _pixel_coords(tile_u0, tile_v0)
+    g = torch.nn.functional.pad(g_accum, (0, MAX_CHANNELS - n_channels))
+    zero = tile_data.new_zeros((t, PX))
+    return torch.stack([
+        _bwd_segment(tile_data[:, s * SEG : (s + 1) * SEG], px, py, entry[:, s], g, zero, zero)[1]
+        for s in range(k // SEG)
+    ], dim=1)
+
+
+def tile_bwd_walk_plain(tile_data, tile_u0, tile_v0, entry, g_accum, g_logt, suffix,
+                        n_channels=5):
+    """Pass 2 of B2 in PyTorch: each segment's gradient rows from the carry
+    b_in(s) = ((0 + S_{n-1}) + S_{n-2}) + ... + S_{s+1}, the fold of the
+    later segments' totals `suffix` (T, K/SEG, PX) in the reference's order.
+    Fed tile_bwd_suffix_plain's totals, bitwise blend_tiles_bwd_plain."""
+    t, k, _ = tile_data.shape
+    px, py = _pixel_coords(tile_u0, tile_v0)
+    g = torch.nn.functional.pad(g_accum, (0, MAX_CHANNELS - n_channels))
+    b = tile_data.new_zeros((t, PX))
+    d_rows = torch.zeros_like(tile_data)
+    for s in reversed(range(k // SEG)):
+        d_rows[:, s * SEG : (s + 1) * SEG, :14] = _bwd_segment(
+            tile_data[:, s * SEG : (s + 1) * SEG], px, py, entry[:, s], g, g_logt, b
+        )[0]
+        b = b + suffix[:, s]
+    return d_rows
+
+
 def _tile_segments(seg_tile, n_tiles):
     """Per-tile (first segment, segment count) of a CSR stream, int32. A
     tile with no segment gets count 0; padding segments (tile id n_tiles)
@@ -388,12 +426,12 @@ def csr_combine_plain(partials, seg_tile, n_tiles, n_channels=5, dual=False, wit
     return (accum, logt) + ((logt_band,) if dual else ()) + ((entry,) if with_entry else ())
 
 
-DEAD_MARGIN = 1e-3  # log-domain margin of the CSR forward kernels' dead-pair test
+DEAD_MARGIN = 1e-3  # log-domain margin of the dead-pair test (B2, B3, B5)
 
 
 def dead_pair_threshold(op, margin=DEAD_MARGIN):
-    """The CSR forward kernels' per-row dead-pair threshold, in float32 as
-    they compute it: log(ALPHA_MIN) - log(op) - margin, +inf for op <= 0. A
+    """The per-row dead-pair threshold of B2, B3 and B5, in float32 as the
+    kernels compute it: log(ALPHA_MIN) - log(op) - margin, +inf for op <= 0. A
     (row, pixel) pair whose power is above 0 or below it has alpha 0 by the
     full formula, so the kernels skip its special functions."""
     op = op.to(torch.float32)
@@ -419,7 +457,9 @@ def _kernel(library: str, symbol: str):
 _ARG_TYPES = {"p": _P, "i": _I, "f": ctypes.c_float}
 _SIGNATURES = {
     "blend_tiles_fwd": "pppiiipppp",
-    "blend_tiles_bwd": "ppppppiiipp",
+    "tile_bwd_suffix": "pppppiiifppp",
+    "tile_bwd_walk": "pppppppiiiipp",
+    "tile_bwd_occupancy": "ip",
     "blend_csr_fwd_partials": "ppppiiifpppp",
     "blend_csr_fwd_combine": "pppiipppp",
     "blend_csr_bwd": "ppppppppiipp",
@@ -456,34 +496,80 @@ def blend_tiles_fwd(tile_data, tile_u0, tile_v0, n_channels=5, with_entry=False)
     return accum, logt
 
 
-def blend_tiles_bwd(tile_data, tile_u0, tile_v0, entry, g_accum, g_logt, n_channels=5):
-    """B2. Gradient of blend_tiles_fwd with respect to the rows: (T, K, 16),
-    columns 14 and 15 zero."""
+def _check_bwd(tile_data, tile_u0, tile_v0, n_channels, **tensors):
+    """B2's inputs: the rows as B1's, each of `tensors` (entry, g_accum,
+    g_logt, suffix) float32 of its shape on the rows' device."""
     _check_rows(tile_data, tile_u0, tile_v0, n_channels)
     t, k, _ = tile_data.shape
-    for name, x, shape in (
-        ("entry", entry, (t, k // SEG, PX)),
-        ("g_accum", g_accum, (t, PX, n_channels)),
-        ("g_logt", g_logt, (t, PX)),
-    ):
-        if x.shape != shape or x.dtype != torch.float32 or x.device != tile_data.device:
-            raise ValueError(f"{name} must be {shape} float32 on the rows' device")
+    shapes = {"entry": (t, k // SEG, PX), "suffix": (t, k // SEG, PX),
+              "g_accum": (t, PX, n_channels), "g_logt": (t, PX)}
+    for name, x in tensors.items():
+        if x.shape != shapes[name] or x.dtype != torch.float32 or x.device != tile_data.device:
+            raise ValueError(f"{name} must be {shapes[name]} float32 on the rows' device")
+
+
+def blend_tiles_bwd(tile_data, tile_u0, tile_v0, entry, g_accum, g_logt, n_channels=5):
+    """B2. Gradient of blend_tiles_fwd with respect to the rows: (T, K, 16),
+    columns 14 and 15 zero. On the card, two launches: the segments'
+    suffix totals, then the walk."""
+    _check_bwd(tile_data, tile_u0, tile_v0, n_channels, entry=entry, g_accum=g_accum,
+               g_logt=g_logt)
     if _device_kind(tile_data) == "cpu":
         return blend_tiles_bwd_plain(
             tile_data, tile_u0, tile_v0, entry, g_accum, g_logt, n_channels
         )
-    d_rows = torch.empty_like(tile_data)
-    fn = _kernel("blend_bwd", "blend_tiles_bwd")
-    with torch.cuda.device(tile_data.device):
-        ptrs = _cuda_args(tile_data, tile_u0, tile_v0, entry, g_accum, g_logt, d_rows)
-        rc = fn(
-            *ptrs[:6], t, k, n_channels, ptrs[6],
-            torch.cuda.current_stream().cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"blend_tiles_bwd launch failed: CUDA error {rc}")
+    suffix = tile_bwd_suffix_cuda(tile_data, tile_u0, tile_v0, entry, g_accum, n_channels)
+    d_rows = tile_bwd_walk_cuda(tile_data, tile_u0, tile_v0, entry, g_accum, g_logt, suffix,
+                                n_channels)
     blend_tiles_bwd.launches += 1
     return d_rows
+
+
+def tile_bwd_suffix_cuda(tile_data, tile_u0, tile_v0, entry, g_accum, n_channels=5,
+                         margin=DEAD_MARGIN, out=None, audit=None):
+    """Pass 1 of B2 on the card: tile_bwd_suffix_plain's totals (T, K/SEG,
+    PX), every entry written (default scratch: torch.empty). `margin` is the
+    dead-pair test's; `audit`, an int32 (1,) tensor, counts the pairs that
+    test kills although the full formula keeps them. The wrapper's pass;
+    the smoke checks it."""
+    _check_bwd(tile_data, tile_u0, tile_v0, n_channels, entry=entry, g_accum=g_accum)
+    t, k, _ = tile_data.shape
+    if out is None:
+        out = tile_data.new_empty((t, k // SEG, PX))
+    with torch.cuda.device(tile_data.device):
+        ptrs = _cuda_args(tile_data, tile_u0, tile_v0, entry, g_accum, out)
+        _launch(_kernel("blend_bwd", "tile_bwd_suffix"), "tile_bwd_suffix", *ptrs[:5], t, k,
+                n_channels, margin, ptrs[5], None if audit is None else _cuda_args(audit)[0])
+    return out
+
+
+def tile_bwd_walk_cuda(tile_data, tile_u0, tile_v0, entry, g_accum, g_logt, suffix,
+                       n_channels=5, row_skip=True):
+    """Pass 2 of B2 on the card: tile_bwd_walk_plain's gradient rows from
+    the totals `suffix`. `row_skip=False` runs the pixel sum on warp-rows
+    with no live pair too (the same result; for timing). The wrapper's
+    pass; the smoke checks it."""
+    _check_bwd(tile_data, tile_u0, tile_v0, n_channels, entry=entry, g_accum=g_accum,
+               g_logt=g_logt, suffix=suffix)
+    t, k, _ = tile_data.shape
+    d_rows = torch.empty_like(tile_data)
+    with torch.cuda.device(tile_data.device):
+        ptrs = _cuda_args(tile_data, tile_u0, tile_v0, entry, g_accum, g_logt, suffix, d_rows)
+        _launch(_kernel("blend_bwd", "tile_bwd_walk"), "tile_bwd_walk", *ptrs[:7], t, k,
+                n_channels, int(row_skip), ptrs[7])
+    return d_rows
+
+
+def tile_bwd_occupancy(n_channels=5):
+    """B2's two kernels at C channels as the card runs them: {pass:
+    {registers, static_smem, dynamic_smem, local_bytes, blocks_per_sm}}."""
+    out = (ctypes.c_int * 10)()
+    rc = _kernel("blend_bwd", "tile_bwd_occupancy")(n_channels, ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"tile_bwd_occupancy failed: CUDA error {rc}")
+    keys = ("registers", "static_smem", "dynamic_smem", "local_bytes", "blocks_per_sm")
+    return {name: dict(zip(keys, out[5 * i : 5 * i + 5]))
+            for i, name in enumerate(("suffix", "walk"))}
 
 
 def _check_csr(entry_data, seg_tile, seg_u0, seg_v0, n_tiles, n_channels):

@@ -180,6 +180,8 @@ SPLIT_FAULTS = ("the combine reading its partials one segment off",
                 "the exit tested after accumulating", "the dead-pair margin's sign flipped")
 # kernels of one B3 or B5 wrapper call: each segment alone, then the per-tile combine
 CSR_PASSES = ("csr_partials_kernel", "csr_combine_kernel")
+# kernels of one B2 wrapper call: each segment's suffix total, then the walk
+B2_PASSES = ("tile_bwd_suffix_kernel", "tile_bwd_walk_kernel")
 # the query phases whose B3 launches render panorama views
 PANORAMA_PHASES = ("global_invisibility", "global_invisibility timed", "local_invisibility")
 
@@ -1733,7 +1735,7 @@ def main() -> int:
             fwd_bound, max(errs["fwd"], errs_m["fwd"]))
     measure("blend_tiles_bwd", "activesplat_tpu_torch/csrc/blend_bwd.cu", BWD_REPLACES,
             lambda: rc.blend_tiles_bwd(*bwd_args), lambda: rc.blend_tiles_bwd_plain(*bwd_args),
-            ("blend_bwd_kernel",), bwd_bound, max(errs["bwd"], errs_m["bwd"]))
+            B2_PASSES, bwd_bound, max(errs["bwd"], errs_m["bwd"]))
     measure("blend_csr_fwd", "activesplat_tpu_torch/csrc/blend_csr_fwd.cu", CSR_FWD_REPLACES,
             lambda: rc.blend_csr_fwd(*csr_args, with_entry=True),
             lambda: rc.blend_csr_fwd_plain(*csr_args, with_entry=True), CSR_PASSES,
