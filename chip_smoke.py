@@ -4,10 +4,12 @@
     python3 chip_smoke.py
 
 Phases, each fatal on failure:
-  1. build the CUDA kernels from activesplat_tpu_torch/csrc; print the card;
+  1. build the CUDA kernels from activesplat_tpu_torch/csrc; print the card
+     and B2's two kernels' registers, shared memory and resident blocks;
   2. hold each blend kernel against its plain PyTorch twin: the tile blend
-     (B1, B2) on random tile rows (T=256, K=256, C=5, with empty, saturating
-     and padded tiles), the CSR blend (B3, B4) on a random CSR stream (tiles
+     (B1, B2) on random tile rows (T=256, K=256 and the driver's K=1,024,
+     C=5, with empty, saturating and padded tiles), the CSR blend (B3, B4)
+     on a random CSR stream (tiles
      with no, one and many segments, saturating tiles, padding segments),
      and check that the comparisons reject planted faults; the dual CSR
      blend (B5) on a random CSR stream with band bits (bands all set, none
@@ -30,6 +32,15 @@ Phases, each fatal on failure:
      bitwise), and planted faults (the combine reading its partials one
      segment off, the exit tested after accumulating, the dead-pair margin's
      sign flipped) are rejected;
+     B2 runs as two passes (each segment's suffix total, then the walk from
+     the fold of the later totals): on every set of tile rows checked here
+     and in 4a, each pass is held against its plain version
+     (tile_bwd_split_checks: pass 1 into a NaN-filled scratch with the
+     dead-pair audit, 0 live pairs killed, exact zeros for skipped segments;
+     pass 2 fed the kernel's totals against the plain walk fed the same; the
+     wrapper equal to its passes bitwise and repeatable), and planted faults
+     (the totals shifted one segment either way, the dead-pair margin's sign
+     flipped) are rejected;
   3. drive the mapping slice at the benchmark's size (200,000 Gaussians in
      a 262,144-slot buffer, 256x256 sensor, k_per_tile=256,
      exact_training="off"): first_frame_phase, three mapping_phase events of
@@ -53,7 +64,9 @@ Phases, each fatal on failure:
      devices with "on" and "hybrid";
   4a. on the mapping path's own rows (B1/B2: the tile rows of a k-capped
      render; B3/B4: the CSR stream of an exact render, first held against
-     the twins as in phase 2) time each kernel (its own device time from
+     the twins as in phase 2; B2 also on phase 2's K=1,024 rows, and its
+     walk again with the warp-row skip off) time each kernel (its own
+     device time from
      torch.profiler, and its wrapper per call between CUDA events), its
      twin, and work out its bound; B6 on the slot searches of the map's
      k-capped render (its visible prefix, k=256, offsets 0 and 256), held
@@ -64,7 +77,8 @@ Phases, each fatal on failure:
      at 256x256 and 90 degrees hfov along turns and short moves from the
      hermetic episode's start; its per-frame wall time, Gaussian count,
      metrics, shape history, stage report with host syncs, launches (B1,
-     B2, B3 and B6 each launched) and a profile of one more mapping frame;
+     B2, B3 and B6 each launched) and a profile of one more mapping frame
+     (B2's device ms a call read from it);
      then post_processing and a save_checkpoint / load_map round trip in a
      temporary directory, the loaded map equal to the saved one; then the
      driver on the card against the driver on the CPU over five 64x64
@@ -182,6 +196,10 @@ SPLIT_FAULTS = ("the combine reading its partials one segment off",
 CSR_PASSES = ("csr_partials_kernel", "csr_combine_kernel")
 # kernels of one B2 wrapper call: each segment's suffix total, then the walk
 B2_PASSES = ("tile_bwd_suffix_kernel", "tile_bwd_walk_kernel")
+# planted faults of B2's two passes (tile_bwd_split_checks)
+TILE_SPLIT_FAULTS = ("the walk fed the totals one segment toward the front (each fold takes "
+                     "its own segment's)", "the walk fed the totals one segment back (each fold "
+                     "misses the next segment's)", "the dead-pair margin's sign flipped")
 # the query phases whose B3 launches render panorama views
 PANORAMA_PHASES = ("global_invisibility", "global_invisibility timed", "local_invisibility")
 
@@ -316,8 +334,10 @@ def must_reject(name, check) -> None:
     raise AssertionError(f"the comparison missed a planted fault: {name}")
 
 
-def kernel_checks(torch, rc, rows, u0, v0, tag: str):
-    """Each kernel against its twin on the same inputs.
+def kernel_checks(torch, rc, rows, u0, v0, tag: str, rejected):
+    """Each kernel against its twin on the same inputs, and B2's two passes
+    against their plain versions (tile_bwd_split_checks, which counts the
+    planted faults it rejects in `rejected`).
 
     Tolerances. Both sides compute the same float32 terms; they differ in
     the order of the sums (sequential in-segment log prefix and warp-shuffle
@@ -382,6 +402,7 @@ def kernel_checks(torch, rc, rows, u0, v0, tag: str):
     rolled = d_k.clone()
     rolled[..., 6] = d_k[..., 6].roll(1, dims=0)
     must_reject("gradient column 6 moved one tile over", lambda: bwd_share(rolled))
+    tile_bwd_split_checks(torch, rc, (rows, u0, v0, ent_k, g_acc, g_lt, c), d_k, tag, rejected)
 
     errs = {
         "fwd": max(float((acc_k - acc_p).abs().max()),
@@ -394,6 +415,98 @@ def kernel_checks(torch, rc, rows, u0, v0, tag: str):
           f"({shares['bwd']:.3f} of tolerance); bwd max err per column / column max: "
           + " ".join(f"{float(x):.1e}" for x in per_col[:6 + c]))
     return errs, (ent_k, g_acc, g_lt)
+
+
+def tile_threshold_pairs(torch, rc, rows, u0, v0):
+    """Per (tile, segment, pixel): the pairs whose raw alpha lies within
+    EDGE_RTOL of ALPHA_MIN (power <= 0), as float32 counts."""
+    px, py = rc._pixel_coords(u0, v0)
+    out = []
+    for s in range(rows.shape[1] // rc.SEG):
+        _, _, power, raw, _, _ = rc._segment_geometry(rows[:, s * rc.SEG:(s + 1) * rc.SEG], px, py)
+        out.append(((power <= 0) & ((raw / rc.ALPHA_MIN - 1).abs() < EDGE_RTOL)).sum(dim=1))
+    return torch.stack(out, dim=1).float()
+
+
+def tile_bwd_split_checks(torch, rc, bwd_args, d_k, tag, rejected):
+    """Each pass of B2 against its plain version on one set of tile rows.
+    Pass 1 runs into a NaN-filled scratch with the dead-pair audit on: no
+    pair that the dead-pair test or the warp reach mask kills may be live by
+    the full formula, no NaN may remain, and the segments the forward skipped
+    get exact zeros; the totals agree with tile_bwd_suffix_plain to REL_TOL of
+    the largest |S| (where a pair's raw alpha lies within EDGE_RTOL of
+    ALPHA_MIN, plus what that pair alone can move: its weight and the
+    transmittance behind it, 2 ALPHA_MIN max_j |s_j|). Pass 2 fed the
+    kernel's totals agrees with tile_bwd_walk_plain fed the same totals at
+    the per-column tolerance of kernel_checks, and gives zero rows where the
+    forward skipped. The wrapper's output `d_k` equals its two passes
+    bitwise, and a second wrapper call equals the first. Planted faults
+    (TILE_SPLIT_FAULTS), each made by changing an input of a kernel, must be
+    rejected where they change the result; `rejected` counts them."""
+    rows, u0, v0, entry, g_acc, g_lt, c = bwd_args
+    walked = entry.amax(dim=2) >= rc.LOG_EPS  # (T, K/SEG)
+    audit = torch.zeros(1, dtype=torch.int32, device="cuda")
+    suffix = torch.full(entry.shape, float("nan"), device="cuda")
+    rc.tile_bwd_suffix_cuda(rows, u0, v0, entry, g_acc, c, out=suffix, audit=audit)
+
+    def none_killed(count):
+        if count:
+            raise AssertionError(f"{tag}: B2's dead-pair test killed {count} live pairs")
+
+    none_killed(int(audit))
+    if bool(torch.isnan(suffix).any()) or bool(suffix[~walked].any()):
+        raise AssertionError(f"{tag}: B2 pass 1 left {int(torch.isnan(suffix).sum())} NaN and "
+                             f"{int((suffix[~walked] != 0).sum())} non-zero skipped totals")
+    plain = rc.tile_bwd_suffix_plain(rows, u0, v0, entry, g_acc, c)
+    s_max = (rows[:, :, 6:6 + c].abs().amax(dim=1)[:, None, :] * g_acc.abs()).sum(-1)  # (T, PX)
+    edge = tile_threshold_pairs(torch, rc, rows, u0, v0)
+    share1 = check_close(f"{tag} B2 pass 1 totals", suffix, plain,
+                         REL_TOL * plain.abs().max()
+                         + edge * 2 * rc.ALPHA_MIN * (1 + EDGE_RTOL) * s_max[:, None, :])
+
+    d_walk = rc.tile_bwd_walk_cuda(rows, u0, v0, entry, g_acc, g_lt, suffix, c)
+    want = rc.tile_bwd_walk_plain(rows, u0, v0, entry, g_acc, g_lt, suffix, c)
+    d_lim = REL_TOL * want.abs().amax(dim=(0, 1))
+
+    def walk_share(d):
+        return check_close(f"{tag} B2 pass 2", d, want, d_lim)
+
+    share2 = walk_share(d_walk)
+    if bool(d_walk.view(*walked.shape, -1)[~walked].any()):
+        raise AssertionError(f"{tag}: B2 pass 2 wrote non-zero rows where the forward skipped")
+    if not torch.equal(d_walk, d_k):
+        raise AssertionError(f"{tag}: the B2 wrapper's output differs from its two passes'")
+    if not torch.equal(rc.blend_tiles_bwd(*bwd_args), d_k):
+        raise AssertionError(f"{tag}: two B2 wrapper calls on the same inputs differ")
+
+    zero = torch.zeros_like(suffix[:, :1])
+    front = torch.cat([zero, suffix[:, :-1]], dim=1)  # the fold of s takes S_s
+    back = torch.cat([suffix[:, 1:], zero], dim=1)  # the fold of s misses S_{s+1}
+    flip = torch.zeros(1, dtype=torch.int32, device="cuda")
+    rc.tile_bwd_suffix_cuda(rows, u0, v0, entry, g_acc, c, margin=-rc.DEAD_MARGIN, audit=flip)
+    shifted = {TILE_SPLIT_FAULTS[0]: front, TILE_SPLIT_FAULTS[1]: back}
+    d_shifted = {name: rc.tile_bwd_walk_cuda(rows, u0, v0, entry, g_acc, g_lt, x, c)
+                 for name, x in shifted.items()}
+    faults = {name: (lambda d=d: walk_share(d)) for name, d in d_shifted.items()}
+    faults[TILE_SPLIT_FAULTS[2]] = lambda: none_killed(int(flip))
+    # a shifted fold shows where it moves some walked segment's carry by more
+    # than a thousandth of the largest total
+    def fold(x):
+        return x.flip(1).cumsum(1).flip(1) - x
+
+    moved = {name: float(((fold(x) - fold(suffix)) * walked[:, :, None]).abs().max())
+             for name, x in shifted.items()}
+    shows = {name: moved[name] > 1e-3 * float(suffix.abs().max()) for name in shifted}
+    shows[TILE_SPLIT_FAULTS[2]] = int(flip) > 0
+    for name, check in faults.items():
+        if shows[name]:
+            must_reject(name, check)
+            rejected[name] += 1
+    print(f"{tag}: B2 pass 1 wrote every total ({int(walked.sum())} of {walked.numel()} segments "
+          f"walked, {int(edge.sum())} pairs at the alpha threshold), 0 live pairs killed by the "
+          f"dead-pair test and reach mask ({int(flip)} with the margin flipped), totals within "
+          f"{share1:.3f} of tolerance; pass 2 within {share2:.3f}; the wrapper equals its passes "
+          f"bitwise and repeats bitwise; {sum(shows.values())} planted faults rejected")
 
 
 def random_csr_stream(torch, seed: int, n_tiles: int = 256):
@@ -492,6 +605,15 @@ def dead_test_off(torch, rc, entry_k, stream, n_tiles, c, dual, card):
         *stream, n_tiles, c, dual, margin=math.inf), (CSR_PASSES[0],), 20)[CSR_PASSES[0]]
     print(f"{entry_k['name']} ({entry_k['stream']}): pass 1 {entry_k['pass_ms'][CSR_PASSES[0]]:.4f} "
           f"ms with the dead-pair test, {off:.4f} ms without it on {card}")
+
+
+def walk_without_row_skip(torch, rc, bwd_args):
+    """B2's walk (pass 2) device ms with the warp-row skip off: every
+    warp-row runs the pixel-sum exchange, dead or not."""
+    rows, u0, v0, entry, g_acc, g_lt, c = bwd_args
+    suffix = rc.tile_bwd_suffix_cuda(rows, u0, v0, entry, g_acc, c)
+    return kernel_device_ms(torch, lambda: rc.tile_bwd_walk_cuda(
+        rows, u0, v0, entry, g_acc, g_lt, suffix, c, row_skip=False), B2_PASSES[1:], 20)[B2_PASSES[1]]
 
 
 def combine_exit_late(torch, rc, partials, seg_tile, n_tiles, c, dual):
@@ -977,16 +1099,20 @@ def csr_pair_counts(torch, rc, stream, entry, n_tiles):
 
 
 def pair_counts(torch, rc, rows, u0, v0, entry):
-    """(walked, live): the (row, pixel) pairs of the segments the forward
-    walks, and those among them whose alpha is not zero."""
+    """(walked, live, live warp-rows): the (row, pixel) pairs of the segments
+    the forward walks, those among them whose alpha is not zero, and the
+    (row, warp) pairs of B2's walk that hold a live pair (a warp takes an
+    8x4-pixel block of its tile)."""
     walked_seg = entry.amax(dim=2) >= rc.LOG_EPS  # (T, K/SEG)
     px, py = rc._pixel_coords(u0, v0)
-    live = 0
+    live = live_wr = 0
     for s in range(walked_seg.shape[1]):
         block = rows[:, s * rc.SEG:(s + 1) * rc.SEG]
-        live_s = rc._segment_geometry(block, px, py)[5]  # (T, SEG, PX)
-        live += int((live_s & walked_seg[:, s, None, None]).sum())
-    return int(walked_seg.sum()) * rc.SEG * rc.PX, live
+        live_s = rc._segment_geometry(block, px, py)[5] & walked_seg[:, s, None, None]  # (T, SEG, PX)
+        live += int(live_s.sum())
+        # pixels y * 16 + x as (T, SEG, 4 block rows, 4 y, 2 block columns, 8 x)
+        live_wr += int(live_s.view(*live_s.shape[:2], 4, 4, 2, 8).any(dim=5).any(dim=3).sum())
+    return int(walked_seg.sum()) * rc.SEG * rc.PX, live, live_wr
 
 
 def small_scene_check(torch, np, exact_training="off", k_per_tile=64):
@@ -1047,10 +1173,11 @@ def small_scene_check(torch, np, exact_training="off", k_per_tile=64):
 
 
 def profile_calls(torch, fn, calls: int, timed_ms: float, card: str, label: str,
-                  tables=("device",)) -> None:
+                  tables=("device",), watch=()) -> dict:
     """Run `calls` calls of `fn` under torch.profiler; print the device's
     busy time and idle share per call and the top operators by device and
-    (if asked) host time."""
+    (if asked) host time. For each kernel name in `watch`, print and return
+    its launches and device ms per launch ({name: (launches, ms)})."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1077,6 +1204,12 @@ def profile_calls(torch, fn, calls: int, timed_ms: float, card: str, label: str,
     for table in tables:
         sort_by = {"device": "self_device_time_total", "host": "self_cpu_time_total"}[table]
         print(averages.table(sort_by=sort_by, row_limit=20))
+    watched = {}
+    for name in watch:
+        times = [e.time_range.elapsed_us() for e in kernels if name in e.name]
+        watched[name] = (len(times), sum(times) / max(len(times), 1) / 1e3)
+        print(f"  {name}: {len(times)} launches, {watched[name][1]:.4f} ms each ({label})")
+    return watched
 
 
 def random_bin_scene(torch, n: int, w: int, h: int):
@@ -1175,12 +1308,12 @@ def bin_bound(torch, rc, args, indices, int_rate: float):
     return (times[by], by), (n_filled, blocks, nbytes, ops)
 
 
-def driver_phase(torch, np, rc, rt, card, by_phase, int_rate: float) -> None:
+def driver_phase(torch, np, rc, rt, card, by_phase, int_rate: float) -> dict:
     """Phase 3d: the per-frame mapper driver with the bin kernel route on
     (see the module docstring). Its launches go into by_phase["mapper
     driver"]: B2 and B6 once per mapping iteration (B1 and B6 also in any
     exact render's fallback), B3 in every densify and exact online render,
-    B5 never."""
+    B5 never. Returns B2's device ms a call in the profiled mapping frame."""
     import dataclasses
     import os
     import tempfile
@@ -1258,14 +1391,21 @@ def driver_phase(torch, np, rc, rt, card, by_phase, int_rate: float) -> None:
             rt.bin_slots = lambda *a: seen.append(a) or real_slots(*a)
             try:
                 # the unprofiled reference: the mean of the frames that mapped
-                profile_calls(torch, lambda: mapper.run(frames[DRIVER_FRAMES]), 1,
-                              sum(mapping_ms) / len(mapping_ms), card,
-                              "mapper frame (a mapping frame)", ("device", "host"))
+                b2 = profile_calls(torch, lambda: mapper.run(frames[DRIVER_FRAMES]), 1,
+                                   sum(mapping_ms) / len(mapping_ms), card,
+                                   "mapper frame (a mapping frame)", ("device", "host"), B2_PASSES)
             finally:
                 rt.bin_slots = real_slots
             rc.reset_launch_counts()
             if not seen:
                 raise AssertionError("driver: the profiled mapping frame ran no slot search")
+            calls_b2 = b2[B2_PASSES[1]][0]
+            if not calls_b2 or b2[B2_PASSES[0]][0] != calls_b2:
+                raise AssertionError(f"driver: the profiled mapping frame's B2 launches {b2}")
+            driver_b2 = {"calls": calls_b2, "pass_ms": {n: ms for n, (_, ms) in b2.items()},
+                         "ms": sum(ms for _, ms in b2.values()), "k": mapper.cfg.k_per_tile}
+            print(f"driver: B2 {driver_b2['ms']:.4f} ms a call ({calls_b2} calls in the profiled "
+                  f"mapping frame at k={driver_b2['k']}: {driver_b2['pass_ms']}) on {card}")
             args = seen[-1]
             got = rc.bin_slots(*args)
             if not torch.equal(got, rc.bin_slots_plain(*args)):
@@ -1320,6 +1460,7 @@ def driver_phase(torch, np, rc, rt, card, by_phase, int_rate: float) -> None:
         small_driver_check(torch, np, world)
     finally:
         rt._BIN_KERNEL = False
+    return driver_b2
 
 
 def small_driver_check(torch, np, world, res: int = 64, frames: int = 5) -> None:
@@ -1441,20 +1582,36 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
     print(card)  # name, power limit as nvidia-smi reports them
     print(f"max SM clock {max_sm_mhz:.0f} MHz")
+    b2_occupancy = rc.tile_bwd_occupancy(N_CHANNELS)
+    for name, occ in b2_occupancy.items():
+        print(f"B2 pass {name} (C={N_CHANNELS}): {occ['registers']} registers a thread, "
+              f"{occ['static_smem']} B static and {occ['dynamic_smem']} B dynamic shared memory a "
+              f"block, {occ['local_bytes']} B local, {occ['blocks_per_sm']} resident blocks of 256 "
+              f"threads a SM")
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     sfu_rate = SFU_PER_CLOCK_PER_SM * n_sm * max_sm_mhz * 1e6
     int_rate = INT32_PER_CLOCK_PER_SM * n_sm * max_sm_mhz * 1e6
 
     # ---- phase 2: kernels against their twins -------------------------- #
+    tile_rejected = dict.fromkeys(TILE_SPLIT_FAULTS, 0)  # planted faults of B2's two passes
     rows, u0, v0 = random_tiles(torch, seed=0)
-    errs, _ = kernel_checks(torch, rc, rows, u0, v0, "random tiles T=256 K=256")
+    errs, _ = kernel_checks(torch, rc, rows, u0, v0, "random tiles T=256 K=256", tile_rejected)
     rows_p, u0_p, v0_p = random_tiles(torch, seed=1, k=192)  # K not a SEG multiple...
     rows_p = torch.nn.functional.pad(rows_p, (0, 0, 0, 64))  # ...padded to 256
     rows_p[:, 192:, 0:2] = -1e9
     rows_p[:, 192:, 2:5] = 1.0
-    errs_p, _ = kernel_checks(torch, rc, rows_p.contiguous(), u0_p, v0_p, "padded K=192->256")
+    errs_p, _ = kernel_checks(torch, rc, rows_p.contiguous(), u0_p, v0_p, "padded K=192->256",
+                              tile_rejected)
+    # the driver's k=1,024: the fold spans 16 segments
+    rows_k, u0_k, v0_k = random_tiles(torch, seed=2, k=1024)
+    errs_k, (entry_k, g_acc_k, g_lt_k) = kernel_checks(torch, rc, rows_k, u0_k, v0_k,
+                                                        "random tiles T=256 K=1024", tile_rejected)
+    k1024_args = (rows_k, u0_k, v0_k, entry_k, g_acc_k, g_lt_k, N_CHANNELS)
     for k in errs:
-        errs[k] = max(errs[k], errs_p[k])
+        errs[k] = max(errs[k], errs_p[k], errs_k[k])
+    if not all(tile_rejected.values()):
+        raise AssertionError(f"a planted fault of B2's two passes never showed on the random "
+                             f"tiles: {tile_rejected}")
     split_rejected = dict.fromkeys(SPLIT_FAULTS, 0)  # planted faults of the two passes
     csr_errs, _ = csr_kernel_checks(torch, rc, random_csr_stream(torch, seed=0), 256,
                                     "random CSR stream, 256 tiles", split_rejected)
@@ -1663,8 +1820,9 @@ def main() -> int:
     # ---- phase 4a: the mapping kernels at the main path's rows ---------- #
     rows, u0, v0 = main_path_rows(torch, buf, cam)
     t, k, _ = rows.shape
-    errs_m, (entry, g_acc, g_lt) = kernel_checks(torch, rc, rows, u0, v0, f"main-path rows T={t} K={k}")
-    walked, live = pair_counts(torch, rc, rows, u0, v0, entry)
+    errs_m, (entry, g_acc, g_lt) = kernel_checks(torch, rc, rows, u0, v0,
+                                                 f"main-path rows T={t} K={k}", tile_rejected)
+    walked, live, live_wr = pair_counts(torch, rc, rows, u0, v0, entry)
     n_walked_seg = walked // (rc.SEG * rc.PX)
     seg_bytes = rc.SEG * rc.N_ATTR * 4
     px_bytes = t * rc.PX * 4
@@ -1683,7 +1841,9 @@ def main() -> int:
         return times[by], by
 
     print(f"main-path rows: {n_walked_seg} of {t * (k // rc.SEG)} segments walked, "
-          f"{walked} (row, pixel) pairs walked, {live} of them live ({live / walked:.4f})")
+          f"{walked} (row, pixel) pairs walked, {live} of them live ({live / walked:.4f}), "
+          f"{live_wr} of {walked // 32} warp-rows (B2's 8x4-pixel warps) hold a live pair "
+          f"({live_wr / (walked // 32):.4f})")
     fwd_bound = bound(fwd_bytes, walked, live, live_f32_fwd(N_CHANNELS))
     bwd_bound = bound(bwd_bytes, walked, live, live_f32_bwd(N_CHANNELS))
 
@@ -1735,7 +1895,37 @@ def main() -> int:
             fwd_bound, max(errs["fwd"], errs_m["fwd"]))
     measure("blend_tiles_bwd", "activesplat_tpu_torch/csrc/blend_bwd.cu", BWD_REPLACES,
             lambda: rc.blend_tiles_bwd(*bwd_args), lambda: rc.blend_tiles_bwd_plain(*bwd_args),
-            B2_PASSES, bwd_bound, max(errs["bwd"], errs_m["bwd"]))
+            B2_PASSES, bwd_bound, max(errs["bwd"], errs_m["bwd"]), occupancy=b2_occupancy,
+            pairs={"walked": walked, "live": live, "live_warp_rows": live_wr,
+                   "warp_rows": walked // 32})
+    b2_entry = measured[-1]
+    b2_entry["walk_ms_without_row_skip"] = walk_without_row_skip(torch, rc, bwd_args)
+    # the same at the driver's k=1,024, on the random rows of phase 2
+    walked_k, live_k, live_wr_k = pair_counts(torch, rc, *k1024_args[:3], k1024_args[3])
+    t_k, k_k = k1024_args[0].shape[:2]
+    bytes_k = (walked_k // (rc.SEG * rc.PX) * seg_bytes + 2 * t_k * 4
+               + px_bytes * (k_k // rc.SEG + N_CHANNELS + 1) + t_k * k_k * rc.N_ATTR * 4)
+    b_ms_k, by_k = bound(bytes_k, walked_k, live_k, live_f32_bwd(N_CHANNELS))
+    pass_ms_k = kernel_device_ms(torch, lambda: rc.blend_tiles_bwd(*k1024_args), B2_PASSES, 20)
+    b2_entry["random_k1024"] = {
+        "ms": sum(pass_ms_k.values()), "pass_ms": pass_ms_k,
+        "wrapper_ms": cuda_ms(lambda: rc.blend_tiles_bwd(*k1024_args), 100),
+        "plain_ms": cuda_ms(lambda: rc.blend_tiles_bwd_plain(*k1024_args), 5),
+        "bound_ms": b_ms_k, "bound_by": by_k,
+        "walk_ms_without_row_skip": walk_without_row_skip(torch, rc, k1024_args),
+        "pairs": {"walked": walked_k, "live": live_k, "live_warp_rows": live_wr_k,
+                  "warp_rows": walked_k // 32}}
+    for label, e in (("main-path rows K=256", b2_entry), ("random rows K=1024", b2_entry["random_k1024"])):
+        pr = e["pairs"]
+        print(f"B2 on the {label}: kernel {e['ms']:.4f} ms {e['pass_ms']}, wrapper "
+              f"{e['wrapper_ms']:.4f} ms, twin {e['plain_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms "
+              f"({e['bound_by']}, {e['bound_ms'] / e['ms']:.3f} of it reached); the walk "
+              f"{e['walk_ms_without_row_skip']:.4f} ms without the warp-row skip; {pr['walked']} "
+              f"pairs walked, {pr['live']} live ({pr['live'] / pr['walked']:.4f}), live warp-rows "
+              f"{pr['live_warp_rows']} of {pr['warp_rows']} ({pr['live_warp_rows'] / pr['warp_rows']:.4f}) "
+              f"on {card}")
+    print(f"planted faults of B2's two passes rejected (tile rows): {tile_rejected}")
+    del k1024_args, rows_k, entry_k, g_acc_k, g_lt_k
     measure("blend_csr_fwd", "activesplat_tpu_torch/csrc/blend_csr_fwd.cu", CSR_FWD_REPLACES,
             lambda: rc.blend_csr_fwd(*csr_args, with_entry=True),
             lambda: rc.blend_csr_fwd_plain(*csr_args, with_entry=True), CSR_PASSES,
@@ -1783,7 +1973,7 @@ def main() -> int:
     del seen, prefix, bin_args, bin_lists
 
     # ---- phase 3d: the per-frame mapper driver ------------------------- #
-    driver_phase(torch, np, rc, rt, card, by_phase, int_rate)
+    b2_entry["driver_frame"] = driver_phase(torch, np, rc, rt, card, by_phase, int_rate)
 
     # ---- phase 3c: the planner's map queries at 1,000,000 Gaussians ----- #
     from activesplat_tpu_torch.queries.panorama import global_invisibility, local_invisibility
