@@ -12,8 +12,8 @@
 // log1p(-alpha), exp of the prefix logT) and about 50 float32 operations at
 // C=5, the pixel sums of the row's gradients included: the float32 and
 // special-function rates bound it. About nine pairs in ten of a walked
-// segment are dead (alpha 0), and in the main path's rows four warp-rows in
-// five hold no live pair.
+// segment are dead (alpha 0), and in the main path's rows about four
+// warp-rows in five hold no live pair.
 //
 // Design. The Pallas kernel walks a tile's SEG=64-row segments back to front
 // in one grid step, carrying the suffix colour-dot
@@ -54,8 +54,8 @@
 //
 // Pixels: warp w holds the tile's 8x4-pixel block (x 8(w%2)..+7, y
 // 4(w/2)..+3), more compact than a 16x2 strip, so fewer warps straddle a
-// Gaussian's edge: in the main path's rows 16.5% of warp-rows hold a live
-// pair, against 20.2% with strips.
+// Gaussian's edge and fewer warp-rows hold a live pair (the smoke prints
+// their share).
 //
 // The pixel sum. A row's 6+C gradients (padded to 16 values) are summed over
 // each warp by a reduce-scatter butterfly: at offset 16 each lane keeps the
@@ -66,7 +66,8 @@
 // even lane writes it to the per-warp partials; after the walk one thread per
 // (row, column) sums the eight warps in a fixed order, so the result is
 // deterministic. A warp-row with no live pair (every value +-0) skips the
-// exchange and writes zeros.
+// exchange and writes zeros; one that the reach mask rules out (below)
+// skips the pair's arithmetic too.
 //
 // Dead pairs: per row, thr = log(ALPHA_MIN) - log(op) - margin (+inf for
 // op <= 0, so padding rows are dead), as blend_csr_walk.cuh computes it. A
@@ -167,9 +168,11 @@ __device__ __forceinline__ bool in_reach(const float* r, int warp) {
 
 __device__ __forceinline__ float pair_power(const float* r, float px, float py, float& dx,
                                             float& dy) {
-  dx = r[0] - px;
-  dy = r[1] - py;
-  return -0.5f * (r[2] * dx * dx + r[4] * dy * dy) - r[3] * dx * dy;
+  const float4 q = reinterpret_cast<const float4*>(r)[0];
+  const float cc = r[4];
+  dx = q.x - px;
+  dy = q.y - py;
+  return -0.5f * (q.z * dx * dx + cc * dy * dy) - q.w * dx * dy;
 }
 
 // Halve the values a lane holds: keep those its lane bit selects, plus the
@@ -296,11 +299,15 @@ tile_bwd_walk_kernel(const float* __restrict__ rows, const int* __restrict__ u0,
 #pragma unroll 2
   for (int j = 0; j < SEG; ++j) {
     const float* r = seg + j * N_ATTR;
+    bool maybe = in_reach(r, warp);
+    if (row_skip && !maybe) {  // the whole warp is dead for this row
+      if (lane % 2 == 0) partial[(warp * SEG + j) * N_COLS + lane / 2] = 0.0f;
+      continue;
+    }
     float v[N_COLS];
 #pragma unroll
     for (int n = 0; n < N_COLS; ++n) v[n] = 0.0f;
     bool live = false;
-    bool maybe = in_reach(r, warp);
     float dx = 0.0f, dy = 0.0f, power = 0.0f;
     if (maybe) {
       power = pair_power(r, px, py, dx, dy);
