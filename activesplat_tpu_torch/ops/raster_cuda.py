@@ -6,13 +6,13 @@ Tile blend (B1, B2): a tile's K depth-ordered Gaussians arrive as (K, 16)
 float32 rows [mx, my, a, b, c, opacity, col0..col7, pad, pad]; the forward
 composites them front to back over the tile's 16x16 pixels, in SEG=64-row
 segments, and stops walking a tile once every pixel's log-transmittance is
-below LOG_EPS (tested at each segment start). The backward walks the
-segments back to front from the forward's stashed per-segment entry
-log-transmittance. B2 launches two passes: every segment's own suffix
-total from its stashed entry logT (one block per tile segment), then each
-segment walked back to front from the fold of the later segments' totals
-(one block per tile segment); tile_bwd_suffix_plain and
-tile_bwd_walk_plain are the passes' plain versions.
+below LOG_EPS (tested at each segment start). The backward takes each
+segment from the forward's stashed per-segment entry log-transmittance
+and the suffix carry of the segments behind it. B2 launches two passes:
+every segment's own suffix total (one block per tile segment), then each
+segment walked from the fold of the later segments' totals (one block per
+tile segment); tile_bwd_suffix_plain and tile_bwd_walk_plain are the
+passes' plain versions.
 
 CSR blend (B3, B4): the same over each tile's whole list, the lists of all
 tiles concatenated as (E, 16) rows with each tile's run padded to a
@@ -530,8 +530,8 @@ def tile_bwd_suffix_cuda(tile_data, tile_u0, tile_v0, entry, g_accum, n_channels
     """Pass 1 of B2 on the card: tile_bwd_suffix_plain's totals (T, K/SEG,
     PX), every entry written (default scratch: torch.empty). `margin` is the
     dead-pair test's; `audit`, an int32 (1,) tensor, counts the pairs that
-    test kills although the full formula keeps them. The wrapper's pass;
-    the smoke checks it."""
+    test or the warp reach mask kills although the full formula keeps
+    them. The wrapper's pass; the smoke checks it."""
     _check_bwd(tile_data, tile_u0, tile_v0, n_channels, entry=entry, g_accum=g_accum)
     t, k, _ = tile_data.shape
     if out is None:
