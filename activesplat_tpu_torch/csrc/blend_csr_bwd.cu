@@ -6,213 +6,245 @@
 //
 // What bounds it on an H100: not memory. A walked segment reads its 16 KB of
 // rows and one 1 KB stash row and writes 16 KB of gradients; each tile reads
-// its pixel cotangents once. The function needs, per (row, pixel) pair whose
-// alpha is not zero, three special-function results (exp of the power,
-// log1p(-alpha), exp of the prefix logT) and about 50 float32 operations at
-// C=5, the pixel sums of the row's gradients included: the float32 rate
-// bounds it. This kernel spends six special-function calls on every pair of
-// a walked segment, live or not: expf and log1pf twice in the two prefix
-// passes below, expf of the power and of the prefix in the walk.
+// its pixel cotangents once. The function needs the power of every (row,
+// pixel) pair of a walked segment and, only where alpha is not zero, three
+// special-function results (exp of the power, log1p(-alpha), exp of the
+// prefix logT) and about 50 float32 operations at C=5, the pixel sums of the
+// row's gradients included: the float32 and special-function rates bound
+// it. About nine pairs in ten of a walked segment are dead (alpha 0).
 //
-// Design: one 256-thread block per tile, one thread per pixel, walking the
-// tile's segments back to front from the forward's stashed entry logT (the
-// Pallas kernel runs one grid step per segment in reverse order and resets
-// its suffix carry at each tile's last segment; here the carry is a register
-// that starts at zero for the block's tile). A segment whose stashed entry
-// logT is below LOG_EPS at every pixel was skipped by the forward and gets
-// zero rows; the skip is decided per 256-row segment, as the forward's exit.
-// The exclusive in-segment log prefix of a 256-row segment would take
-// 256 KB of shared memory (256 rows x 256 pixels), more than a block may
-// have, so a walked segment is split into four 64-row sub-chunks: one pass
-// over the segment's 256 alphas records each thread's log prefix at the
-// start of every sub-chunk, then the sub-chunks are walked back to front,
-// each with B2's body: the sub-chunk's exclusive prefix recomputed into
-// 64 KB of dynamic shared memory (its own column per thread, summed in the
-// same sequential order as the forward, so bitwise the forward's prefix),
-// then the rows walked back to front carrying the suffix colour-dot
-//     B_k(p) = sum_{j>k} w_j(p) (col_j . g_accum(p))
-// in a register:
+// The reference. The Pallas kernel runs one grid step per 256-row segment in
+// reverse order, carrying the suffix colour-dot
+//     b(p) = sum over the rows behind of w_j(p) s_j(p),  s_j = col_j . g_accum(p),
+// in VMEM; the carry starts at zero behind each tile's last segment (where
+// the next segment's tile id differs), and each segment adds its own total
+// S(p) = sum_j w_j s_j in one step. A segment whose stashed entry logT is
+// below LOG_EPS at every pixel was skipped by the forward: zero rows, carry
+// unchanged. The skip is decided per 256-row segment: a walked segment is
+// walked whole, even where a later part of it starts below LOG_EPS.
+//
+// Design. A tile's run is about one segment on the training stream (279
+// segments for 256 tiles), so one block per segment would give no more
+// parallelism than one block per tile. Each segment is cut into four 64-row
+// pieces, one 256-thread block each (one thread per pixel), and the carry
+// is rebuilt from per-piece totals, in two launches:
+//   Pass 1 (csr_bwd_pieces_kernel), one block per (segment, piece): a
+//   skipped or padding segment writes zeros; otherwise the block stages the
+//   piece's 64 rows and walks them front to back from transmittance 1
+//   (piece_total), writing per pixel the piece's log step
+//   L_q = sum_j log1p(-alpha_j) and its unscaled total
+//   W_q = sum_j alpha_j exp(local exclusive prefix_j) s_j. Scratch
+//   (n_seg, 4, PX, 2) float32, every entry written.
+//   Pass 2 (csr_bwd_walk_kernel), one block per (segment, piece): a skipped
+//   or padding segment writes zero rows. Otherwise each pixel forms every
+//   piece's entry logT e_q = entry(s) + ((L_0 + L_1) + ... + L_{q-1}) and
+//   scaled total P_q = exp(e_q) W_q, the segment total S = ((P_0 + P_1) +
+//   P_2) + P_3, and the carry behind its piece
+//     b = b_tile(s) + ((P_3 + P_2) + ... + P_{q+1}),
+//   where b_tile(s) = ((0 + S_last) + ...) + S_{s+1} folds the totals of the
+//   tile's later segments in the reference's order (each rebuilt the same
+//   way from pass 1's scratch: four expf a pixel; runs are 1-8 segments).
+//   The tile's last segment is found as the reference finds it, by the tile
+//   id of the segments after s. It then walks the piece front to back from
+//   e_q with B2's body (walk_rows, blend_bwd_walk.cuh):
+//     B_k = b + (P_q - sum_{j<=k} w_j s_j),
 //     dL/dalpha_k = T_k s_k - (B_k + g_logT) / max(1 - alpha_k, 1/256),
-// chained through alpha = min(op exp(power), 0.99) as the Pallas kernel does
-// (raster_pallas.py:674-730). Each row's 14 gradients are reduced over the
-// tile's pixels with warp shuffles into per-warp partials in shared memory,
-// which one pass after each sub-chunk sums in a fixed order (deterministic;
-// every entry row belongs to one tile, so no atomics).
+//   chained through alpha = min(op exp(power), 0.99) (raster_pallas.py:
+//   674-730), and writes the piece's 64 gradient rows.
+// Pass 2 reads only what pass 1 wrote, so the result does not depend on
+// which block ends first, and needs no per-tile counter. The sums are
+// reassociated against the sequential walk (the log prefix and the carry
+// are summed piece by piece): only their rounding differs.
 //
-// C interface (loaded with ctypes): returns cudaGetLastError() after launch.
+// The walk's helpers (8x4-pixel warps, the per-row reach mask, staging with
+// the dead-pair threshold, the reduce-scatter pixel sum, the fixed-order
+// cross-warp sum), its footprint (4 KB of rows, 32 KB of per-warp partials,
+// four blocks a SM) and why tensor cores do not serve it are in
+// blend_bwd_walk.cuh, shared with B2. The reach mask takes its origin from
+// the segment's seg_u0/seg_v0.
+//
+// C interface (loaded with ctypes): each entry point returns
+// cudaGetLastError() after its launch (cudaErrorInvalidValue for C outside
+// 1..8).
 
-#include <cuda_runtime.h>
+#include "blend_bwd_walk.cuh"
+
+using namespace bwd_walk;
 
 namespace {
 
-constexpr int TILE = 16;
-constexpr int PX = TILE * TILE;
-constexpr int CSEG = 256;             // rows per segment (the skip granularity)
-constexpr int SUB = 64;               // rows per sub-chunk
-constexpr int N_SUB = CSEG / SUB;
-constexpr int N_ATTR = 16;
-constexpr int MAX_C = 8;
-constexpr int N_GRAD = 6 + MAX_C;     // d(mx, my, a, b, c, op, col0..7)
-constexpr int N_WARPS = PX / 32;
-constexpr int SEG_F4 = CSEG * N_ATTR / 4;
-constexpr float LOG_EPS = -5.55f;
-constexpr float ALPHA_MAX = 0.99f;
-constexpr float ALPHA_MIN = 1.0f / 255.0f;
+constexpr int CSEG = 256;               // rows per segment (the skip granularity)
+constexpr int N_PIECES = CSEG / SEG;    // 64-row pieces per segment
 
-constexpr size_t SMEM_BYTES = sizeof(float) * (CSEG * N_ATTR + N_SUB * PX + SUB * PX +
-                                               SUB * N_WARPS * N_GRAD);
-
-__device__ __forceinline__ float row_alpha(const float* r, float px, float py) {
-  const float dx = r[0] - px;
-  const float dy = r[1] - py;
-  const float power = -0.5f * (r[2] * dx * dx + r[4] * dy * dy) - r[3] * dx * dy;
-  const float alpha = fminf(r[5] * expf(power), ALPHA_MAX);
-  return (power <= 0.0f && alpha >= ALPHA_MIN) ? alpha : 0.0f;
+// Whether segment s is walked: a tile's segment (not padding) whose stashed
+// entry logT is at least LOG_EPS at some pixel. Every thread of the block
+// takes part.
+__device__ __forceinline__ bool segment_walked(int tile, int n_tiles, float logt) {
+  return __syncthreads_or(tile < n_tiles && logt >= LOG_EPS);
 }
 
-__global__ void __launch_bounds__(PX)
-blend_csr_bwd_kernel(const float* __restrict__ rows, const int* __restrict__ seg_u0,
-                     const int* __restrict__ seg_v0, const int* __restrict__ tile_start,
-                     const int* __restrict__ tile_count, const float* __restrict__ entry,
-                     const float* __restrict__ g_accum, const float* __restrict__ g_logt,
-                     int n_channels, float* __restrict__ d_rows) {
-  extern __shared__ __align__(16) float smem[];
-  float* seg = smem;                        // (CSEG, N_ATTR) staged rows
-  float* sub_entry = seg + CSEG * N_ATTR;   // (N_SUB, PX) prefix at each sub-chunk start
-  float* prefix = sub_entry + N_SUB * PX;   // (SUB, PX) exclusive log prefix
-  float* partial = prefix + SUB * PX;       // (SUB, N_WARPS, N_GRAD)
+// Segment s at pixel lp, from pass 1's scratch: each piece's entry logT
+// e_q = logt + ((L_0 + L_1) + ... + L_{q-1}) and scaled total
+// P_q = exp(e_q) W_q.
+__device__ __forceinline__ void scaled_pieces(const float2* __restrict__ pieces, size_t s, int lp,
+                                              float logt, float (&e)[N_PIECES],
+                                              float (&total)[N_PIECES]) {
+  float steps = 0.0f;
+#pragma unroll
+  for (int q = 0; q < N_PIECES; ++q) {
+    const float2 lw = pieces[(s * N_PIECES + q) * PX + lp];
+    e[q] = logt + steps;
+    total[q] = expf(e[q]) * lw.y;
+    steps += lw.x;
+  }
+}
 
-  const int tile = blockIdx.x;
-  const int count = tile_count[tile];  // uniform over the block
-  if (count == 0) return;
-  const int start = tile_start[tile];
+template <int C>
+__global__ void __launch_bounds__(PX)
+csr_bwd_pieces_kernel(const float* __restrict__ rows, const int* __restrict__ seg_tile,
+                      const int* __restrict__ seg_u0, const int* __restrict__ seg_v0,
+                      const float* __restrict__ entry, const float* __restrict__ g_accum,
+                      int n_tiles, float margin, float2* __restrict__ pieces,
+                      int* __restrict__ audit) {
+  __shared__ __align__(16) float seg[SEG * N_ATTR];
+  const int s = blockIdx.x / N_PIECES;
+  const int q = blockIdx.x % N_PIECES;
+  const int p = threadIdx.x;
+  const int warp = p / 32;
+  const int lp = local_pixel(p);
+  const int tile = seg_tile[s];
+  float2* out = pieces + static_cast<size_t>(blockIdx.x) * PX + lp;
+  if (!segment_walked(tile, n_tiles, entry[static_cast<size_t>(s) * PX + lp])) {
+    *out = make_float2(0.0f, 0.0f);
+    return;
+  }
+  const float x0 = static_cast<float>(seg_u0[s]);
+  const float y0 = static_cast<float>(seg_v0[s]);
+  stage_rows(rows, static_cast<size_t>(s) * CSEG + q * SEG, seg, margin, x0, y0, p);
+
+  const float px = x0 + static_cast<float>(lp % TILE);
+  const float py = y0 + static_cast<float>(lp / TILE);
+  const size_t pix = static_cast<size_t>(tile) * PX + lp;
+  float g[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) g[c] = g_accum[pix * C + c];
+
+  float run = 0.0f;  // the piece's log step L_q
+  const float total = piece_total<C>(seg, px, py, g, 0.0f, warp, audit, run);
+  *out = make_float2(run, total);
+}
+
+template <int C>
+__global__ void __launch_bounds__(PX, 4)
+csr_bwd_walk_kernel(const float* __restrict__ rows, const int* __restrict__ seg_tile,
+                    const int* __restrict__ seg_u0, const int* __restrict__ seg_v0,
+                    const float* __restrict__ entry, const float* __restrict__ g_accum,
+                    const float* __restrict__ g_logt, const float2* __restrict__ pieces,
+                    int n_seg, int n_tiles, int row_skip, float* __restrict__ d_rows) {
+  __shared__ __align__(16) float seg[SEG * N_ATTR];
+  __shared__ float partial[N_WARPS * SEG * N_COLS];  // (warp, row, column) warp sums
+
+  const int s = blockIdx.x / N_PIECES;
+  const int q = blockIdx.x % N_PIECES;
   const int p = threadIdx.x;
   const int lane = p % 32;
   const int warp = p / 32;
-  const float px = static_cast<float>(seg_u0[start] + p % TILE);
-  const float py = static_cast<float>(seg_v0[start] + p / TILE);
-  const size_t pix = static_cast<size_t>(tile) * PX + p;
-
-  float g[MAX_C];
+  const int lp = local_pixel(p);
+  const size_t first_row = static_cast<size_t>(s) * CSEG + q * SEG;
+  const int tile = seg_tile[s];
+  const float logt = entry[static_cast<size_t>(s) * PX + lp];
+  if (!segment_walked(tile, n_tiles, logt)) {  // skipped by the forward, or padding
+    zero_rows(d_rows + first_row * N_ATTR, p);
+    return;
+  }
+  // the carry behind this segment: the tile's later segments' totals,
+  // folded from its last segment (the last whose tile id is this one's)
+  int end = s + 1;
+  while (end < n_seg && seg_tile[end] == tile) ++end;
+  float b = 0.0f;
+  for (int later = end - 1; later > s; --later) {
+    float e[N_PIECES], total[N_PIECES];
+    scaled_pieces(pieces, later, lp, entry[static_cast<size_t>(later) * PX + lp], e, total);
+    float seg_total = 0.0f;
 #pragma unroll
-  for (int c = 0; c < MAX_C; ++c) g[c] = c < n_channels ? g_accum[pix * n_channels + c] : 0.0f;
-  const float glt = g_logt[pix];
-  float b_suffix = 0.0f;
-
-  for (int s = start + count - 1; s >= start; --s) {
-    const float logt_in = entry[static_cast<size_t>(s) * PX + p];
-    float4* d_out = reinterpret_cast<float4*>(d_rows) + static_cast<size_t>(s) * SEG_F4;
-    if (!__syncthreads_or(logt_in >= LOG_EPS)) {
-      // saturated: the forward skipped this segment
+    for (int i = 0; i < N_PIECES; ++i) seg_total += total[i];
+    b += seg_total;
+  }
+  // this segment's pieces: the entry and total of piece q, and the pieces behind it
+  float e[N_PIECES], total[N_PIECES];
+  scaled_pieces(pieces, s, lp, logt, e, total);
+  float behind = 0.0f, e_q = 0.0f, total_q = 0.0f;
 #pragma unroll
-      for (int i = 0; i < SEG_F4 / PX; ++i) d_out[i * PX + p] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      continue;
-    }
-    const float4* src = reinterpret_cast<const float4*>(rows) + static_cast<size_t>(s) * SEG_F4;
-#pragma unroll
-    for (int i = 0; i < SEG_F4 / PX; ++i) reinterpret_cast<float4*>(seg)[i * PX + p] = src[i * PX + p];
-    __syncthreads();
-
-    float run = 0.0f;
-    for (int j = 0; j < CSEG; ++j) {
-      if (j % SUB == 0) sub_entry[(j / SUB) * PX + p] = run;
-      run += log1pf(-row_alpha(seg + j * N_ATTR, px, py));
-    }
-
-    for (int q = N_SUB - 1; q >= 0; --q) {
-      const float* sub = seg + q * SUB * N_ATTR;
-      run = sub_entry[q * PX + p];
-      for (int j = 0; j < SUB; ++j) {
-        prefix[j * PX + p] = run;
-        run += log1pf(-row_alpha(sub + j * N_ATTR, px, py));
-      }
-
-      for (int j = SUB - 1; j >= 0; --j) {
-        const float* r = sub + j * N_ATTR;
-        const float ca = r[2], cb = r[3], cc = r[4], op = r[5];
-        const float dx = r[0] - px;
-        const float dy = r[1] - py;
-        const float power = -0.5f * (ca * dx * dx + cc * dy * dy) - cb * dx * dy;
-        const float exp_power = expf(power);
-        const float raw = op * exp_power;
-        float alpha = fminf(raw, ALPHA_MAX);
-        const bool live = power <= 0.0f && alpha >= ALPHA_MIN;
-        if (!live) alpha = 0.0f;
-        const bool unclipped = live && raw < ALPHA_MAX;
-
-        const float t_k = expf(logt_in + prefix[j * PX + p]);
-        float s_k = 0.0f;
-#pragma unroll
-        for (int c = 0; c < MAX_C; ++c) s_k += r[6 + c] * g[c];
-        const float w = alpha * t_k;
-        const float one_minus = fmaxf(1.0f - alpha, 1.0f / 256.0f);
-        const float d_alpha = alpha > 0.0f ? t_k * s_k - (b_suffix + glt) / one_minus : 0.0f;
-        b_suffix += w * s_k;
-
-        const float d_raw = unclipped ? d_alpha : 0.0f;
-        const float d_power = d_raw * alpha;  // alpha == raw where unclipped
-
-        float v[N_GRAD];
-        v[0] = d_power * (-(ca * dx + cb * dy));
-        v[1] = d_power * (-(cc * dy + cb * dx));
-        v[2] = d_power * (-0.5f * dx * dx);
-        v[3] = d_power * (-dx * dy);
-        v[4] = d_power * (-0.5f * dy * dy);
-        // exp_power may be inf where power > 0; such a pair is never unclipped
-        v[5] = unclipped ? d_raw * exp_power : 0.0f;
-#pragma unroll
-        for (int c = 0; c < MAX_C; ++c) v[6 + c] = w * g[c];
-#pragma unroll
-        for (int i = 0; i < N_GRAD; ++i) {
-          float x = v[i];
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1) x += __shfl_down_sync(0xffffffffu, x, off);
-          v[i] = x;
-        }
-        if (lane == 0) {
-#pragma unroll
-          for (int i = 0; i < N_GRAD; ++i) partial[(j * N_WARPS + warp) * N_GRAD + i] = v[i];
-        }
-      }
-      __syncthreads();
-
-      // SUB * N_ATTR outputs, four consecutive columns per thread; columns
-      // 14 and 15 are padding and stay zero
-      const int j = p / 4;
-      const int col0 = (p % 4) * 4;
-      float out[4];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int col = col0 + k;
-        float sum = 0.0f;
-        if (col < N_GRAD) {
-          for (int w8 = 0; w8 < N_WARPS; ++w8) sum += partial[(j * N_WARPS + w8) * N_GRAD + col];
-        }
-        out[k] = sum;
-      }
-      d_out[q * (SUB * N_ATTR / 4) + p] = make_float4(out[0], out[1], out[2], out[3]);
-      __syncthreads();  // prefix, partial and (after q = 0) seg are reused
+  for (int i = N_PIECES - 1; i >= 0; --i) {
+    if (i > q) behind += total[i];
+    if (i == q) {
+      e_q = e[i];
+      total_q = total[i];
     }
   }
+  b += behind;
+
+  const float x0 = static_cast<float>(seg_u0[s]);
+  const float y0 = static_cast<float>(seg_v0[s]);
+  stage_rows(rows, first_row, seg, DEAD_MARGIN, x0, y0, p);
+
+  const float px = x0 + static_cast<float>(lp % TILE);
+  const float py = y0 + static_cast<float>(lp / TILE);
+  const size_t pix = static_cast<size_t>(tile) * PX + lp;
+  float g[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) g[c] = g_accum[pix * C + c];
+  const float glt = g_logt[pix];
+
+  walk_rows<C>(seg, partial, px, py, g, glt, e_q, b, total_q, row_skip, warp, lane);
+  __syncthreads();
+  write_rows<C>(partial, d_rows + first_row * N_ATTR, p);
 }
 
 }  // namespace
 
-extern "C" int blend_csr_bwd(const void* rows, const void* seg_u0, const void* seg_v0,
-                             const void* tile_start, const void* tile_count,
-                             const void* entry, const void* g_accum, const void* g_logt,
-                             int n_tiles, int n_channels, void* d_rows, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      blend_csr_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(SMEM_BYTES));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (n_tiles > 0) {
-    blend_csr_bwd_kernel<<<n_tiles, PX, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(rows), static_cast<const int*>(seg_u0),
-        static_cast<const int*>(seg_v0), static_cast<const int*>(tile_start),
-        static_cast<const int*>(tile_count), static_cast<const float*>(entry),
-        static_cast<const float*>(g_accum), static_cast<const float*>(g_logt), n_channels,
-        static_cast<float*>(d_rows));
-  }
-  return static_cast<int>(cudaGetLastError());
+extern "C" int csr_bwd_pieces(const void* rows, const void* seg_tile, const void* seg_u0,
+                              const void* seg_v0, const void* entry, const void* g_accum,
+                              int n_seg, int n_tiles, int n_channels, float margin, void* pieces,
+                              void* audit, void* stream) {
+  return with_channels(n_channels, [&](auto c) {
+    constexpr int C = decltype(c)::value;
+    if (n_seg > 0)
+      csr_bwd_pieces_kernel<C><<<n_seg * N_PIECES, PX, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const float*>(rows), static_cast<const int*>(seg_tile),
+          static_cast<const int*>(seg_u0), static_cast<const int*>(seg_v0),
+          static_cast<const float*>(entry), static_cast<const float*>(g_accum), n_tiles, margin,
+          static_cast<float2*>(pieces), static_cast<int*>(audit));
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+
+extern "C" int csr_bwd_walk(const void* rows, const void* seg_tile, const void* seg_u0,
+                            const void* seg_v0, const void* entry, const void* g_accum,
+                            const void* g_logt, const void* pieces, int n_seg, int n_tiles,
+                            int n_channels, int row_skip, void* d_rows, void* stream) {
+  return with_channels(n_channels, [&](auto c) {
+    constexpr int C = decltype(c)::value;
+    if (n_seg > 0)
+      csr_bwd_walk_kernel<C><<<n_seg * N_PIECES, PX, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const float*>(rows), static_cast<const int*>(seg_tile),
+          static_cast<const int*>(seg_u0), static_cast<const int*>(seg_v0),
+          static_cast<const float*>(entry), static_cast<const float*>(g_accum),
+          static_cast<const float*>(g_logt), static_cast<const float2*>(pieces), n_seg, n_tiles,
+          row_skip, static_cast<float*>(d_rows));
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+
+// out[0:5] pass 1, out[5:10] pass 2, each: registers a thread, static and
+// dynamic shared bytes a block, local (spill) bytes a thread, resident
+// blocks per SM at 256 threads.
+extern "C" int csr_bwd_occupancy(int n_channels, void* out) {
+  int* o = static_cast<int*>(out);
+  return with_channels(n_channels, [&](auto c) {
+    constexpr int C = decltype(c)::value;
+    cudaError_t err = kernel_occupancy(csr_bwd_pieces_kernel<C>, o);
+    if (err == cudaSuccess) err = kernel_occupancy(csr_bwd_walk_kernel<C>, o + 5);
+    return static_cast<int>(err);
+  });
 }

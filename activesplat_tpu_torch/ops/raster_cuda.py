@@ -16,7 +16,13 @@ passes' plain versions.
 
 CSR blend (B3, B4): the same over each tile's whole list, the lists of all
 tiles concatenated as (E, 16) rows with each tile's run padded to a
-CSEG=256 multiple, the exit tested at each 256-row segment start.
+CSEG=256 multiple, the exit tested at each 256-row segment start. B4
+launches two passes over the N_PIECES=4 64-row pieces of every segment:
+each piece's log step and total from transmittance 1 (one block per piece),
+then each piece of a walked segment walked from the fold of its tile's
+later totals (one block per piece), B2's walk written once in
+csrc/blend_bwd_walk.cuh; csr_bwd_pieces_plain and csr_bwd_walk_plain are
+the passes' plain versions.
 
 Dual CSR blend (B5, forward only): B3's walk carrying a second
 log-transmittance composited over the alphas masked by the band bit in
@@ -57,6 +63,7 @@ TILE = 16
 PX = TILE * TILE  # 256 pixels per tile
 SEG = 64  # rows per segment of the dense blend
 CSEG = 256  # rows per segment of the CSR blend (each tile's run is CSEG-aligned)
+N_PIECES = CSEG // SEG  # 64-row pieces of a CSR segment (B4's blocks)
 N_ATTR = 16  # padded attribute count
 MAX_CHANNELS = 8
 BAND_COL = 14  # padding column of a CSR entry row carrying the band bit (B5)
@@ -166,13 +173,18 @@ def _dual_segment(block, px, py, accum, logt, logt_band):
     )
 
 
-def _bwd_segment(block, px, py, logt_in, g, g_logt, b):
+def _bwd_segment(block, px, py, logt_in, g, g_logt, b, walk=None, total=None):
     """The analytic backward of one segment of rows (T, S, 16), given its
     entry logT (T, PX), the padded colour cotangent g (T, PX, 8), the logT
     cotangent (T, PX) and the suffix carry b (T, PX) of the rows behind it.
     Returns (d_block (T, S, 14), the carry in front of the segment); a
-    segment the forward skipped gets zero rows and leaves the carry."""
-    walk = logt_in.amax(dim=1) >= LOG_EPS
+    segment the forward skipped gets zero rows and leaves the carry. By
+    default a segment is skipped when its own entry logT is below LOG_EPS at
+    every pixel and the suffix behind row k is b + (sum_j ws_j - inclusive
+    sum); `walk` (T,) bool and `total` (T, PX) replace the decision and the
+    sum (B4's pieces: the decision is their segment's, the total pass 1's)."""
+    if walk is None:
+        walk = logt_in.amax(dim=1) >= LOG_EPS
     ca, cb, cc = (block[:, :, i : i + 1] for i in range(2, 5))
     dx, dy, power, raw, alpha, live = _segment_geometry(block, px, py)
     unclipped = live & (raw < ALPHA_MAX)
@@ -182,8 +194,11 @@ def _bwd_segment(block, px, py, logt_in, g, g_logt, b):
     s_k = torch.einsum("tsc,tpc->tsp", block[:, :, 6 : 6 + MAX_CHANNELS], g)
     w = alpha * t_k
     ws = w * s_k
+    ws_sum = ws.sum(dim=1)
+    if total is None:
+        total = ws_sum
     # exclusive suffix sum: total - inclusive prefix
-    b_k = b[:, None, :] + (ws.sum(dim=1, keepdim=True) - torch.cumsum(ws, dim=1))
+    b_k = b[:, None, :] + (total[:, None, :] - torch.cumsum(ws, dim=1))
     one_minus = torch.clamp(1.0 - alpha, min=1.0 / 256.0)
     d_alpha = t_k * s_k - (b_k + g_logt[:, None, :]) / one_minus
     d_alpha = torch.where(alpha > 0.0, d_alpha, torch.zeros_like(d_alpha))
@@ -205,7 +220,7 @@ def _bwd_segment(block, px, py, logt_in, g, g_logt, b):
     )  # (T, S, 14)
     return (
         torch.where(walk[:, None, None], d_block, torch.zeros_like(d_block)),
-        torch.where(walk[:, None], b + ws.sum(dim=1), b),
+        torch.where(walk[:, None], b + ws_sum, b),
     )
 
 
@@ -344,6 +359,87 @@ def blend_csr_bwd_plain(entry_data, seg_tile, seg_u0, seg_v0, entry, g_accum, g_
     return d_data
 
 
+def _csr_walked(entry, seg_tile, n_tiles):
+    """(n_seg,) bool: the segments B4 walks, those of a tile whose stashed
+    entry logT is at least LOG_EPS at some pixel. The decision is the whole
+    256-row segment's, for each of its 64-row pieces."""
+    return (seg_tile < n_tiles) & (entry.amax(dim=1) >= LOG_EPS)
+
+
+def csr_bwd_pieces_plain(entry_data, seg_tile, seg_u0, seg_v0, entry, g_accum, n_tiles,
+                         n_channels=5):
+    """Pass 1 of B4 in PyTorch: each 64-row piece q of each walked segment
+    walked front to back from transmittance 1. Returns (n_seg, N_PIECES, PX,
+    2): per pixel the piece's log step L_q = sum_j log1p(-alpha_j) and its
+    unscaled total W_q = sum_j alpha_j exp(local exclusive prefix_j) s_j,
+    s_j = col_j . g_accum(p); zeros for skipped and padding segments."""
+    n_seg = entry_data.shape[0] // CSEG
+    out = entry_data.new_zeros((n_seg, N_PIECES, PX, 2))
+    walked = torch.nonzero(_csr_walked(entry, seg_tile, n_tiles)).squeeze(1)
+    if walked.numel() == 0:
+        return out
+    blocks = entry_data.view(n_seg, N_PIECES, SEG, N_ATTR)[walked]
+    px, py = _pixel_coords(seg_u0[walked], seg_v0[walked])
+    g = torch.nn.functional.pad(g_accum, (0, MAX_CHANNELS - n_channels))[seg_tile[walked].long()]
+    for q in range(N_PIECES):
+        block = blocks[:, q]
+        alpha = _segment_geometry(block, px, py)[4]
+        logs = torch.log1p(-alpha)
+        cum = torch.cumsum(logs, dim=1)
+        s_k = torch.einsum("tsc,tpc->tsp", block[:, :, 6 : 6 + MAX_CHANNELS], g)
+        out[walked, q, :, 0] = cum[:, -1]
+        out[walked, q, :, 1] = (alpha * torch.exp(cum - logs) * s_k).sum(dim=1)
+    return out
+
+
+def csr_bwd_walk_plain(entry_data, seg_tile, seg_u0, seg_v0, entry, g_accum, g_logt, pieces,
+                       n_tiles, n_channels=5):
+    """Pass 2 of B4 in PyTorch, from the piece totals `pieces` (n_seg,
+    N_PIECES, PX, 2). Per segment and pixel: each piece's entry logT e_q =
+    entry + ((L_0 + L_1) + ... + L_{q-1}) and scaled total P_q = exp(e_q)
+    W_q; the segment total S = ((P_0 + P_1) + P_2) + P_3; the carry behind
+    the segment b_tile = ((0 + S_last) + ...) + S_{s+1} over the tile's later
+    segments; the carry behind piece q, b_tile + ((P_3 + P_2) + ... +
+    P_{q+1}). Each piece of a walked segment is then walked from e_q with
+    total P_q (`_bwd_segment` with the segment's walk decision). Skipped and
+    padding segments get zero rows."""
+    n_seg = entry_data.shape[0] // CSEG
+    d_data = torch.zeros_like(entry_data)
+    walked = torch.nonzero(_csr_walked(entry, seg_tile, n_tiles)).squeeze(1)
+    if walked.numel() == 0:
+        return d_data
+    e, total = [], []
+    steps = torch.zeros_like(entry)
+    for q in range(N_PIECES):
+        e.append(entry + steps)
+        total.append(torch.exp(e[-1]) * pieces[:, q, :, 1])
+        steps = steps + pieces[:, q, :, 0]
+    seg_total = sum(total[1:], total[0])
+    starts, counts = _tile_segments(seg_tile, n_tiles)
+    b_tile = torch.zeros_like(entry)
+    b = entry.new_zeros((n_tiles, PX))
+    for r in reversed(range(int(counts.max()))):
+        act = torch.nonzero(counts > r).squeeze(1)
+        seg = starts[act].long() + r
+        b_tile[seg] = b[act]
+        b[act] = b[act] + seg_total[seg]
+    blocks = entry_data.view(n_seg, N_PIECES, SEG, N_ATTR)[walked]
+    d_blocks = d_data.view(n_seg, N_PIECES, SEG, N_ATTR)
+    px, py = _pixel_coords(seg_u0[walked], seg_v0[walked])
+    tile = seg_tile[walked].long()
+    g = torch.nn.functional.pad(g_accum, (0, MAX_CHANNELS - n_channels))[tile]
+    every = torch.ones_like(walked, dtype=torch.bool)
+    behind = torch.zeros_like(b_tile)
+    for q in reversed(range(N_PIECES)):
+        carry = (b_tile + behind)[walked]
+        d_blocks[walked, q, :, :14] = _bwd_segment(
+            blocks[:, q], px, py, e[q][walked], g, g_logt[tile], carry, walk=every,
+            total=total[q][walked],
+        )[0]
+        behind = behind + total[q]
+    return d_data
+
+
 def blend_csr_dual_fwd_plain(entry_data, seg_tile, seg_u0, seg_v0, n_tiles, n_channels=3):
     """The dual CSR kernel's algorithm in PyTorch (the CPU path): step r
     walks the r-th segment of every tile that has one, both carries at
@@ -462,7 +558,9 @@ _SIGNATURES = {
     "tile_bwd_occupancy": "ip",
     "blend_csr_fwd_partials": "ppppiiifpppp",
     "blend_csr_fwd_combine": "pppiipppp",
-    "blend_csr_bwd": "ppppppppiipp",
+    "csr_bwd_pieces": "ppppppiiifppp",
+    "csr_bwd_walk": "ppppppppiiiipp",
+    "csr_bwd_occupancy": "ip",
     "blend_csr_dual_partials": "ppppiiifpppp",
     "blend_csr_dual_combine": "pppiipppp",
     "bin_slots": "ppiiiiiipp",
@@ -563,13 +661,7 @@ def tile_bwd_walk_cuda(tile_data, tile_u0, tile_v0, entry, g_accum, g_logt, suff
 def tile_bwd_occupancy(n_channels=5):
     """B2's two kernels at C channels as the card runs them: {pass:
     {registers, static_smem, dynamic_smem, local_bytes, blocks_per_sm}}."""
-    out = (ctypes.c_int * 10)()
-    rc = _kernel("blend_bwd", "tile_bwd_occupancy")(n_channels, ctypes.addressof(out))
-    if rc != 0:
-        raise RuntimeError(f"tile_bwd_occupancy failed: CUDA error {rc}")
-    keys = ("registers", "static_smem", "dynamic_smem", "local_bytes", "blocks_per_sm")
-    return {name: dict(zip(keys, out[5 * i : 5 * i + 5]))
-            for i, name in enumerate(("suffix", "walk"))}
+    return _occupancy("blend_bwd", "tile_bwd_occupancy", n_channels, ("suffix", "walk"))
 
 
 def _check_csr(entry_data, seg_tile, seg_u0, seg_v0, n_tiles, n_channels):
@@ -661,35 +753,90 @@ def csr_combine_cuda(partials, seg_tile, n_tiles, n_channels=5, dual=False, with
     return (accum, logt) if third is None else (accum, logt, third)
 
 
+def _check_csr_bwd(entry_data, seg_tile, seg_u0, seg_v0, n_tiles, n_channels, **tensors):
+    """B4's inputs: the stream as B3's, each of `tensors` (entry, g_accum,
+    g_logt, pieces) float32 of its shape on the rows' device."""
+    _check_csr(entry_data, seg_tile, seg_u0, seg_v0, n_tiles, n_channels)
+    n_seg = entry_data.shape[0] // CSEG
+    shapes = {"entry": (n_seg, PX), "g_accum": (n_tiles, PX, n_channels),
+              "g_logt": (n_tiles, PX), "pieces": (n_seg, N_PIECES, PX, 2)}
+    for name, x in tensors.items():
+        if x.shape != shapes[name] or x.dtype != torch.float32 or x.device != entry_data.device:
+            raise ValueError(f"{name} must be {shapes[name]} float32 on the rows' device")
+
+
 def blend_csr_bwd(entry_data, seg_tile, seg_u0, seg_v0, entry, g_accum, g_logt, n_tiles,
                   n_channels=5):
     """B4. Gradient of blend_csr_fwd with respect to the entry rows: (E, 16),
-    columns 14 and 15 zero, rows of padding segments zero."""
-    _check_csr(entry_data, seg_tile, seg_u0, seg_v0, n_tiles, n_channels)
-    for name, x, shape in (
-        ("entry", entry, (entry_data.shape[0] // CSEG, PX)),
-        ("g_accum", g_accum, (n_tiles, PX, n_channels)),
-        ("g_logt", g_logt, (n_tiles, PX)),
-    ):
-        if x.shape != shape or x.dtype != torch.float32 or x.device != entry_data.device:
-            raise ValueError(f"{name} must be {shape} float32 on the rows' device")
+    columns 14 and 15 zero, rows of skipped and padding segments zero. On
+    the card, two launches: the 64-row pieces' totals, then the walk."""
+    _check_csr_bwd(entry_data, seg_tile, seg_u0, seg_v0, n_tiles, n_channels, entry=entry,
+                   g_accum=g_accum, g_logt=g_logt)
     if _device_kind(entry_data) == "cpu":
         return blend_csr_bwd_plain(
             entry_data, seg_tile, seg_u0, seg_v0, entry, g_accum, g_logt, n_tiles, n_channels
         )
-    starts, counts = _tile_segments(seg_tile, n_tiles)
-    d_data = torch.zeros_like(entry_data)  # padding segments are never walked
-    fn = _kernel("blend_csr_bwd", "blend_csr_bwd")
-    with torch.cuda.device(entry_data.device):
-        ptrs = _cuda_args(entry_data, seg_u0, seg_v0, starts, counts, entry, g_accum, g_logt, d_data)
-        rc = fn(
-            *ptrs[:8], n_tiles, n_channels, ptrs[8],
-            torch.cuda.current_stream().cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"blend_csr_bwd launch failed: CUDA error {rc}")
+    pieces = csr_bwd_pieces_cuda(entry_data, seg_tile, seg_u0, seg_v0, entry, g_accum, n_tiles,
+                                 n_channels)
+    d_data = csr_bwd_walk_cuda(entry_data, seg_tile, seg_u0, seg_v0, entry, g_accum, g_logt,
+                               pieces, n_tiles, n_channels)
     blend_csr_bwd.launches += 1
     return d_data
+
+
+def csr_bwd_pieces_cuda(entry_data, seg_tile, seg_u0, seg_v0, entry, g_accum, n_tiles,
+                        n_channels=5, margin=DEAD_MARGIN, out=None, audit=None):
+    """Pass 1 of B4 on the card: csr_bwd_pieces_plain's (L, W) per piece and
+    pixel, (n_seg, N_PIECES, PX, 2), every entry written (default scratch:
+    torch.empty). `margin` is the dead-pair test's; `audit`, an int32 (1,)
+    tensor, counts the pairs that test or the warp reach mask kills
+    although the full formula keeps them. The wrapper's pass; the smoke
+    checks it."""
+    _check_csr_bwd(entry_data, seg_tile, seg_u0, seg_v0, n_tiles, n_channels, entry=entry,
+                   g_accum=g_accum)
+    n_seg = entry_data.shape[0] // CSEG
+    if out is None:
+        out = entry_data.new_empty((n_seg, N_PIECES, PX, 2))
+    with torch.cuda.device(entry_data.device):
+        ptrs = _cuda_args(entry_data, seg_tile, seg_u0, seg_v0, entry, g_accum, out)
+        _launch(_kernel("blend_csr_bwd", "csr_bwd_pieces"), "csr_bwd_pieces", *ptrs[:6], n_seg,
+                n_tiles, n_channels, margin, ptrs[6], None if audit is None else _cuda_args(audit)[0])
+    return out
+
+
+def csr_bwd_walk_cuda(entry_data, seg_tile, seg_u0, seg_v0, entry, g_accum, g_logt, pieces,
+                      n_tiles, n_channels=5, row_skip=True):
+    """Pass 2 of B4 on the card: csr_bwd_walk_plain's gradient rows from the
+    piece totals `pieces`. `row_skip=False` runs the pixel sum on warp-rows
+    with no live pair too (the same result; for timing). The wrapper's
+    pass; the smoke checks it."""
+    _check_csr_bwd(entry_data, seg_tile, seg_u0, seg_v0, n_tiles, n_channels, entry=entry,
+                   g_accum=g_accum, g_logt=g_logt, pieces=pieces)
+    n_seg = entry_data.shape[0] // CSEG
+    d_data = torch.empty_like(entry_data)  # every row written: zeros where not walked
+    with torch.cuda.device(entry_data.device):
+        ptrs = _cuda_args(entry_data, seg_tile, seg_u0, seg_v0, entry, g_accum, g_logt, pieces,
+                          d_data)
+        _launch(_kernel("blend_csr_bwd", "csr_bwd_walk"), "csr_bwd_walk", *ptrs[:8], n_seg,
+                n_tiles, n_channels, int(row_skip), ptrs[8])
+    return d_data
+
+
+def _occupancy(library, symbol, n_channels, passes):
+    """A source's two kernels at C channels as the card runs them: {pass:
+    {registers, static_smem, dynamic_smem, local_bytes, blocks_per_sm}}."""
+    out = (ctypes.c_int * 10)()
+    rc = _kernel(library, symbol)(n_channels, ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"{symbol} failed: CUDA error {rc}")
+    keys = ("registers", "static_smem", "dynamic_smem", "local_bytes", "blocks_per_sm")
+    return {name: dict(zip(keys, out[5 * i : 5 * i + 5])) for i, name in enumerate(passes)}
+
+
+def csr_bwd_occupancy(n_channels=5):
+    """B4's two kernels at C channels as the card runs them: {pass:
+    {registers, static_smem, dynamic_smem, local_bytes, blocks_per_sm}}."""
+    return _occupancy("blend_csr_bwd", "csr_bwd_occupancy", n_channels, ("pieces", "walk"))
 
 
 def bin_slots_plain(cum, aabb, k, slot_offset, tiles_x, n):

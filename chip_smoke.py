@@ -5,7 +5,8 @@
 
 Phases, each fatal on failure:
   1. build the CUDA kernels from activesplat_tpu_torch/csrc; print the card
-     and B2's two kernels' registers, shared memory and resident blocks;
+     and B2's and B4's two kernels' registers, shared memory and resident
+     blocks;
   2. hold each blend kernel against its plain PyTorch twin: the tile blend
      (B1, B2) on random tile rows (T=256, K=256 and the driver's K=1,024,
      C=5, with empty, saturating and padded tiles), the CSR blend (B3, B4)
@@ -41,6 +42,17 @@ Phases, each fatal on failure:
      wrapper equal to its passes bitwise and repeatable), and planted faults
      (the totals shifted one segment either way, the dead-pair margin's sign
      flipped) are rejected;
+     B4 runs as two passes over the four 64-row pieces of each 256-row
+     segment (each piece's log step and total from transmittance 1, then the
+     walk from the fold of the tile's later totals): on the random CSR
+     stream and the main path's training stream each pass is held against
+     its plain version (csr_bwd_split_checks: pass 1 into a NaN-filled
+     scratch with the audit, 0 live pairs killed, exact zeros on skipped and
+     padding segments; the walk fed the kernel's piece totals against the
+     plain walk fed the same; the wrapper equal to its passes bitwise and
+     repeatable), and planted faults (the piece totals shifted one piece
+     either way, a piece skipped by its own entry logT, the dead-pair
+     margin's sign flipped) are rejected;
   3. drive the mapping slice at the benchmark's size (200,000 Gaussians in
      a 262,144-slot buffer, 256x256 sensor, k_per_tile=256,
      exact_training="off"): first_frame_phase, three mapping_phase events of
@@ -64,8 +76,9 @@ Phases, each fatal on failure:
      devices with "on" and "hybrid";
   4a. on the mapping path's own rows (B1/B2: the tile rows of a k-capped
      render; B3/B4: the CSR stream of an exact render, first held against
-     the twins as in phase 2; B2 also on phase 2's K=1,024 rows, and its
-     walk again with the warp-row skip off) time each kernel (its own
+     the twins as in phase 2; B2 also on phase 2's K=1,024 rows, and the
+     walks of B2 and B4 again with the warp-row skip off) time each kernel
+     (its own
      device time from
      torch.profiler, and its wrapper per call between CUDA events), its
      twin, and work out its bound; B6 on the slot searches of the map's
@@ -78,7 +91,7 @@ Phases, each fatal on failure:
      hermetic episode's start; its per-frame wall time, Gaussian count,
      metrics, shape history, stage report with host syncs, launches (B1,
      B2, B3 and B6 each launched) and a profile of one more mapping frame
-     (B2's device ms a call read from it);
+     (B2's device ms a call read from it, and B4's where it launches);
      then post_processing and a save_checkpoint / load_map round trip in a
      temporary directory, the loaded map equal to the saved one; then the
      driver on the card against the driver on the CPU over five 64x64
@@ -200,6 +213,14 @@ B2_PASSES = ("tile_bwd_suffix_kernel", "tile_bwd_walk_kernel")
 TILE_SPLIT_FAULTS = ("the walk fed the totals one segment toward the front (each fold takes "
                      "its own segment's)", "the walk fed the totals one segment back (each fold "
                      "misses the next segment's)", "the dead-pair margin's sign flipped")
+# kernels of one B4 wrapper call: each 64-row piece's log step and total,
+# then the walk from the fold of the later totals
+B4_PASSES = ("csr_bwd_pieces_kernel", "csr_bwd_walk_kernel")
+# planted faults of B4's two passes (csr_bwd_split_checks)
+B4_SPLIT_FAULTS = ("the walk fed the piece totals one piece toward the front",
+                   "the walk fed the piece totals one piece back",
+                   "a piece skipped by its own entry logT (not its segment's)",
+                   "the dead-pair margin's sign flipped")
 # the query phases whose B3 launches render panorama views
 PANORAMA_PHASES = ("global_invisibility", "global_invisibility timed", "local_invisibility")
 
@@ -583,17 +604,18 @@ def csr_bwd_carry_leak(torch, rc, stream, entry, g_acc, g_lt, n_tiles):
     return walk(later)[0]
 
 
-def threshold_pairs(torch, rc, stream, segs):
-    """Per (segment of `segs`, pixel): the pairs whose raw alpha lies within
-    EDGE_RTOL of ALPHA_MIN (power <= 0), as float32 counts."""
+def threshold_pairs(torch, rc, stream, segs, pieces=1):
+    """Per (segment of `segs`, piece, pixel), each segment's rows cut into
+    `pieces` pieces: the pairs whose raw alpha lies within EDGE_RTOL of
+    ALPHA_MIN (power <= 0), as float32 counts."""
     data, _, seg_u0, seg_v0 = stream
     blocks = data.view(-1, rc.CSEG, rc.N_ATTR)
-    out = torch.zeros((segs.numel(), rc.PX), device=data.device)
+    out = torch.zeros((segs.numel(), pieces, rc.PX), device=data.device)
     for i, chunk in enumerate(segs.split(64)):
         px, py = rc._pixel_coords(seg_u0[chunk], seg_v0[chunk])
         _, _, power, raw, _, _ = rc._segment_geometry(blocks[chunk], px, py)
         edge = (power <= 0) & ((raw / rc.ALPHA_MIN - 1).abs() < EDGE_RTOL)
-        out[64 * i:64 * i + chunk.numel()] = edge.sum(dim=1)
+        out[64 * i:64 * i + chunk.numel()] = edge.view(chunk.numel(), pieces, -1, rc.PX).sum(dim=2)
     return out
 
 
@@ -641,6 +663,97 @@ def combine_exit_late(torch, rc, partials, seg_tile, n_tiles, c, dual):
     return (accum, logt) + ((band,) if dual else (entry,))
 
 
+def csr_bwd_split_checks(torch, rc, stream, n_tiles, c, bwd_inputs, d_k, tag, rejected):
+    """Each pass of B4 against its plain version on one CSR stream. Pass 1
+    runs into a NaN-filled scratch with the dead-pair audit on: no pair that
+    the dead-pair test or the warp reach mask kills may be live by the full
+    formula, no NaN may remain, and skipped and padding segments get exact
+    zeros. Its log steps agree with csr_bwd_pieces_plain's to LOGT_ATOL +
+    STEP_RTOL |L| and its totals to REL_TOL of the largest |W|; where a
+    pair's raw alpha lies within EDGE_RTOL of ALPHA_MIN, plus what that pair
+    alone moves (-log1p(-ALPHA_MIN) of a step; of a total its own weight and
+    the transmittance behind it, 2 ALPHA_MIN max_j |s_j|). Pass 2 fed the
+    kernel's piece totals agrees with csr_bwd_walk_plain fed the same to
+    REL_TOL of each column's largest value, with zero rows where the segment
+    is skipped or padding. The wrapper's output `d_k` equals its two passes
+    bitwise, and a second wrapper call equals the first. Planted faults
+    (B4_SPLIT_FAULTS) must be rejected where they change the result;
+    `rejected` counts them."""
+    entry, g_acc, g_lt = bwd_inputs
+    seg_tile = stream[1]
+    n_seg = seg_tile.shape[0]
+    walk = rc._csr_walked(entry, seg_tile, n_tiles)
+    audit = torch.zeros(1, dtype=torch.int32, device="cuda")
+    pieces = torch.full((n_seg, rc.N_PIECES, rc.PX, 2), float("nan"), device="cuda")
+    rc.csr_bwd_pieces_cuda(*stream, entry, g_acc, n_tiles, c, out=pieces, audit=audit)
+
+    def none_killed(count):
+        if count:
+            raise AssertionError(f"{tag}: B4's dead-pair test killed {count} live pairs")
+
+    none_killed(int(audit))
+    if bool(torch.isnan(pieces).any()) or bool(pieces[~walk].any()):
+        raise AssertionError(f"{tag}: B4 pass 1 left {int(torch.isnan(pieces).sum())} NaN and "
+                             f"{int((pieces[~walk] != 0).sum())} non-zero values on skipped or "
+                             f"padding segments")
+    plain = rc.csr_bwd_pieces_plain(*stream, entry, g_acc, n_tiles, c)
+    segs = torch.nonzero(walk).squeeze(1)
+    edge = torch.zeros((n_seg, rc.N_PIECES, rc.PX), device="cuda")
+    edge[segs] = threshold_pairs(torch, rc, stream, segs, rc.N_PIECES)
+    a_edge = rc.ALPHA_MIN * (1 + EDGE_RTOL)
+    tile = seg_tile.long().clamp(max=max(n_tiles - 1, 0))
+    col_rows = stream[0][:, 6:6 + c].abs().view(n_seg, -1, c).amax(dim=1)  # (n_seg, C)
+    s_max = (col_rows[:, None, :] * g_acc.abs()[tile]).sum(-1)[:, None, :]  # (n_seg, 1, PX)
+    share1 = max(
+        check_close(f"{tag} B4 pass 1 log steps", pieces[..., 0], plain[..., 0],
+                    LOGT_ATOL + STEP_RTOL * plain[..., 0].abs() - edge * math.log1p(-a_edge)),
+        check_close(f"{tag} B4 pass 1 totals", pieces[..., 1], plain[..., 1],
+                    REL_TOL * plain[..., 1].abs().max() + edge * 2 * a_edge * s_max))
+
+    d_walk = rc.csr_bwd_walk_cuda(*stream, entry, g_acc, g_lt, pieces, n_tiles, c)
+    want = rc.csr_bwd_walk_plain(*stream, entry, g_acc, g_lt, pieces, n_tiles, c)
+    d_lim = REL_TOL * want.abs().amax(dim=0)
+
+    def walk_share(d):
+        return check_close(f"{tag} B4 pass 2", d, want, d_lim)
+
+    share2 = walk_share(d_walk)
+    if bool(d_walk.view(n_seg, -1)[~walk].any()):
+        raise AssertionError(f"{tag}: B4 pass 2 wrote non-zero rows on skipped or padding segments")
+    if not torch.equal(d_walk, d_k):
+        raise AssertionError(f"{tag}: the B4 wrapper's output differs from its two passes'")
+    if not torch.equal(rc.blend_csr_bwd(*stream, entry, g_acc, g_lt, n_tiles, c), d_k):
+        raise AssertionError(f"{tag}: two B4 wrapper calls on the same inputs differ")
+
+    zero = torch.zeros_like(pieces[:, :1])
+    shifted = {B4_SPLIT_FAULTS[0]: torch.cat([zero, pieces[:, :-1]], dim=1),
+               B4_SPLIT_FAULTS[1]: torch.cat([pieces[:, 1:], zero], dim=1)}
+    faults = {name: (lambda x=x: walk_share(rc.csr_bwd_walk_cuda(
+        *stream, entry, g_acc, g_lt, x.contiguous(), n_tiles, c))) for name, x in shifted.items()}
+    shows = {name: bool((x != pieces)[walk].any()) for name, x in shifted.items()}
+    # a kernel that skipped a piece by its own entry logT: zero rows there
+    steps = torch.cat([torch.zeros_like(pieces[:, :1, :, 0]), pieces[:, :-1, :, 0]], dim=1)
+    own_skip = walk[:, None] & ((entry[:, None, :] + steps.cumsum(1)).amax(dim=2) < rc.LOG_EPS)
+    d_own = d_walk.clone()
+    d_own.view(n_seg, rc.N_PIECES, -1)[own_skip] = 0.0
+    faults[B4_SPLIT_FAULTS[2]] = lambda: walk_share(d_own)
+    shows[B4_SPLIT_FAULTS[2]] = bool(((d_walk - d_own).abs() > d_lim).any())
+    flip = torch.zeros(1, dtype=torch.int32, device="cuda")
+    rc.csr_bwd_pieces_cuda(*stream, entry, g_acc, n_tiles, c, margin=-rc.DEAD_MARGIN, audit=flip)
+    faults[B4_SPLIT_FAULTS[3]] = lambda: none_killed(int(flip))
+    shows[B4_SPLIT_FAULTS[3]] = int(flip) > 0
+    for name, check in faults.items():
+        if shows[name]:
+            must_reject(name, check)
+            rejected[name] += 1
+    print(f"{tag}: B4 pass 1 wrote every piece ({int(walk.sum())} of {n_seg} segments walked, "
+          f"{int(own_skip.sum())} of their pieces entered below LOG_EPS, {int(edge.sum())} pairs at "
+          f"the alpha threshold), 0 live pairs killed by the dead-pair test and reach mask "
+          f"({int(flip)} with the margin flipped), steps and totals within {share1:.3f} of "
+          f"tolerance; pass 2 within {share2:.3f}; the wrapper equals its passes bitwise and "
+          f"repeats bitwise; {sum(shows.values())} planted faults rejected")
+
+
 def split_checks(torch, rc, stream, n_tiles, c, dual, walked, wrapper_out, tag, rejected):
     """Each pass of B3 (or B5 with `dual`) against its plain version on one
     CSR stream. Pass 1 runs into a NaN-filled scratch with the dead-pair
@@ -680,7 +793,7 @@ def split_checks(torch, rc, stream, n_tiles, c, dual, walked, wrapper_out, tag, 
     col_max = want[:, :, :c].abs().amax(dim=(0, 1))
     # each pair at the alpha threshold may flip: it moves a log step by at
     # most -log1p(-ALPHA_MIN) and a colour partial by ALPHA_MIN (|col| + |P|)
-    edge = threshold_pairs(torch, rc, stream, torch.nonzero(computed).squeeze(1))[:, :, None]
+    edge = threshold_pairs(torch, rc, stream, torch.nonzero(computed).squeeze(1))[:, 0, :, None]
     a_edge = rc.ALPHA_MIN * (1 + EDGE_RTOL)
     col_rows = stream[0][:, 6:6 + c].abs().amax(dim=0)
     # a colour partial weighs each row by exp(excl): the log prefix's
@@ -744,7 +857,7 @@ def split_checks(torch, rc, stream, n_tiles, c, dual, walked, wrapper_out, tag, 
 
 
 def csr_kernel_checks(torch, rc, stream, n_tiles: int, tag: str, rejected, c: int = N_CHANNELS,
-                      with_bwd: bool = True):
+                      with_bwd: bool = True, bwd_rejected=None):
     """B3 and B4 against their twins on one CSR stream of C colour channels,
     with the tolerances of kernel_checks; a tile is a boundary tile when the
     max logT at one of its segment starts lies within BOUNDARY of LOG_EPS on
@@ -753,8 +866,9 @@ def csr_kernel_checks(torch, rc, stream, n_tiles: int, tag: str, rejected, c: in
     carry not reset at tile boundaries) must be rejected. Without `with_bwd`
     (a stream only B3 walks) B4 is not run: errs["bwd"] is None. Each pass
     of B3 is held against its plain version (split_checks, which counts the
-    planted faults it rejects in `rejected`); errs["segments"] is (computed,
-    walked)."""
+    planted faults it rejects in `rejected`), and with `with_bwd` each pass
+    of B4 (csr_bwd_split_checks, counting in `bwd_rejected`);
+    errs["segments"] is (computed, walked)."""
     seg_tile = stream[1]
     shares = {}
     acc_k, lt_k, ent_k = rc.blend_csr_fwd(*stream, n_tiles, c, with_entry=True)
@@ -825,6 +939,8 @@ def csr_kernel_checks(torch, rc, stream, n_tiles: int, tag: str, rejected, c: in
         must_reject(f"csr gradient column {col} zeroed", lambda: bwd_share(zeroed))
     leak = csr_bwd_carry_leak(torch, rc, stream, ent_k, g_acc, g_lt, n_tiles)
     must_reject("carry not reset at tile boundaries", lambda: bwd_share(leak))
+    csr_bwd_split_checks(torch, rc, stream, n_tiles, c, (ent_k, g_acc, g_lt), d_k, tag,
+                         bwd_rejected)
 
     errs = {"fwd": err_fwd, "bwd": float((d_k - d_p).abs().max()), "segments": segments}
     print(f"{head}, blend_csr_bwd max_abs_err={errs['bwd']:.3e} "
@@ -1313,7 +1429,8 @@ def driver_phase(torch, np, rc, rt, card, by_phase, int_rate: float) -> dict:
     (see the module docstring). Its launches go into by_phase["mapper
     driver"]: B2 and B6 once per mapping iteration (B1 and B6 also in any
     exact render's fallback), B3 in every densify and exact online render,
-    B5 never. Returns B2's device ms a call in the profiled mapping frame."""
+    B5 never. Returns B2's and B4's device ms a call in the profiled mapping
+    frame (B4: None where the frame launched none)."""
     import dataclasses
     import os
     import tempfile
@@ -1391,21 +1508,37 @@ def driver_phase(torch, np, rc, rt, card, by_phase, int_rate: float) -> dict:
             rt.bin_slots = lambda *a: seen.append(a) or real_slots(*a)
             try:
                 # the unprofiled reference: the mean of the frames that mapped
-                b2 = profile_calls(torch, lambda: mapper.run(frames[DRIVER_FRAMES]), 1,
+                watched = profile_calls(torch, lambda: mapper.run(frames[DRIVER_FRAMES]), 1,
                                    sum(mapping_ms) / len(mapping_ms), card,
-                                   "mapper frame (a mapping frame)", ("device", "host"), B2_PASSES)
+                                   "mapper frame (a mapping frame)", ("device", "host"),
+                                   B2_PASSES + B4_PASSES)
             finally:
                 rt.bin_slots = real_slots
             rc.reset_launch_counts()
             if not seen:
                 raise AssertionError("driver: the profiled mapping frame ran no slot search")
-            calls_b2 = b2[B2_PASSES[1]][0]
-            if not calls_b2 or b2[B2_PASSES[0]][0] != calls_b2:
-                raise AssertionError(f"driver: the profiled mapping frame's B2 launches {b2}")
-            driver_b2 = {"calls": calls_b2, "pass_ms": {n: ms for n, (_, ms) in b2.items()},
-                         "ms": sum(ms for _, ms in b2.values()), "k": mapper.cfg.k_per_tile}
+            calls_b2 = watched[B2_PASSES[1]][0]
+            if not calls_b2 or watched[B2_PASSES[0]][0] != calls_b2:
+                raise AssertionError(f"driver: the profiled mapping frame's B2 launches {watched}")
+            driver_b2 = {"calls": calls_b2, "k": mapper.cfg.k_per_tile,
+                         "pass_ms": {n: watched[n][1] for n in B2_PASSES},
+                         "ms": sum(watched[n][1] for n in B2_PASSES)}
             print(f"driver: B2 {driver_b2['ms']:.4f} ms a call ({calls_b2} calls in the profiled "
                   f"mapping frame at k={driver_b2['k']}: {driver_b2['pass_ms']}) on {card}")
+            calls_b4 = watched[B4_PASSES[1]][0]
+            if watched[B4_PASSES[0]][0] != calls_b4:
+                raise AssertionError(f"driver: the profiled mapping frame's B4 launches {watched}")
+            driver_b4 = None
+            if calls_b4:
+                driver_b4 = {"calls": calls_b4, "k": mapper.cfg.k_per_tile,
+                             "pass_ms": {n: watched[n][1] for n in B4_PASSES},
+                             "ms": sum(watched[n][1] for n in B4_PASSES)}
+                print(f"driver: B4 {driver_b4['ms']:.4f} ms a call ({calls_b4} calls in the "
+                      f"profiled mapping frame at k={driver_b4['k']}: {driver_b4['pass_ms']}) on "
+                      f"{card}")
+            else:
+                print(f"driver: the profiled mapping frame at k={mapper.cfg.k_per_tile} launched "
+                      f"no B4")
             args = seen[-1]
             got = rc.bin_slots(*args)
             if not torch.equal(got, rc.bin_slots_plain(*args)):
@@ -1460,7 +1593,7 @@ def driver_phase(torch, np, rc, rt, card, by_phase, int_rate: float) -> dict:
         small_driver_check(torch, np, world)
     finally:
         rt._BIN_KERNEL = False
-    return driver_b2
+    return driver_b2, driver_b4
 
 
 def small_driver_check(torch, np, world, res: int = 64, frames: int = 5) -> None:
@@ -1588,6 +1721,12 @@ def main() -> int:
               f"{occ['static_smem']} B static and {occ['dynamic_smem']} B dynamic shared memory a "
               f"block, {occ['local_bytes']} B local, {occ['blocks_per_sm']} resident blocks of 256 "
               f"threads a SM")
+    b4_occupancy = rc.csr_bwd_occupancy(N_CHANNELS)
+    for name, occ in b4_occupancy.items():
+        print(f"B4 pass {name} (C={N_CHANNELS}): {occ['registers']} registers a thread, "
+              f"{occ['static_smem']} B static and {occ['dynamic_smem']} B dynamic shared memory a "
+              f"block, {occ['local_bytes']} B local, {occ['blocks_per_sm']} resident blocks of 256 "
+              f"threads a SM")
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     sfu_rate = SFU_PER_CLOCK_PER_SM * n_sm * max_sm_mhz * 1e6
     int_rate = INT32_PER_CLOCK_PER_SM * n_sm * max_sm_mhz * 1e6
@@ -1613,8 +1752,13 @@ def main() -> int:
         raise AssertionError(f"a planted fault of B2's two passes never showed on the random "
                              f"tiles: {tile_rejected}")
     split_rejected = dict.fromkeys(SPLIT_FAULTS, 0)  # planted faults of the two passes
+    b4_rejected = dict.fromkeys(B4_SPLIT_FAULTS, 0)  # planted faults of B4's two passes
     csr_errs, _ = csr_kernel_checks(torch, rc, random_csr_stream(torch, seed=0), 256,
-                                    "random CSR stream, 256 tiles", split_rejected)
+                                    "random CSR stream, 256 tiles", split_rejected,
+                                    bwd_rejected=b4_rejected)
+    if not all(b4_rejected.values()):
+        raise AssertionError(f"a planted fault of B4's two passes never showed on the random "
+                             f"stream: {b4_rejected}")
     dual_err, _, _, _ = dual_kernel_checks(torch, rc, random_dual_stream(torch, rc, seed=0), 256,
                                            "random CSR stream with band bits, 256 tiles",
                                            split_rejected)
@@ -1851,7 +1995,8 @@ def main() -> int:
     stream, n_tiles = main_path_csr(torch, buf, cam)
     n_seg = stream[1].shape[0]
     csr_errs_m, (c_entry, c_g_acc, c_g_lt) = csr_kernel_checks(
-        torch, rc, stream, n_tiles, f"main-path CSR stream, {n_seg} segments", split_rejected
+        torch, rc, stream, n_tiles, f"main-path CSR stream, {n_seg} segments", split_rejected,
+        bwd_rejected=b4_rejected
     )
     c_seg, c_walked, c_live = csr_pair_counts(torch, rc, stream, c_entry, n_tiles)
     visited = int(torch.unique(stream[1][stream[1] < n_tiles]).numel())
@@ -1934,9 +2079,23 @@ def main() -> int:
             segments={"walked": c_seg, "computed": csr_errs_m["segments"][0], "all": n_seg})
     measure("blend_csr_bwd", "activesplat_tpu_torch/csrc/blend_csr_bwd.cu", CSR_BWD_REPLACES,
             lambda: rc.blend_csr_bwd(*csr_bwd_args), lambda: rc.blend_csr_bwd_plain(*csr_bwd_args),
-            ("blend_csr_bwd_kernel",),
-            bound(csr_bwd_bytes, c_walked, c_live, live_f32_bwd(N_CHANNELS)),
-            max(csr_errs["bwd"], csr_errs_m["bwd"]))
+            B4_PASSES, bound(csr_bwd_bytes, c_walked, c_live, live_f32_bwd(N_CHANNELS)),
+            max(csr_errs["bwd"], csr_errs_m["bwd"]), occupancy=b4_occupancy,
+            stream="training (main-path CSR stream)",
+            pairs={"walked": c_walked, "live": c_live})
+    b4_entry = measured[-1]
+    b4_pieces = rc.csr_bwd_pieces_cuda(*csr_bwd_args[:6], n_tiles, N_CHANNELS)
+    b4_entry["walk_ms_without_row_skip"] = kernel_device_ms(torch, lambda: rc.csr_bwd_walk_cuda(
+        *csr_bwd_args[:7], b4_pieces, n_tiles, N_CHANNELS, row_skip=False), B4_PASSES[1:],
+        20)[B4_PASSES[1]]
+    print(f"B4 on the main-path CSR stream: kernel {b4_entry['ms']:.4f} ms {b4_entry['pass_ms']}, "
+          f"wrapper {b4_entry['wrapper_ms']:.4f} ms, twin {b4_entry['plain_ms']:.4f} ms, bound "
+          f"{b4_entry['bound_ms']:.4f} ms ({b4_entry['bound_by']}, "
+          f"{b4_entry['bound_ms'] / b4_entry['ms']:.3f} of it reached); the walk "
+          f"{b4_entry['walk_ms_without_row_skip']:.4f} ms without the warp-row skip; "
+          f"{rc.N_PIECES * n_seg} blocks a pass on {card}")
+    print(f"planted faults of B4's two passes rejected (CSR streams): {b4_rejected}")
+    del b4_pieces
     del rows, stream, entry, g_acc, g_lt, c_entry, c_g_acc, c_g_lt, fwd_args, bwd_args
     del csr_args, csr_bwd_args
 
@@ -1973,7 +2132,8 @@ def main() -> int:
     del seen, prefix, bin_args, bin_lists
 
     # ---- phase 3d: the per-frame mapper driver ------------------------- #
-    b2_entry["driver_frame"] = driver_phase(torch, np, rc, rt, card, by_phase, int_rate)
+    b2_entry["driver_frame"], b4_entry["driver_frame"] = driver_phase(
+        torch, np, rc, rt, card, by_phase, int_rate)
 
     # ---- phase 3c: the planner's map queries at 1,000,000 Gaussians ----- #
     from activesplat_tpu_torch.queries.panorama import global_invisibility, local_invisibility
