@@ -2,7 +2,8 @@
 // and without the per-segment entry log-transmittance stash) and B5
 // (blend_csr_dual.cu, a second carry over alpha * band). Each source
 // instantiates these templates (colour channels C in 1..8, DUAL) behind its
-// C entry points.
+// C entry points. The per-tile combine (combine_tile) also serves the dense
+// tile blend B1 (blend_fwd.cu), whose partials have the same layout.
 //
 // Input layout: the entry rows of all tiles concatenated, [mx, my, a, b, c,
 // op, col0..7, band, pad], each tile's run padded to a multiple of CSEG=256
@@ -155,16 +156,17 @@ csr_partials_kernel(const float* __restrict__ rows, const int* __restrict__ seg_
   if (DUAL) out[C + 1] = excl_band;
 }
 
+// The combine of one tile whose `count` segments start at segment `start`
+// of `part`, at pixel p (one thread a pixel; every thread of the block
+// calls it for the same tile). The dense tile blend (blend_fwd.cu, B1)
+// calls it with the arithmetic range tile * K/64 .. + K/64.
 template <int C, bool DUAL>
-__global__ void __launch_bounds__(PX)
-csr_combine_kernel(const float* __restrict__ part, const int* __restrict__ tile_start,
-                   const int* __restrict__ tile_count, float* __restrict__ accum,
-                   float* __restrict__ logt_out, float* __restrict__ band_out,
-                   float* __restrict__ entry) {
+__device__ __forceinline__ void combine_tile(const float* __restrict__ part, int start, int count,
+                                             int tile, int p, float* __restrict__ accum,
+                                             float* __restrict__ logt_out,
+                                             float* __restrict__ band_out,
+                                             float* __restrict__ entry) {
   constexpr int NV = C + 1 + DUAL;
-  const int tile = blockIdx.x;
-  const int p = threadIdx.x;
-  const int count = tile_count[tile];  // uniform over the block
   float acc[C];
 #pragma unroll
   for (int c = 0; c < C; ++c) acc[c] = 0.0f;
@@ -172,8 +174,8 @@ csr_combine_kernel(const float* __restrict__ part, const int* __restrict__ tile_
   float logt_band = 0.0f;
 
   if (count > 0) {
-    const int end = tile_start[tile] + count;
-    int s = tile_start[tile];
+    const int end = start + count;
+    int s = start;
     while (s < end) {
       // the partials of up to AHEAD segments, loaded before their exit
       // tests (those past the exit are loaded and not used)
@@ -225,6 +227,17 @@ csr_combine_kernel(const float* __restrict__ part, const int* __restrict__ tile_
   for (int c = 0; c < C; ++c) accum[pix * C + c] = acc[c];
   logt_out[pix] = logt;
   if (DUAL) band_out[pix] = logt_band;
+}
+
+template <int C, bool DUAL>
+__global__ void __launch_bounds__(PX)
+csr_combine_kernel(const float* __restrict__ part, const int* __restrict__ tile_start,
+                   const int* __restrict__ tile_count, float* __restrict__ accum,
+                   float* __restrict__ logt_out, float* __restrict__ band_out,
+                   float* __restrict__ entry) {
+  const int tile = blockIdx.x;  // count is uniform over the block
+  combine_tile<C, DUAL>(part, tile_start[tile], tile_count[tile], tile, threadIdx.x, accum,
+                        logt_out, band_out, entry);
 }
 
 // The launches, with C dispatched from the run-time channel count; each

@@ -6,7 +6,11 @@ Tile blend (B1, B2): a tile's K depth-ordered Gaussians arrive as (K, 16)
 float32 rows [mx, my, a, b, c, opacity, col0..col7, pad, pad]; the forward
 composites them front to back over the tile's 16x16 pixels, in SEG=64-row
 segments, and stops walking a tile once every pixel's log-transmittance is
-below LOG_EPS (tested at each segment start). The backward takes each
+below LOG_EPS (tested at each segment start). B1 launches two passes from
+one C call: every segment composited by itself from transmittance 1 (one
+block per tile segment, rank-major), then a per-tile combine (B3's);
+tile_fwd_partials_plain and tile_fwd_combine_plain are the passes' plain
+versions. The backward takes each
 segment from the forward's stashed per-segment entry log-transmittance
 and the suffix carry of the segments behind it. B2 launches two passes:
 every segment's own suffix total (one block per tile segment), then each
@@ -65,6 +69,7 @@ SEG = 64  # rows per segment of the dense blend
 CSEG = 256  # rows per segment of the CSR blend (each tile's run is CSEG-aligned)
 N_PIECES = CSEG // SEG  # 64-row pieces of a CSR segment (B4's blocks)
 N_ATTR = 16  # padded attribute count
+ALL_WARPS = (1 << (PX // 32)) - 1  # a row's warp reach mask (B1): a bit per warp of a tile
 MAX_CHANNELS = 8
 BAND_COL = 14  # padding column of a CSR entry row carrying the band bit (B5)
 LOG_EPS = -5.55  # log(1/256): tile saturated below this transmittance
@@ -235,6 +240,46 @@ def blend_tiles_fwd_plain(tile_data, tile_u0, tile_v0, n_channels=5, with_entry=
         entries.append(logt)
         accum, logt = _fwd_segment(tile_data[:, s * SEG : (s + 1) * SEG], px, py, accum, logt)
     accum = accum[:, :, :n_channels].contiguous()
+    if with_entry:
+        return accum, logt, torch.stack(entries, dim=1)
+    return accum, logt
+
+
+def tile_fwd_partials_plain(tile_data, tile_u0, tile_v0, n_channels=5):
+    """Pass 1 of B1 in PyTorch: every segment composited by itself from
+    transmittance 1 (`_blend_segment` with logT 0). Returns (T, K/SEG, PX,
+    C + 1): per pixel the colour partial sum_j alpha_j exp(excl_j) col_j and
+    the log step sum_j log1p(-alpha_j)."""
+    t, k, _ = tile_data.shape
+    px, py = _pixel_coords(tile_u0, tile_v0)
+    zero = tile_data.new_zeros((t, PX))
+    out = tile_data.new_empty((t, k // SEG, PX, n_channels + 1))
+    for s in range(k // SEG):
+        _, contrib, step = _blend_segment(tile_data[:, s * SEG : (s + 1) * SEG], px, py, zero)
+        out[:, s, :, :n_channels] = contrib[:, :, :n_channels]
+        out[:, s, :, n_channels] = step
+    return out
+
+
+def tile_fwd_combine_plain(partials, n_channels=5, with_entry=False):
+    """Pass 2 of B1 in PyTorch: each tile's segments in order from their
+    partials (T, K/SEG, PX, C + 1). At each segment start the whole-tile exit
+    (max logT < LOG_EPS), the stash takes the entry logT, then accum +=
+    exp(logT) P and logT += L. Partials of segments after the exit are never
+    used. Fed tile_fwd_partials_plain's partials, logT and the stash are
+    blend_tiles_fwd_plain's bitwise. Returns (accum, logT[, entry])."""
+    t, n_seg = partials.shape[:2]
+    accum = partials.new_zeros((t, PX, n_channels))
+    logt = partials.new_zeros((t, PX))
+    entries = []
+    for s in range(n_seg):
+        entries.append(logt)
+        walk = (logt.amax(dim=1) >= LOG_EPS)[:, None]
+        q = partials[:, s]
+        accum = torch.where(
+            walk[:, :, None], accum + torch.exp(logt)[:, :, None] * q[:, :, :n_channels], accum
+        )
+        logt = torch.where(walk, logt + q[:, :, n_channels], logt)
     if with_entry:
         return accum, logt, torch.stack(entries, dim=1)
     return accum, logt
@@ -522,11 +567,11 @@ def csr_combine_plain(partials, seg_tile, n_tiles, n_channels=5, dual=False, wit
     return (accum, logt) + ((logt_band,) if dual else ()) + ((entry,) if with_entry else ())
 
 
-DEAD_MARGIN = 1e-3  # log-domain margin of the dead-pair test (B2, B3, B5)
+DEAD_MARGIN = 1e-3  # log-domain margin of the dead-pair test (B1-B5)
 
 
 def dead_pair_threshold(op, margin=DEAD_MARGIN):
-    """The per-row dead-pair threshold of B2, B3 and B5, in float32 as the
+    """The per-row dead-pair threshold of B1-B5, in float32 as the
     kernels compute it: log(ALPHA_MIN) - log(op) - margin, +inf for op <= 0. A
     (row, pixel) pair whose power is above 0 or below it has alpha 0 by the
     full formula, so the kernels skip its special functions."""
@@ -552,7 +597,10 @@ def _kernel(library: str, symbol: str):
 # the arguments of each C entry point: p pointer (or stream), i int, f float
 _ARG_TYPES = {"p": _P, "i": _I, "f": ctypes.c_float}
 _SIGNATURES = {
-    "blend_tiles_fwd": "pppiiipppp",
+    "blend_tiles_fwd": "pppiiipppppp",
+    "tile_fwd_partials": "pppiiifiipppp",
+    "tile_fwd_combine": "piiipppp",
+    "tile_fwd_occupancy": "ip",
     "tile_bwd_suffix": "pppppiiifppp",
     "tile_bwd_walk": "pppppppiiiipp",
     "tile_bwd_occupancy": "ip",
@@ -570,7 +618,8 @@ _SIGNATURES = {
 def blend_tiles_fwd(tile_data, tile_u0, tile_v0, n_channels=5, with_entry=False):
     """B1. Returns (accum (T, PX, n_channels), log_transmittance (T, PX)
     [, entry (T, K/SEG, PX)]): `entry` is each segment's entry
-    log-transmittance, the backward's residual."""
+    log-transmittance, the backward's residual. On the card, two launches
+    from one C call: the segments' partials, then the per-tile combine."""
     _check_rows(tile_data, tile_u0, tile_v0, n_channels)
     if _device_kind(tile_data) == "cpu":
         return blend_tiles_fwd_plain(tile_data, tile_u0, tile_v0, n_channels, with_entry)
@@ -578,20 +627,74 @@ def blend_tiles_fwd(tile_data, tile_u0, tile_v0, n_channels=5, with_entry=False)
     accum = tile_data.new_empty((t, PX, n_channels))
     logt = tile_data.new_empty((t, PX))
     entry = tile_data.new_empty((t, k // SEG, PX)) if with_entry else None
-    fn = _kernel("blend_fwd", "blend_tiles_fwd")
+    part = tile_data.new_empty((t, k // SEG, PX, n_channels + 1))
+    skip_from = torch.empty((t,), dtype=torch.int32, device=tile_data.device)
     with torch.cuda.device(tile_data.device):
-        ptrs = _cuda_args(tile_data, tile_u0, tile_v0, accum, logt)
-        rc = fn(
-            *ptrs[:3], t, k, n_channels, *ptrs[3:],
-            None if entry is None else _cuda_args(entry)[0],
-            torch.cuda.current_stream().cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"blend_tiles_fwd launch failed: CUDA error {rc}")
+        ptrs = _cuda_args(tile_data, tile_u0, tile_v0, skip_from, part, accum, logt)
+        _launch(_kernel("blend_fwd", "blend_tiles_fwd"), "blend_tiles_fwd", *ptrs[:3], t, k,
+                n_channels, *ptrs[3:], None if entry is None else _cuda_args(entry)[0])
     blend_tiles_fwd.launches += 1
     if with_entry:
         return accum, logt, entry
     return accum, logt
+
+
+def _check_partials(partials, n_channels):
+    if not 1 <= n_channels <= MAX_CHANNELS:
+        raise ValueError(f"n_channels must be in [1, 8], got {n_channels}")
+    if (partials.dtype != torch.float32 or partials.dim() != 4
+            or partials.shape[2:] != (PX, n_channels + 1)):
+        raise ValueError(f"partials must be (T, K/{SEG}, {PX}, {n_channels + 1}) float32, "
+                         f"got {tuple(partials.shape)}")
+
+
+def tile_fwd_partials_cuda(tile_data, tile_u0, tile_v0, n_channels=5, margin=DEAD_MARGIN,
+                           out=None, audit=None, reach=True, drop_warps=0):
+    """Pass 1 of B1 on the card: tile_fwd_partials_plain's partials (T,
+    K/SEG, PX, C + 1) for every segment that the kernel does not skip; the
+    skipped segments (after one that saturates its tile by itself) keep what
+    `out` held (default: torch.empty). `margin` is the dead-pair test's;
+    `audit`, an int32 (1,) tensor, counts the pairs that test or the warp
+    reach mask kills although the full formula keeps them. `reach=False`
+    walks every warp-row (the same result; for timing); `drop_warps`, a bit
+    per warp, clears warps from every row's reach mask: one bit is a planted
+    fault for the audit, ALL_WARPS walks no row (the pass's staging and
+    stores alone, for timing). The wrapper's pass; the smoke checks it."""
+    _check_rows(tile_data, tile_u0, tile_v0, n_channels)
+    t, k, _ = tile_data.shape
+    if out is None:
+        out = tile_data.new_empty((t, k // SEG, PX, n_channels + 1))
+    _check_partials(out, n_channels)
+    if out.shape[:2] != (t, k // SEG) or out.device != tile_data.device:
+        raise ValueError(f"out must be ({t}, {k // SEG}, {PX}, {n_channels + 1}) on the rows' device")
+    skip_from = torch.empty((t,), dtype=torch.int32, device=tile_data.device)
+    with torch.cuda.device(tile_data.device):
+        ptrs = _cuda_args(tile_data, tile_u0, tile_v0, skip_from, out)
+        _launch(_kernel("blend_fwd", "tile_fwd_partials"), "tile_fwd_partials", *ptrs[:3], t, k,
+                n_channels, margin, ALL_WARPS & ~drop_warps, 0 if reach else ALL_WARPS, *ptrs[3:],
+                None if audit is None else _cuda_args(audit)[0])
+    return out
+
+
+def tile_fwd_combine_cuda(partials, n_channels=5, with_entry=False):
+    """Pass 2 of B1 on the card: tile_fwd_combine_plain's outputs from the
+    partials of pass 1. The wrapper's pass; the smoke checks it."""
+    _check_partials(partials, n_channels)
+    t, n_seg = partials.shape[:2]
+    accum = partials.new_empty((t, PX, n_channels))
+    logt = partials.new_empty((t, PX))
+    entry = partials.new_empty((t, n_seg, PX)) if with_entry else None
+    with torch.cuda.device(partials.device):
+        ptrs = _cuda_args(partials, accum, logt)
+        _launch(_kernel("blend_fwd", "tile_fwd_combine"), "tile_fwd_combine", ptrs[0], t,
+                n_seg * SEG, n_channels, *ptrs[1:], None if entry is None else _cuda_args(entry)[0])
+    return (accum, logt) if entry is None else (accum, logt, entry)
+
+
+def tile_fwd_occupancy(n_channels=5):
+    """B1's two kernels at C channels as the card runs them: {pass:
+    {registers, static_smem, dynamic_smem, local_bytes, blocks_per_sm}}."""
+    return _occupancy("blend_fwd", "tile_fwd_occupancy", n_channels, ("partials", "combine"))
 
 
 def _check_bwd(tile_data, tile_u0, tile_v0, n_channels, **tensors):

@@ -5,8 +5,8 @@
 
 Phases, each fatal on failure:
   1. build the CUDA kernels from activesplat_tpu_torch/csrc; print the card
-     and B2's and B4's two kernels' registers, shared memory and resident
-     blocks;
+     and B1's, B2's and B4's two kernels' registers, shared memory and
+     resident blocks;
   2. hold each blend kernel against its plain PyTorch twin: the tile blend
      (B1, B2) on random tile rows (T=256, K=256 and the driver's K=1,024,
      C=5, with empty, saturating and padded tiles), the CSR blend (B3, B4)
@@ -33,6 +33,17 @@ Phases, each fatal on failure:
      bitwise), and planted faults (the combine reading its partials one
      segment off, the exit tested after accumulating, the dead-pair margin's
      sign flipped) are rejected;
+     B1 runs as two passes from one C call (each tile segment composited
+     alone from transmittance 1, blocks in rank-major order, then the
+     per-tile combine): on every set of tile rows checked here and in 4a,
+     each pass is held against its plain version (tile_fwd_split_checks:
+     pass 1 into a NaN-filled scratch with the dead-pair and reach-mask
+     audit, 0 live pairs killed, every walked segment computed; the combine
+     fed the kernel's partials gives the plain combine's logT and stash
+     bitwise; the wrapper equal to its passes bitwise and repeatable), and
+     planted faults (a per-segment exit, two segments' partials swapped, a
+     warp dropped from the reach masks, a stash written only for walked
+     segments, the dead-pair margin's sign flipped) are rejected;
      B2 runs as two passes (each segment's suffix total, then the walk from
      the fold of the later totals): on every set of tile rows checked here
      and in 4a, each pass is held against its plain version
@@ -76,10 +87,9 @@ Phases, each fatal on failure:
      devices with "on" and "hybrid";
   4a. on the mapping path's own rows (B1/B2: the tile rows of a k-capped
      render; B3/B4: the CSR stream of an exact render, first held against
-     the twins as in phase 2; B2 also on phase 2's K=1,024 rows, and the
-     walks of B2 and B4 again with the warp-row skip off) time each kernel
-     (its own
-     device time from
+     the twins as in phase 2; B1 and B2 also on phase 2's K=1,024 rows,
+     the walks of B2 and B4 again with the warp-row skip off and B1's pass
+     1 with the reach mask off) time each kernel (its own device time from
      torch.profiler, and its wrapper per call between CUDA events), its
      twin, and work out its bound; B6 on the slot searches of the map's
      k-capped render (its visible prefix, k=256, offsets 0 and 256), held
@@ -91,7 +101,8 @@ Phases, each fatal on failure:
      hermetic episode's start; its per-frame wall time, Gaussian count,
      metrics, shape history, stage report with host syncs, launches (B1,
      B2, B3 and B6 each launched) and a profile of one more mapping frame
-     (B2's device ms a call read from it, and B4's where it launches);
+     (B1's and B2's device ms a call read from it, and B4's where it
+     launches);
      then post_processing and a save_checkpoint / load_map round trip in a
      temporary directory, the loaded map equal to the saved one; then the
      driver on the card against the driver on the CPU over five 64x64
@@ -207,6 +218,15 @@ SPLIT_FAULTS = ("the combine reading its partials one segment off",
                 "the exit tested after accumulating", "the dead-pair margin's sign flipped")
 # kernels of one B3 or B5 wrapper call: each segment alone, then the per-tile combine
 CSR_PASSES = ("csr_partials_kernel", "csr_combine_kernel")
+# kernels of one B1 wrapper call: each tile segment alone, then the per-tile combine
+B1_PASSES = ("tile_fwd_partials_kernel", "tile_fwd_combine_kernel")
+# planted faults of B1's two passes (tile_fwd_split_checks)
+TILE_FWD_FAULTS = ("a per-segment exit in place of the whole-tile one (each segment left out on "
+                   "its own step, not on the tile's carried logT)",
+                   "the partials of a tile's first two segments swapped",
+                   "one warp dropped from the rows' reach masks",
+                   "a stash written only for walked segments",
+                   "the dead-pair margin's sign flipped")
 # kernels of one B2 wrapper call: each segment's suffix total, then the walk
 B2_PASSES = ("tile_bwd_suffix_kernel", "tile_bwd_walk_kernel")
 # planted faults of B2's two passes (tile_bwd_split_checks)
@@ -266,33 +286,43 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+EXTRA_CALLS = 5  # calls traced ahead of the averaged window
+
+
 def kernel_device_ms(torch, fn, kernels, reps: int) -> dict:
     """The device time per call of each CUDA kernel of one wrapper call:
     {name: ms} for each name in `kernels` (a kernel is the one whose name
-    contains it, launched once per call), averaged over `reps` calls of the
-    wrapper `fn` under torch.profiler. The wrapper's host work and its small
-    helper kernels are left out (back-to-back wrapper calls measure the host
-    when the kernels are shorter than the wrapper's Python)."""
+    contains it, launched once per call), the mean of exactly the last
+    `reps` launches of it in a torch.profiler trace of reps + EXTRA_CALLS
+    calls of the wrapper `fn`; each reading is printed with the launches
+    it averages and those the trace held. The wrapper's host work and its
+    small helper kernels are left out (back-to-back wrapper calls measure
+    the host when the kernels are shorter than the wrapper's Python)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()  # warm
     torch.cuda.synchronize()
-    # the trace may miss the first launches after it starts, and once in a
-    # while a whole window: average over those it holds, as long as it holds
-    # most, and trace a fresh window (at most three) when it does not
+    calls = reps + EXTRA_CALLS
+    # the trace may miss the first launches after it starts: the extra calls
+    # absorb that; a trace holding fewer than reps launches of a kernel, or
+    # more than one per call, is traced again (at most three times)
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
+            for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
         events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        times = {k: [e.time_range.elapsed_us() for e in events if k in e.name] for k in kernels}
-        seen = {k: len(t) for k, t in times.items()}
-        if all(reps // 2 <= n <= reps for n in seen.values()):
-            return {k: sum(t) / len(t) / 1e3 for k, t in times.items()}
-        print(f"the profiler saw {seen} launches in {reps} calls; tracing again")
-    raise AssertionError(f"the profiler saw {seen} launches in {reps} calls")
+        spans = {k: sorted((e.time_range.start, e.time_range.elapsed_us()) for e in events
+                           if k in e.name) for k in kernels}
+        seen = {k: len(v) for k, v in spans.items()}
+        if all(reps <= n <= calls for n in seen.values()):
+            out = {k: sum(us for _, us in v[-reps:]) / reps / 1e3 for k, v in spans.items()}
+            print("  device ms: " + ", ".join(f"{k} {out[k]:.4f} (the last {reps} of {seen[k]} "
+                                              f"launches traced in {calls} calls)" for k in kernels))
+            return out
+        print(f"the profiler saw {seen} launches in {calls} calls; tracing again")
+    raise AssertionError(f"the profiler saw {seen} launches in {calls} calls")
 
 
 def random_tiles(torch, seed: int, t: int = 256, k: int = 256):
@@ -355,10 +385,12 @@ def must_reject(name, check) -> None:
     raise AssertionError(f"the comparison missed a planted fault: {name}")
 
 
-def kernel_checks(torch, rc, rows, u0, v0, tag: str, rejected):
-    """Each kernel against its twin on the same inputs, and B2's two passes
-    against their plain versions (tile_bwd_split_checks, which counts the
-    planted faults it rejects in `rejected`).
+def kernel_checks(torch, rc, rows, u0, v0, tag: str, rejected, fwd_rejected):
+    """Each kernel against its twin on the same inputs, and the two passes
+    of B1 and of B2 against their plain versions (tile_fwd_split_checks and
+    tile_bwd_split_checks, which count the planted faults they reject in
+    `fwd_rejected` and `rejected`); errs["segments"] is B1's (computed,
+    walked).
 
     Tolerances. Both sides compute the same float32 terms; they differ in
     the order of the sums (sequential in-segment log prefix and warp-shuffle
@@ -402,6 +434,8 @@ def kernel_checks(torch, rc, rows, u0, v0, tag: str, rejected):
                     lambda: fwd_shares(acc_k, lt_k, torch.where(deep, ent_k - 1.0, ent_k)))
     must_reject("logT scaled by 1.001",
                 lambda: fwd_shares(acc_k, lt_k * 1.001 + 1e-3, ent_k))
+    segments = tile_fwd_split_checks(torch, rc, rows, u0, v0, (acc_k, lt_k, ent_k), tag,
+                                     fwd_rejected)
 
     g = torch.Generator(device="cuda").manual_seed(1)
     g_acc = torch.randn(acc_k.shape, generator=g, device="cuda")
@@ -430,6 +464,7 @@ def kernel_checks(torch, rc, rows, u0, v0, tag: str, rejected):
                    float((lt_k[strict] - lt_p[strict]).abs().max()),
                    float((ent_k[strict] - ent_p[strict]).abs().max())),
         "bwd": float((d_k - d_p).abs().max()),
+        "segments": segments,
     }
     print(f"{tag}: {int(near.sum())} boundary tiles; blend_tiles_fwd max_abs_err={errs['fwd']:.3e} "
           f"({shares['fwd']:.3f} of tolerance), blend_tiles_bwd max_abs_err={errs['bwd']:.3e} "
@@ -447,6 +482,129 @@ def tile_threshold_pairs(torch, rc, rows, u0, v0):
         _, _, power, raw, _, _ = rc._segment_geometry(rows[:, s * rc.SEG:(s + 1) * rc.SEG], px, py)
         out.append(((power <= 0) & ((raw / rc.ALPHA_MIN - 1).abs() < EDGE_RTOL)).sum(dim=1))
     return torch.stack(out, dim=1).float()
+
+
+def combine_own_step_exit(torch, rc, partials, c):
+    """tile_fwd_combine_plain with one planted fault: each segment is left
+    out on its own step (max_p L < LOG_EPS), not on the tile's carried
+    logT, so a segment that saturates its tile by itself is dropped and the
+    tile walks on past its exit."""
+    t, n_seg = partials.shape[:2]
+    accum = partials.new_zeros((t, rc.PX, c))
+    logt = partials.new_zeros((t, rc.PX))
+    entries = []
+    for s in range(n_seg):
+        entries.append(logt)
+        q = partials[:, s]
+        walk = (q[:, :, c].amax(dim=1) >= rc.LOG_EPS)[:, None]
+        accum = torch.where(walk[:, :, None], accum + torch.exp(logt)[:, :, None] * q[:, :, :c], accum)
+        logt = torch.where(walk, logt + q[:, :, c], logt)
+    return accum, logt, torch.stack(entries, dim=1)
+
+
+def tile_fwd_split_checks(torch, rc, rows, u0, v0, wrapper_out, tag, rejected):
+    """Each pass of B1 against its plain version on one set of tile rows,
+    `wrapper_out` the wrapper's (accum, logT, stash). Pass 1 runs into a
+    NaN-filled scratch with the dead-pair audit on: no pair that the
+    dead-pair test or the warp reach mask kills may be live by the full
+    formula, and every segment the wrapper's combine walked (its stash at
+    least LOG_EPS at some pixel) is computed; the computed segments'
+    partials agree with tile_fwd_partials_plain (split_checks' tolerances:
+    log steps to LOGT_ATOL + STEP_RTOL |step|, colour partials to REL_TOL of
+    each channel's largest value plus LOGT_ATOL of their own value, plus
+    what a pair within EDGE_RTOL of ALPHA_MIN alone can move). The combine,
+    fed the kernel's own partials, gives tile_fwd_combine_plain's logT and
+    stash bitwise and its image to REL_TOL, and the same outputs bitwise
+    with 1e30 in the partials of every segment it does not walk; the
+    wrapper's outputs equal the two passes' bitwise, and a second wrapper
+    call equals the first. Planted faults (TILE_FWD_FAULTS) must be
+    rejected where they change the result; `rejected` counts them. Returns
+    (segments computed, segments walked)."""
+    c = N_CHANNELS
+    t, k, _ = rows.shape
+    walked = wrapper_out[2].amax(dim=2) >= rc.LOG_EPS  # (T, K/SEG)
+    audit = torch.zeros(1, dtype=torch.int32, device="cuda")
+    part = torch.full((t, k // rc.SEG, rc.PX, c + 1), float("nan"), device="cuda")
+    rc.tile_fwd_partials_cuda(rows, u0, v0, c, out=part, audit=audit)
+
+    def none_killed(count):
+        if count:
+            raise AssertionError(f"{tag}: B1's dead-pair test and reach mask killed {count} live pairs")
+
+    none_killed(int(audit))
+    computed = ~torch.isnan(part).any(dim=(2, 3))
+    if bool((walked & ~computed).any()):
+        raise AssertionError(f"{tag}: B1 pass 1 left {int((walked & ~computed).sum())} walked "
+                             f"segments unwritten")
+    plain = rc.tile_fwd_partials_plain(rows, u0, v0, c)
+    got, want = part[computed], plain[computed]  # (segments, PX, C + 1)
+    col_max = want[:, :, :c].abs().amax(dim=(0, 1))
+    edge = tile_threshold_pairs(torch, rc, rows, u0, v0)[computed][:, :, None]
+    a_edge = rc.ALPHA_MIN * (1 + EDGE_RTOL)
+    col_rows = rows[:, :, 6:6 + c].abs().amax(dim=(0, 1))
+    share1 = max(check_close(f"{tag} B1 pass 1 colour partials", got[:, :, :c], want[:, :, :c],
+                             REL_TOL * col_max + LOGT_ATOL * want[:, :, :c].abs()
+                             + edge * a_edge * (col_rows + want[:, :, :c].abs())),
+                 check_close(f"{tag} B1 pass 1 log steps", got[:, :, c:], want[:, :, c:],
+                             LOGT_ATOL + STEP_RTOL * want[:, :, c:].abs()
+                             - edge * math.log1p(-a_edge)))
+
+    comb = rc.tile_fwd_combine_cuda(part, c, with_entry=True)
+    acc_max = comb[0].abs().amax(dim=(0, 1))
+
+    def combine_share(candidate):
+        """The combine's outputs against `candidate` (tile_fwd_combine_plain's,
+        or a faulty version): logT and the stash bitwise, accum to REL_TOL of
+        each channel's largest value."""
+        for what, got_c, want_c in zip(("logT", "stash"), comb[1:], candidate[1:]):
+            if not torch.equal(got_c, want_c):
+                raise AssertionError(f"{tag}: B1's combine {what} is not bitwise its plain "
+                                     f"version's at {int((got_c != want_c).sum())} values")
+        return check_close(f"{tag} B1 combine accum", candidate[0], comb[0], REL_TOL * acc_max)
+
+    plain_comb = rc.tile_fwd_combine_plain(part, c, with_entry=True)
+    share2 = combine_share(plain_comb)
+    junk = torch.where(walked[:, :, None, None], part, torch.full_like(part, 1e30))
+    if not all(torch.equal(a, b) for a, b in zip(rc.tile_fwd_combine_cuda(junk, c, True), comb)):
+        raise AssertionError(f"{tag}: B1's combine depends on partials it does not walk")
+    if not all(torch.equal(a, b) for a, b in zip(wrapper_out, comb)):
+        raise AssertionError(f"{tag}: the B1 wrapper's outputs differ from its two passes'")
+    if not all(torch.equal(a, b) for a, b in
+               zip(rc.blend_tiles_fwd(rows, u0, v0, c, with_entry=True), wrapper_out)):
+        raise AssertionError(f"{tag}: two B1 wrapper calls on the same inputs differ")
+
+    swapped = part.clone()
+    swapped[:, :2] = part[:, [1, 0]]  # K >= 128 on every set of rows checked
+    own = combine_own_step_exit(torch, rc, part, c)
+    first_only = (plain_comb[0], plain_comb[1],
+                  torch.where(walked[:, :, None], plain_comb[2], torch.zeros_like(plain_comb[2])))
+    dropped = torch.zeros(1, dtype=torch.int32, device="cuda")
+    rc.tile_fwd_partials_cuda(rows, u0, v0, c, audit=dropped, drop_warps=1)
+    flip = torch.zeros(1, dtype=torch.int32, device="cuda")
+    rc.tile_fwd_partials_cuda(rows, u0, v0, c, margin=-rc.DEAD_MARGIN, audit=flip)
+    candidates = {TILE_FWD_FAULTS[0]: own,
+                  TILE_FWD_FAULTS[1]: rc.tile_fwd_combine_plain(swapped, c, with_entry=True),
+                  TILE_FWD_FAULTS[3]: first_only}
+    faults = {name: (lambda x=x: combine_share(x)) for name, x in candidates.items()}
+    shows = {name: not all(torch.equal(a, b) for a, b in zip(x, plain_comb))
+             for name, x in candidates.items()}
+    faults[TILE_FWD_FAULTS[2]] = lambda: none_killed(int(dropped))
+    shows[TILE_FWD_FAULTS[2]] = int(dropped) > 0
+    faults[TILE_FWD_FAULTS[4]] = lambda: none_killed(int(flip))
+    shows[TILE_FWD_FAULTS[4]] = int(flip) > 0
+    for name, check in faults.items():
+        if shows[name]:
+            must_reject(name, check)
+            rejected[name] += 1
+    n_computed, n_walked = int(computed.sum()), int(walked.sum())
+    print(f"{tag}: B1 pass 1 computed {n_computed} of {computed.numel()} tile segments "
+          f"({n_walked} walked; {int(edge.sum())} pairs at the alpha threshold), 0 live pairs "
+          f"killed by the dead-pair test and reach mask ({int(flip)} with the margin flipped, "
+          f"{int(dropped)} with warp 0 dropped from the masks), partials within {share1:.3f} of "
+          f"tolerance; the combine's logT and stash bitwise its plain version's, image within "
+          f"{share2:.3f}; the wrapper equals its passes bitwise and repeats bitwise; "
+          f"{sum(shows.values())} planted faults rejected")
+    return n_computed, n_walked
 
 
 def tile_bwd_split_checks(torch, rc, bwd_args, d_k, tag, rejected):
@@ -1429,8 +1587,8 @@ def driver_phase(torch, np, rc, rt, card, by_phase, int_rate: float) -> dict:
     (see the module docstring). Its launches go into by_phase["mapper
     driver"]: B2 and B6 once per mapping iteration (B1 and B6 also in any
     exact render's fallback), B3 in every densify and exact online render,
-    B5 never. Returns B2's and B4's device ms a call in the profiled mapping
-    frame (B4: None where the frame launched none)."""
+    B5 never. Returns B1's, B2's and B4's device ms a call in the profiled
+    mapping frame (B4: None where the frame launched none)."""
     import dataclasses
     import os
     import tempfile
@@ -1511,12 +1669,20 @@ def driver_phase(torch, np, rc, rt, card, by_phase, int_rate: float) -> dict:
                 watched = profile_calls(torch, lambda: mapper.run(frames[DRIVER_FRAMES]), 1,
                                    sum(mapping_ms) / len(mapping_ms), card,
                                    "mapper frame (a mapping frame)", ("device", "host"),
-                                   B2_PASSES + B4_PASSES)
+                                   B1_PASSES + B2_PASSES + B4_PASSES)
             finally:
                 rt.bin_slots = real_slots
             rc.reset_launch_counts()
             if not seen:
                 raise AssertionError("driver: the profiled mapping frame ran no slot search")
+            calls_b1 = watched[B1_PASSES[1]][0]
+            if not calls_b1 or watched[B1_PASSES[0]][0] != calls_b1:
+                raise AssertionError(f"driver: the profiled mapping frame's B1 launches {watched}")
+            driver_b1 = {"calls": calls_b1, "k": mapper.cfg.k_per_tile,
+                         "pass_ms": {n: watched[n][1] for n in B1_PASSES},
+                         "ms": sum(watched[n][1] for n in B1_PASSES)}
+            print(f"driver: B1 {driver_b1['ms']:.4f} ms a call ({calls_b1} calls in the profiled "
+                  f"mapping frame at k={driver_b1['k']}: {driver_b1['pass_ms']}) on {card}")
             calls_b2 = watched[B2_PASSES[1]][0]
             if not calls_b2 or watched[B2_PASSES[0]][0] != calls_b2:
                 raise AssertionError(f"driver: the profiled mapping frame's B2 launches {watched}")
@@ -1593,7 +1759,7 @@ def driver_phase(torch, np, rc, rt, card, by_phase, int_rate: float) -> dict:
         small_driver_check(torch, np, world)
     finally:
         rt._BIN_KERNEL = False
-    return driver_b2, driver_b4
+    return driver_b1, driver_b2, driver_b4
 
 
 def small_driver_check(torch, np, world, res: int = 64, frames: int = 5) -> None:
@@ -1715,39 +1881,41 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
     print(card)  # name, power limit as nvidia-smi reports them
     print(f"max SM clock {max_sm_mhz:.0f} MHz")
-    b2_occupancy = rc.tile_bwd_occupancy(N_CHANNELS)
-    for name, occ in b2_occupancy.items():
-        print(f"B2 pass {name} (C={N_CHANNELS}): {occ['registers']} registers a thread, "
-              f"{occ['static_smem']} B static and {occ['dynamic_smem']} B dynamic shared memory a "
-              f"block, {occ['local_bytes']} B local, {occ['blocks_per_sm']} resident blocks of 256 "
-              f"threads a SM")
-    b4_occupancy = rc.csr_bwd_occupancy(N_CHANNELS)
-    for name, occ in b4_occupancy.items():
-        print(f"B4 pass {name} (C={N_CHANNELS}): {occ['registers']} registers a thread, "
-              f"{occ['static_smem']} B static and {occ['dynamic_smem']} B dynamic shared memory a "
-              f"block, {occ['local_bytes']} B local, {occ['blocks_per_sm']} resident blocks of 256 "
-              f"threads a SM")
+    occupancy = {"B1": rc.tile_fwd_occupancy(N_CHANNELS), "B2": rc.tile_bwd_occupancy(N_CHANNELS),
+                 "B4": rc.csr_bwd_occupancy(N_CHANNELS)}
+    for kernel, passes in occupancy.items():
+        for name, occ in passes.items():
+            print(f"{kernel} pass {name} (C={N_CHANNELS}): {occ['registers']} registers a thread, "
+                  f"{occ['static_smem']} B static and {occ['dynamic_smem']} B dynamic shared "
+                  f"memory a block, {occ['local_bytes']} B local, {occ['blocks_per_sm']} resident "
+                  f"blocks of 256 threads a SM")
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     sfu_rate = SFU_PER_CLOCK_PER_SM * n_sm * max_sm_mhz * 1e6
     int_rate = INT32_PER_CLOCK_PER_SM * n_sm * max_sm_mhz * 1e6
 
     # ---- phase 2: kernels against their twins -------------------------- #
     tile_rejected = dict.fromkeys(TILE_SPLIT_FAULTS, 0)  # planted faults of B2's two passes
+    fwd_rejected = dict.fromkeys(TILE_FWD_FAULTS, 0)  # planted faults of B1's two passes
     rows, u0, v0 = random_tiles(torch, seed=0)
-    errs, _ = kernel_checks(torch, rc, rows, u0, v0, "random tiles T=256 K=256", tile_rejected)
+    errs, _ = kernel_checks(torch, rc, rows, u0, v0, "random tiles T=256 K=256", tile_rejected,
+                            fwd_rejected)
     rows_p, u0_p, v0_p = random_tiles(torch, seed=1, k=192)  # K not a SEG multiple...
     rows_p = torch.nn.functional.pad(rows_p, (0, 0, 0, 64))  # ...padded to 256
     rows_p[:, 192:, 0:2] = -1e9
     rows_p[:, 192:, 2:5] = 1.0
     errs_p, _ = kernel_checks(torch, rc, rows_p.contiguous(), u0_p, v0_p, "padded K=192->256",
-                              tile_rejected)
+                              tile_rejected, fwd_rejected)
     # the driver's k=1,024: the fold spans 16 segments
     rows_k, u0_k, v0_k = random_tiles(torch, seed=2, k=1024)
     errs_k, (entry_k, g_acc_k, g_lt_k) = kernel_checks(torch, rc, rows_k, u0_k, v0_k,
-                                                        "random tiles T=256 K=1024", tile_rejected)
+                                                        "random tiles T=256 K=1024", tile_rejected,
+                                                        fwd_rejected)
     k1024_args = (rows_k, u0_k, v0_k, entry_k, g_acc_k, g_lt_k, N_CHANNELS)
-    for k in errs:
+    for k in ("fwd", "bwd"):
         errs[k] = max(errs[k], errs_p[k], errs_k[k])
+    if not all(fwd_rejected.values()):
+        raise AssertionError(f"a planted fault of B1's two passes never showed on the random "
+                             f"tiles: {fwd_rejected}")
     if not all(tile_rejected.values()):
         raise AssertionError(f"a planted fault of B2's two passes never showed on the random "
                              f"tiles: {tile_rejected}")
@@ -1965,7 +2133,8 @@ def main() -> int:
     rows, u0, v0 = main_path_rows(torch, buf, cam)
     t, k, _ = rows.shape
     errs_m, (entry, g_acc, g_lt) = kernel_checks(torch, rc, rows, u0, v0,
-                                                 f"main-path rows T={t} K={k}", tile_rejected)
+                                                 f"main-path rows T={t} K={k}", tile_rejected,
+                                                 fwd_rejected)
     walked, live, live_wr = pair_counts(torch, rc, rows, u0, v0, entry)
     n_walked_seg = walked // (rc.SEG * rc.PX)
     seg_bytes = rc.SEG * rc.N_ATTR * 4
@@ -2015,7 +2184,7 @@ def main() -> int:
           f"{csr_errs_m['segments'][0]} computed by pass 1 ({visited} tiles with entries), "
           f"{c_walked} (row, pixel) pairs walked, {c_live} of them live ({c_live / c_walked:.4f})")
 
-    # "ms" is the kernel's own device time (profiler; B3 and B5: both passes
+    # "ms" is the kernel's own device time (profiler; B1-B5: both passes
     # summed, each in "pass_ms"); "wrapper_ms" the time per call of 100
     # back-to-back wrapper calls between CUDA events, which includes the
     # wrapper's helper kernels and, where the host is slower than the
@@ -2036,11 +2205,25 @@ def main() -> int:
 
     measure("blend_tiles_fwd", "activesplat_tpu_torch/csrc/blend_fwd.cu", FWD_REPLACES,
             lambda: rc.blend_tiles_fwd(*fwd_args, with_entry=True),
-            lambda: rc.blend_tiles_fwd_plain(*fwd_args, with_entry=True), ("blend_fwd_kernel",),
-            fwd_bound, max(errs["fwd"], errs_m["fwd"]))
+            lambda: rc.blend_tiles_fwd_plain(*fwd_args, with_entry=True), B1_PASSES,
+            fwd_bound, max(errs["fwd"], errs_m["fwd"]), occupancy=occupancy["B1"],
+            pairs={"walked": walked, "live": live, "live_warp_rows": live_wr,
+                   "warp_rows": walked // 32},
+            segments=dict(zip(("computed", "walked"), errs_m["segments"]), all=t * (k // rc.SEG)))
+    b1_entry = measured[-1]
+
+    def partials_variants(rows_r, u0_r, v0_r):
+        """B1's pass 1 device ms with every warp walking every row, and with
+        no row walked (its staging and stores alone)."""
+        return {name: kernel_device_ms(torch, lambda kw=kw: rc.tile_fwd_partials_cuda(
+            rows_r, u0_r, v0_r, N_CHANNELS, **kw), B1_PASSES[:1], 20)[B1_PASSES[0]]
+            for name, kw in (("partials_ms_without_reach_mask", {"reach": False}),
+                             ("partials_ms_walking_no_row", {"drop_warps": rc.ALL_WARPS}))}
+
+    b1_entry.update(partials_variants(rows, u0, v0))
     measure("blend_tiles_bwd", "activesplat_tpu_torch/csrc/blend_bwd.cu", BWD_REPLACES,
             lambda: rc.blend_tiles_bwd(*bwd_args), lambda: rc.blend_tiles_bwd_plain(*bwd_args),
-            B2_PASSES, bwd_bound, max(errs["bwd"], errs_m["bwd"]), occupancy=b2_occupancy,
+            B2_PASSES, bwd_bound, max(errs["bwd"], errs_m["bwd"]), occupancy=occupancy["B2"],
             pairs={"walked": walked, "live": live, "live_warp_rows": live_wr,
                    "warp_rows": walked // 32})
     b2_entry = measured[-1]
@@ -2070,7 +2253,34 @@ def main() -> int:
               f"{pr['live_warp_rows']} of {pr['warp_rows']} ({pr['live_warp_rows'] / pr['warp_rows']:.4f}) "
               f"on {card}")
     print(f"planted faults of B2's two passes rejected (tile rows): {tile_rejected}")
-    del k1024_args, rows_k, entry_k, g_acc_k, g_lt_k
+    # B1 at the driver's k=1,024 on the same rows: the walked segments' rows,
+    # the origins, the pixels' outputs and the stash
+    fwd_k = (rows_k, u0_k, v0_k, N_CHANNELS)
+    fwd_bytes_k = (walked_k // (rc.SEG * rc.PX) * seg_bytes + 2 * t_k * 4
+                   + px_bytes * (N_CHANNELS + 1 + k_k // rc.SEG))
+    b1_ms_k, b1_by_k = bound(fwd_bytes_k, walked_k, live_k, live_f32_fwd(N_CHANNELS))
+    pass_ms_k = kernel_device_ms(torch, lambda: rc.blend_tiles_fwd(*fwd_k, with_entry=True),
+                                 B1_PASSES, 20)
+    b1_entry["random_k1024"] = {
+        "ms": sum(pass_ms_k.values()), "pass_ms": pass_ms_k,
+        "wrapper_ms": cuda_ms(lambda: rc.blend_tiles_fwd(*fwd_k, with_entry=True), 100),
+        "plain_ms": cuda_ms(lambda: rc.blend_tiles_fwd_plain(*fwd_k, with_entry=True), 5),
+        "bound_ms": b1_ms_k, "bound_by": b1_by_k,
+        **partials_variants(rows_k, u0_k, v0_k),
+        "pairs": b2_entry["random_k1024"]["pairs"],
+        "segments": dict(zip(("computed", "walked"), errs_k["segments"]), all=t_k * (k_k // rc.SEG))}
+    for label, e in (("main-path rows K=256", b1_entry), ("random rows K=1024", b1_entry["random_k1024"])):
+        pr, sg = e["pairs"], e["segments"]
+        print(f"B1 on the {label}: kernel {e['ms']:.4f} ms {e['pass_ms']}, wrapper "
+              f"{e['wrapper_ms']:.4f} ms, twin {e['plain_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms "
+              f"({e['bound_by']}, {e['bound_ms'] / e['ms']:.3f} of it reached); pass 1 "
+              f"{e['partials_ms_without_reach_mask']:.4f} ms without the reach mask, "
+              f"{e['partials_ms_walking_no_row']:.4f} ms walking no row; "
+              f"{sg['computed']} of {sg['all']} segments computed by pass 1 for {sg['walked']} "
+              f"walked; {pr['walked']} pairs walked, {pr['live']} live, live warp-rows "
+              f"{pr['live_warp_rows']} of {pr['warp_rows']} on {card}")
+    print(f"planted faults of B1's two passes rejected (tile rows): {fwd_rejected}")
+    del k1024_args, rows_k, entry_k, g_acc_k, g_lt_k, fwd_k
     measure("blend_csr_fwd", "activesplat_tpu_torch/csrc/blend_csr_fwd.cu", CSR_FWD_REPLACES,
             lambda: rc.blend_csr_fwd(*csr_args, with_entry=True),
             lambda: rc.blend_csr_fwd_plain(*csr_args, with_entry=True), CSR_PASSES,
@@ -2080,7 +2290,7 @@ def main() -> int:
     measure("blend_csr_bwd", "activesplat_tpu_torch/csrc/blend_csr_bwd.cu", CSR_BWD_REPLACES,
             lambda: rc.blend_csr_bwd(*csr_bwd_args), lambda: rc.blend_csr_bwd_plain(*csr_bwd_args),
             B4_PASSES, bound(csr_bwd_bytes, c_walked, c_live, live_f32_bwd(N_CHANNELS)),
-            max(csr_errs["bwd"], csr_errs_m["bwd"]), occupancy=b4_occupancy,
+            max(csr_errs["bwd"], csr_errs_m["bwd"]), occupancy=occupancy["B4"],
             stream="training (main-path CSR stream)",
             pairs={"walked": c_walked, "live": c_live})
     b4_entry = measured[-1]
@@ -2132,7 +2342,7 @@ def main() -> int:
     del seen, prefix, bin_args, bin_lists
 
     # ---- phase 3d: the per-frame mapper driver ------------------------- #
-    b2_entry["driver_frame"], b4_entry["driver_frame"] = driver_phase(
+    b1_entry["driver_frame"], b2_entry["driver_frame"], b4_entry["driver_frame"] = driver_phase(
         torch, np, rc, rt, card, by_phase, int_rate)
 
     # ---- phase 3c: the planner's map queries at 1,000,000 Gaussians ----- #
