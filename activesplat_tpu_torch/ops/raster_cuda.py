@@ -38,10 +38,13 @@ segment), then a per-tile combine that walks the segments' partials in
 order with the exit test; csr_partials_plain and csr_combine_plain are the
 passes' plain versions.
 
-Bin slot search (B6): for each tile, the depth-ordered member ids at list
-positions [off, off + K), from the tile's per-128-block member-count cumsum
-and one packed AABB word per Gaussian (the k-capped bin's kernel route,
-ops/raster_tiled.py).
+Bin (B6, the k-capped bin's kernel route, ops/raster_tiled.py): two
+kernels in csrc/bin_slots.cu with torch.cumsum between them. bin_count:
+one packed AABB word per Gaussian and each 128-Gaussian block's member
+count in every tile, (nb, T); bin_slots: from their inclusive cumsum over
+blocks, each tile's depth-ordered member ids at list positions [off, off +
+K), one block per 128-Gaussian block writing its members into their slots.
+bin_count_plain and bin_slots_plain are their plain versions.
 
 Each wrapper launches its CUDA kernel (csrc/blend_fwd.cu, blend_bwd.cu,
 blend_csr_fwd.cu, blend_csr_bwd.cu, blend_csr_dual.cu, bin_slots.cu) for a
@@ -58,6 +61,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from activesplat_tpu_torch import _build
@@ -74,7 +78,8 @@ MAX_CHANNELS = 8
 BAND_COL = 14  # padding column of a CSR entry row carrying the band bit (B5)
 LOG_EPS = -5.55  # log(1/256): tile saturated below this transmittance
 BIN_BLOCK = 128  # Gaussians per block of the bin's counting front (B6)
-BIN_MAX_BLOCKS = 4096  # the bin kernel's gate: a tile's cum row fits in 16 KB
+BIN_MAX_BLOCKS = 4096  # the bin kernel route's gate (the reference's)
+BIN_MAX_TILES = 256  # tile columns and rows a packed word's bytes hold
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -611,6 +616,7 @@ _SIGNATURES = {
     "csr_bwd_occupancy": "ip",
     "blend_csr_dual_partials": "ppppiiifpppp",
     "blend_csr_dual_combine": "pppiipppp",
+    "bin_count": "pppppiiippp",
     "bin_slots": "ppiiiiiipp",
 }
 
@@ -942,11 +948,39 @@ def csr_bwd_occupancy(n_channels=5):
     return _occupancy("blend_csr_bwd", "csr_bwd_occupancy", n_channels, ("pieces", "walk"))
 
 
-def bin_slots_plain(cum, aabb, k, slot_offset, tiles_x, n):
-    """The bin kernel's function in PyTorch (the CPU path), computed as the
-    reference's two-level slot search: each slot's block from the count of
-    blocks whose inclusive count is at most the slot, the block's membership
-    bits from the packed AABB words, and the in-block prefix."""
+def bin_count_plain(valid, tx0, tx1, ty0, ty1, tiles_x, tiles_y):
+    """Pass 1 of the bin route in PyTorch, the reference's counting front
+    (raster_tiled.py:141-156): the (block, tile) member counts as one
+    float32 product of the (nb, 128, tiles_y) and (nb, 128, tiles_x)
+    interval indicators, exact since a count is at most 128 and TF32 is
+    off, and the packed AABB words, an invalid or padding Gaussian's the
+    empty interval tx0 = 255 > tx1 = 0 as in the reference's byte planes.
+    Returns (words (nb * 128,) int32, counts (nb, T) int32)."""
+    n = valid.shape[0]
+    nb = -(-n // BIN_BLOCK)
+    pad = nb * BIN_BLOCK - n
+    dev = valid.device
+    cols = torch.arange(tiles_x, dtype=torch.float32, device=dev)
+    rows = torch.arange(tiles_y, dtype=torch.float32, device=dev)
+    in_x = ((cols >= tx0[:, None]) & (cols <= tx1[:, None]) & valid[:, None]).to(torch.float32)
+    in_y = ((rows >= ty0[:, None]) & (rows <= ty1[:, None])).to(torch.float32)
+    in_x = F.pad(in_x, (0, 0, 0, pad)).view(nb, BIN_BLOCK, tiles_x)
+    in_y = F.pad(in_y, (0, 0, 0, pad)).view(nb, BIN_BLOCK, tiles_y)
+    counts = torch.bmm(in_y.transpose(1, 2), in_x)  # (nb, ty, tx)
+
+    x0, x1, y0, y1 = (b.to(torch.int64) for b in (tx0, tx1, ty0, ty1))
+    word = torch.where(valid, (x0 << 24) | (x1 << 16) | (y0 << 8) | y1, 255 << 24)
+    word = F.pad(word, (0, pad), value=255 << 24)
+    word = torch.where(word >= 1 << 31, word - (1 << 32), word).to(torch.int32)  # as int32 bits
+    return word, counts.view(nb, tiles_x * tiles_y).to(torch.int32)
+
+
+def bin_slots_plain(cum_t, aabb, k, slot_offset, tiles_x, n):
+    """Pass 2 of the bin route in PyTorch, computed as the reference's
+    two-level slot search: each slot's block from the count of blocks whose
+    inclusive count is at most the slot, the block's membership bits from
+    the packed AABB words, and the in-block prefix."""
+    cum = cum_t.T.contiguous()  # (T, nb): each tile's row, for the search
     t, nb = cum.shape
     ks = slot_offset + torch.arange(k, dtype=torch.int32, device=cum.device)
     blk = torch.searchsorted(cum, ks.expand(t, k).contiguous(), right=True)  # (T, K)
@@ -969,31 +1003,87 @@ def bin_slots_plain(cum, aabb, k, slot_offset, tiles_x, n):
     return torch.where(ks[None, :] < cum[:, -1:], indices, n)
 
 
-def bin_slots(cum, aabb, k, slot_offset, tiles_x, n):
-    """B6. The depth-ordered member ids at list positions [slot_offset,
-    slot_offset + k) of every tile: (T, k) int64, the sentinel n past a
-    tile's count. `cum` (T, nb) int32 holds each tile's inclusive cumsum of
-    member counts over 128-Gaussian blocks (nb <= BIN_MAX_BLOCKS); `aabb`
-    (nb * 128,) int32 one packed tile AABB per Gaussian, tx0 << 24 | tx1 <<
-    16 | ty0 << 8 | ty1, with tx0 = 255 for an invalid or padding Gaussian."""
-    if cum.dtype != torch.int32 or cum.dim() != 2 or not 1 <= cum.shape[1] <= BIN_MAX_BLOCKS:
-        raise ValueError(f"cum must be (T, nb) int32 with 1 <= nb <= {BIN_MAX_BLOCKS}: {cum.shape}")
-    t, nb = cum.shape
-    if aabb.dtype != torch.int32 or aabb.shape != (nb * BIN_BLOCK,) or aabb.device != cum.device:
-        raise ValueError(f"aabb must be ({nb * BIN_BLOCK},) int32 on cum's device")
-    if _device_kind(cum) == "cpu":
-        return bin_slots_plain(cum, aabb, k, slot_offset, tiles_x, n)
-    out = torch.empty((t, k), dtype=torch.int64, device=cum.device)
-    fn = _kernel("bin_slots", "bin_slots")
-    with torch.cuda.device(cum.device):
-        ptrs = _cuda_args(cum, aabb, out)
-        rc = fn(
-            *ptrs[:2], t, nb, k, int(slot_offset), tiles_x, n, ptrs[2],
-            torch.cuda.current_stream().cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"bin_slots launch failed: CUDA error {rc}")
+def _check_bin_count(valid, bounds, tiles_x, tiles_y):
+    if valid.dtype != torch.bool or valid.dim() != 1 or not 1 <= valid.shape[0]:
+        raise ValueError(f"valid must be (N,) bool with N >= 1, got {tuple(valid.shape)}")
+    n = valid.shape[0]
+    if -(-n // BIN_BLOCK) > BIN_MAX_BLOCKS:
+        raise ValueError(f"at most {BIN_MAX_BLOCKS} blocks of {BIN_BLOCK} Gaussians, got N={n}")
+    for x in bounds:
+        if x.dtype != torch.float32 or x.shape != (n,) or x.device != valid.device:
+            raise ValueError(f"tile bounds must be ({n},) float32 on valid's device")
+    if not (1 <= tiles_x <= BIN_MAX_TILES and 1 <= tiles_y <= BIN_MAX_TILES):
+        raise ValueError(f"the packed words hold at most {BIN_MAX_TILES} x {BIN_MAX_TILES} "
+                         f"tiles, got {tiles_x} x {tiles_y}")
+
+
+def bin_count(valid, tx0, tx1, ty0, ty1, tiles_x, tiles_y):
+    """B6, pass 1 of the route. `valid` (N,) bool and the tile bounds (N,)
+    float32 from raster_tiled.tile_aabbs (integral, clamped to the grid).
+    Returns (words (nb * 128,) int32: tx0 << 24 | tx1 << 16 | ty0 << 8 |
+    ty1 a Gaussian, 255 << 24 for an invalid or padding one; counts (nb, T)
+    int32: each 128-Gaussian block's members in each tile). On the card one
+    launch."""
+    _check_bin_count(valid, (tx0, tx1, ty0, ty1), tiles_x, tiles_y)
+    if _device_kind(valid) == "cpu":
+        return bin_count_plain(valid, tx0, tx1, ty0, ty1, tiles_x, tiles_y)
+    out = bin_count_cuda(valid, tx0, tx1, ty0, ty1, tiles_x, tiles_y)
+    bin_count.launches += 1
+    return out
+
+
+def bin_count_cuda(valid, tx0, tx1, ty0, ty1, tiles_x, tiles_y):
+    """Pass 1 of B6 on the card: bin_count_plain's (words, counts). The
+    wrapper's pass; the smoke checks it."""
+    _check_bin_count(valid, (tx0, tx1, ty0, ty1), tiles_x, tiles_y)
+    n = valid.shape[0]
+    nb = -(-n // BIN_BLOCK)
+    t = tiles_x * tiles_y
+    words = torch.empty((nb * BIN_BLOCK,), dtype=torch.int32, device=valid.device)
+    counts = torch.empty((nb, t), dtype=torch.int32, device=valid.device)
+    with torch.cuda.device(valid.device):
+        ptrs = _cuda_args(valid, tx0, tx1, ty0, ty1, words, counts)
+        _launch(_kernel("bin_slots", "bin_count"), "bin_count", *ptrs[:5], n, tiles_x, t,
+                *ptrs[5:])
+    return words, counts
+
+
+def _check_bin_slots(cum_t, aabb):
+    if (cum_t.dtype != torch.int32 or cum_t.dim() != 2
+            or not 1 <= cum_t.shape[0] <= BIN_MAX_BLOCKS):
+        raise ValueError(f"cum_t must be (nb, T) int32 with 1 <= nb <= {BIN_MAX_BLOCKS}: "
+                         f"{tuple(cum_t.shape)}")
+    nb = cum_t.shape[0]
+    if aabb.dtype != torch.int32 or aabb.shape != (nb * BIN_BLOCK,) or aabb.device != cum_t.device:
+        raise ValueError(f"aabb must be ({nb * BIN_BLOCK},) int32 on cum_t's device")
+
+
+def bin_slots(cum_t, aabb, k, slot_offset, tiles_x, n):
+    """B6, pass 2 of the route. The depth-ordered member ids at list
+    positions [slot_offset, slot_offset + k) of every tile: (T, k) int64,
+    the sentinel n past a tile's count. `cum_t` (nb, T) int32 holds each
+    tile's inclusive cumsum of member counts over 128-Gaussian blocks (nb
+    <= BIN_MAX_BLOCKS; the reference's layout); `aabb` (nb * 128,) int32
+    the packed words of bin_count. On the card one launch; `launches`
+    counts the route's calls."""
+    _check_bin_slots(cum_t, aabb)
+    if _device_kind(cum_t) == "cpu":
+        return bin_slots_plain(cum_t, aabb, k, slot_offset, tiles_x, n)
+    out = bin_slots_cuda(cum_t, aabb, k, slot_offset, tiles_x, n)
     bin_slots.launches += 1
+    return out
+
+
+def bin_slots_cuda(cum_t, aabb, k, slot_offset, tiles_x, n):
+    """Pass 2 of B6 on the card: bin_slots_plain's ids, every slot written.
+    The wrapper's pass; the smoke checks it."""
+    _check_bin_slots(cum_t, aabb)
+    nb, t = cum_t.shape
+    out = torch.empty((t, k), dtype=torch.int64, device=cum_t.device)
+    with torch.cuda.device(cum_t.device):
+        ptrs = _cuda_args(cum_t, aabb, out)
+        _launch(_kernel("bin_slots", "bin_slots"), "bin_slots", *ptrs[:2], nb, t, k,
+                int(slot_offset), tiles_x, n, ptrs[2])
     return out
 
 
@@ -1020,8 +1110,10 @@ blend_csr_fwd.launches = 0
 blend_csr_bwd.launches = 0
 blend_csr_dual_fwd.launches = 0
 bin_slots.launches = 0
+bin_count.launches = 0
 KERNELS = (
-    blend_tiles_fwd, blend_tiles_bwd, blend_csr_fwd, blend_csr_bwd, blend_csr_dual_fwd, bin_slots
+    blend_tiles_fwd, blend_tiles_bwd, blend_csr_fwd, blend_csr_bwd, blend_csr_dual_fwd, bin_slots,
+    bin_count,
 )
 
 

@@ -8,7 +8,8 @@ The k-capped path (rasterize_tiled):
      reference's counting hierarchy builds: by default by duplicating each
      Gaussian once per overlapped tile and sorting the (tile, depth rank)
      pairs; with ACTIVESPLAT_BIN_KERNEL=1 (read at import, as the reference
-     reads it) by per-block member counts and the slot-search kernel B6;
+     reads it) by B6's two kernels: per-block member counts, then each
+     128-Gaussian block writing its members into their slots;
   3. gather each tile's rows from the unsorted, differentiable attributes and
      blend them in the CUDA tile-blend kernels B1/B2 (ops/raster_cuda.py).
 With max_passes > 1 farther k-windows of each list fold in until every
@@ -50,6 +51,7 @@ from activesplat_tpu_torch.ops.raster_cuda import (
     SEG,
     TILE,
     _pixel_coords,
+    bin_count,
     bin_slots,
     blend_csr,
     blend_csr_dual_fwd,
@@ -115,8 +117,8 @@ def bin_gaussians(
     `use_kernel` (None: the import-time ACTIVESPLAT_BIN_KERNEL switch) is
     set and the reference's static gate holds (k a multiple of 128, at most
     BIN_MAX_BLOCKS blocks of 128 Gaussians): per-(block, tile) member counts
-    from one product of the separable tile-interval indicators, their
-    cumsum over blocks, and the slot search in bin_slots. No host sync.
+    and packed AABB words from bin_count, their cumsum over blocks, and the
+    members written into their slots by bin_slots. No host sync.
     Otherwise the sort route: each membership becomes a (tile, depth rank)
     pair, sorted by tile. One host sync (the number of pairs)."""
     n = mean2d.shape[0]
@@ -169,33 +171,13 @@ def _lists(indices, count_full, k_per_tile, slot_offset) -> TileLists:
 
 
 def _bin_kernel_route(valid, tx0, tx1, ty0, ty1, tiles_x, tiles_y, k_per_tile, slot_offset):
-    """bin_gaussians through B6 (see there). The counting front is the
-    reference's (raster_tiled.py:136-156): the (block, tile) member counts
-    are one float32 product of the (nb, 128, tiles_y) and (nb, 128,
-    tiles_x) interval indicators, exact since a count is at most 128 and
-    TF32 is off. The packed AABB words carry the reference's invalid and
-    padding value tx0 = 255, an empty interval."""
-    n = valid.shape[0]
-    nb = -(-n // BIN_BLOCK)
-    pad = nb * BIN_BLOCK - n
-    dev = valid.device
-    cols = torch.arange(tiles_x, dtype=torch.float32, device=dev)
-    rows = torch.arange(tiles_y, dtype=torch.float32, device=dev)
-    in_x = ((cols >= tx0[:, None]) & (cols <= tx1[:, None]) & valid[:, None]).to(torch.float32)
-    in_y = ((rows >= ty0[:, None]) & (rows <= ty1[:, None])).to(torch.float32)
-    in_x = F.pad(in_x, (0, 0, 0, pad)).view(nb, BIN_BLOCK, tiles_x)
-    in_y = F.pad(in_y, (0, 0, 0, pad)).view(nb, BIN_BLOCK, tiles_y)
-    counts = torch.bmm(in_y.transpose(1, 2), in_x)  # (nb, ty, tx)
-    cum = counts.view(nb, tiles_x * tiles_y).to(torch.int32).cumsum(0, dtype=torch.int32)
-    cum = cum.T.contiguous()  # (T, nb): each tile's row, contiguous for the kernel
-
-    x0 = torch.where(valid, tx0, 255.0).to(torch.int64)
-    word = (x0 << 24) | (tx1.to(torch.int64) << 16) | (ty0.to(torch.int64) << 8) | ty1.to(torch.int64)
-    word = F.pad(word, (0, pad), value=255 << 24)
-    word = torch.where(word >= 1 << 31, word - (1 << 32), word).to(torch.int32)  # as int32 bits
-
-    indices = bin_slots(cum, word, k_per_tile, slot_offset, tiles_x, n)
-    return _lists(indices, cum[:, -1], k_per_tile, slot_offset)
+    """bin_gaussians through B6 (see there): the count pass, the cumsum of
+    its counts over blocks in the reference's (nb, T) layout
+    (raster_tiled.py:169), and the slot pass. No host sync."""
+    words, counts = bin_count(valid, tx0, tx1, ty0, ty1, tiles_x, tiles_y)
+    cum_t = torch.cumsum(counts, 0, dtype=torch.int32)
+    indices = bin_slots(cum_t, words, k_per_tile, slot_offset, tiles_x, valid.shape[0])
+    return _lists(indices, cum_t[-1], k_per_tile, slot_offset)
 
 
 def _sort_pack(data: torch.Tensor, key: torch.Tensor, radius: torch.Tensor, valid: torch.Tensor):

@@ -15,15 +15,21 @@ Phases, each fatal on failure:
      and check that the comparisons reject planted faults; the dual CSR
      blend (B5) on a random CSR stream with band bits (bands all set, none
      and sparse, tiles whose full composite saturates a segment before the
-     band), with its two bitwise identities to B3; the bin's slot search
-     (B6) bitwise against its twin on the slot searches that
-     bin_gaussians' kernel route hands it (the two scenes of
+     band), with its two bitwise identities to B3; the bin kernel route
+     (B6: the count pass, torch.cumsum, the slot pass) on the passes that
+     bin_gaussians' kernel route hands its wrappers (the two scenes of
      tests/test_raster_tiled.py:324-332 at k=128 and 256, and a scene of
-     4,090 blocks of 128 splats, near the kernel's gate, each at slot
-     offsets 0, 128 and 256), the route's lists bitwise against the sort
-     route's, and planted faults (the slot off by one, the members before a
-     slot counted from its own block, the sentinel replaced by the window's
-     last member) rejected;
+     4,090 blocks of 128 splats, near the route's gate, each at slot
+     offsets 0, 128 and 256): each pass bitwise against its plain version
+     (bin_split_checks: the count pass's words and counts, the slot pass fed
+     their cumsum against bin_slots_plain and against a torch model of its
+     algorithm, both passes repeated), the route's lists bitwise against
+     the sort route's, and planted faults rejected (of the output: the slot
+     off by one, the members before a slot counted from its own block, the
+     sentinel replaced by the window's last member; of the passes: a
+     rectangle counted one tile wider, padding words counted as members,
+     members ranked from the last lane down, the window test dropping the
+     block where the window starts);
      B3 and B5 run as two passes (each segment alone, then a per-tile
      combine): on every CSR stream checked here and below, each pass is
      held against its plain version (split_checks: pass 1 into a NaN-filled
@@ -91,10 +97,12 @@ Phases, each fatal on failure:
      the walks of B2 and B4 again with the warp-row skip off and B1's pass
      1 with the reach mask off) time each kernel (its own device time from
      torch.profiler, and its wrapper per call between CUDA events), its
-     twin, and work out its bound; B6 on the slot searches of the map's
-     k-capped render (its visible prefix, k=256, offsets 0 and 256), held
-     against its twin and the sort route as in phase 2, timed the same way,
-     with the whole kernel route and the sort route timed beside it;
+     twin, and work out its bound; B6 on the bin of the map's k-capped
+     render (its visible prefix, k=256, offsets 0 and 256), held against
+     its plain versions and the sort route as in phase 2, each pass timed,
+     its bound (each pass's, and the slot-search formula beside it), and a trace of
+     both routes (each device operation's launches and ms, the host's
+     operators, the host ms a call);
   3d. the per-frame mapper driver with the bin kernel route on:
      SplaTAMMapper with MapperConfig() fed 40 frames of BoxWorld.two_room(0)
      at 256x256 and 90 degrees hfov along turns and short moves from the
@@ -102,7 +110,10 @@ Phases, each fatal on failure:
      metrics, shape history, stage report with host syncs, launches (B1,
      B2, B3 and B6 each launched) and a profile of one more mapping frame
      (B1's and B2's device ms a call read from it, and B4's where it
-     launches);
+     launches); B6 on that frame's last bin (k=1,024): its passes checked,
+     timed and bounded, both routes traced, as on the main path; the main
+     path's and this bin's inputs are saved in build/ for
+     scripts/bin_route_trace.py;
      then post_processing and a save_checkpoint / load_map round trip in a
      temporary directory, the loaded map equal to the saved one; then the
      driver on the card against the driver on the CPU over five 64x64
@@ -213,6 +224,17 @@ BIN_SCENES = ((1000, 256, 256), (500, 144, 96))  # tests/test_raster_tiled.py:32
 GATE_SCENE_BLOCKS = 4090  # a scene just inside the kernel's gate of 4,096 blocks
 BIN_FAULTS = ("slot off by one", "members before the slot counted from its own block",
               "sentinel replaced by the window's last member")
+# planted faults of B6's two passes (bin_split_checks)
+BIN_SPLIT_FAULTS = ("a rectangle counted one tile wider", "padding words counted as members",
+                    "members ranked from the last lane down within a block",
+                    "the window test dropping the block where the window starts (lo >= off in "
+                    "place of hi > off)")
+# kernels of one B6 route call: the count pass, then (after torch.cumsum) the slot pass
+B6_PASSES = ("bin_count_kernel", "bin_slots_kernel")
+ROUTE_TRACE_CALLS = 20
+# the bin inputs of the main path and the driver, kept for
+# scripts/bin_route_trace.py to trace another tree's routes on them
+BIN_INPUTS = Path(__file__).resolve().parent / "build" / "bin_route_inputs.pt"
 # planted faults of the CSR forward kernels' two passes (split_checks)
 SPLIT_FAULTS = ("the combine reading its partials one segment off",
                 "the exit tested after accumulating", "the dead-pair margin's sign flipped")
@@ -1510,31 +1532,127 @@ def bin_fault(torch, rc, indices, args, fault):
         return rc.bin_slots_plain(cum, aabb, k, off + 1, tiles_x, n)
     if fault == BIN_FAULTS[1]:
         return torch.where(indices < n, indices - indices % rc.BIN_BLOCK, indices)
-    filled = (cum[:, -1:].long() - off).clamp(0, k)  # (T, 1) members in the window
+    filled = (cum[-1][:, None].long() - off).clamp(0, k)  # (T, 1) members in the window
     last = indices.gather(1, (filled - 1).clamp(min=0))
     past = torch.arange(k, device=indices.device)[None, :] >= filled
     return torch.where(past & (filled > 0), last, indices)
 
 
-def bin_checks(torch, rc, rt, scene, k: int, offsets, tag: str, rejected):
-    """B6 against its twin, bitwise, on the slot search that bin_gaussians'
-    kernel route hands it for `scene` at each slot offset, and the route's
-    lists (indices, count, overflow) bitwise against the sort route's. Each
-    planted fault that changes the output must be rejected; `rejected`
-    counts them. Returns [(offset, the slot search's arguments, lists)]."""
+def slot_pass_model(torch, cum_t, words, k, off, tiles_x, n, fault=None):
+    """The slot pass's algorithm in PyTorch, with the sentinel tail: every
+    (block, tile) pair in the window (hi > lo, lo < off + k, hi > off)
+    ranks the block's members of the tile by four ballots of 32 lanes,
+    popcount below the lane plus the members of the groups before it, and
+    writes each member whose slot lo + rank - off lies in [0, k); slots
+    that no thread writes keep -1. `fault`, one of BIN_SPLIT_FAULTS[2:]:
+    the members ranked from the last lane down, or the window tested with
+    lo >= off in place of hi > off."""
+    nb, t = cum_t.shape
+    lo = torch.nn.functional.pad(cum_t, (0, 0, 1, 0))[:-1]  # cum[b - 1], 0 for b = 0
+    start = lo >= off if fault == BIN_SPLIT_FAULTS[3] else cum_t > off
+    blk, tile = torch.nonzero((cum_t > lo) & (lo < off + k) & start, as_tuple=True)
+    w = words.view(nb, 4, 32)[blk]  # (pairs, group, lane)
+    ttx = (tile % tiles_x)[:, None, None]
+    tty = (tile // tiles_x)[:, None, None]
+    member = ((((w >> 24) & 0xFF) <= ttx) & (ttx <= ((w >> 16) & 0xFF))
+              & (((w >> 8) & 0xFF) <= tty) & (tty <= (w & 0xFF)))
+    if fault == BIN_SPLIT_FAULTS[2]:
+        member = member.flip((1, 2))
+    bits = member.to(torch.int32)
+    below = torch.cumsum(bits, 2) - bits  # popcount below the lane
+    groups = torch.cumsum(bits.sum(2), 1) - bits.sum(2)  # members of the earlier groups
+    rank = below + groups[:, :, None]
+    if fault == BIN_SPLIT_FAULTS[2]:
+        rank, member = rank.flip((1, 2)), member.flip((1, 2))
+    slot = lo[blk, tile][:, None, None] + rank - off
+    write = member & (slot >= 0) & (slot < k)
+    ids = blk[:, None, None] * 128 + torch.arange(128, device=w.device).view(1, 4, 32)
+    out = torch.full((t, k), -1, dtype=torch.int64, device=cum_t.device)
+    out[tile[:, None, None].expand_as(slot)[write], slot[write]] = ids.expand_as(slot)[write]
+    past = off + torch.arange(k, device=cum_t.device)[None, :] >= cum_t[-1][:, None]
+    return torch.where(past, n, out)
+
+
+def bin_split_checks(torch, rc, count_args, slot_args, tag, rejected):
+    """B6's two passes against their plain versions, bitwise, on the inputs
+    that the route handed them: the count pass's words and counts against
+    bin_count_plain's; the cumsum of its counts is what the route handed
+    the slot pass; the slot pass fed it against bin_slots_plain and the
+    torch model of its algorithm; both passes repeat bitwise. Each planted
+    fault that changes the output must be rejected; `rejected` counts
+    them. Returns the kernel's (words, counts, ids)."""
+    words, counts = rc.bin_count_cuda(*count_args)
+    p_words, p_counts = rc.bin_count_plain(*count_args)
+
+    def same_counts(cand_counts, cand_words=p_words):
+        for what, got, want in (("words", words, cand_words), ("counts", counts, cand_counts)):
+            if not torch.equal(got, want):
+                raise AssertionError(f"{tag}: the count pass's {what} differ from its plain "
+                                     f"version's at {int((got != want).sum())} entries")
+
+    same_counts(p_counts)
+    cum_t = torch.cumsum(counts, 0, dtype=torch.int32)
+    if not (torch.equal(cum_t, slot_args[0]) and torch.equal(words, slot_args[1])):
+        raise AssertionError(f"{tag}: the route handed the slot pass other inputs than the "
+                             f"count pass gives")
+    tail = slot_args[2:]
+    ids = rc.bin_slots_cuda(cum_t, words, *tail)
+    plain = rc.bin_slots_plain(cum_t, words, *tail)
+
+    def same_ids(cand):
+        if not torch.equal(ids, cand):
+            raise AssertionError(f"{tag}: the slot pass differs from its plain version at "
+                                 f"{int((ids != cand).sum())} slots")
+
+    same_ids(plain)
+    same_ids(slot_pass_model(torch, cum_t, words, *tail))
+    again = rc.bin_count_cuda(*count_args)
+    if not (torch.equal(again[0], words) and torch.equal(again[1], counts)
+            and torch.equal(rc.bin_slots_cuda(cum_t, words, *tail), ids)):
+        raise AssertionError(f"{tag}: a repeated pass differs")
+    valid, tx0, tx1, ty0, ty1, tiles_x, tiles_y = count_args
+    pad = words.numel() - valid.numel()
+    padded = p_counts.clone()
+    padded[-1, 0] += pad  # the padding words' tx0 = 255 read as 0: members of tile 0
+    candidates = {
+        BIN_SPLIT_FAULTS[0]: (same_counts, rc.bin_count_plain(valid, tx0, tx1 + 1, ty0, ty1,
+                                                               tiles_x, tiles_y)[1], counts),
+        BIN_SPLIT_FAULTS[1]: (same_counts, padded, counts),
+        BIN_SPLIT_FAULTS[2]: (same_ids, slot_pass_model(torch, cum_t, words, *tail,
+                                                        fault=BIN_SPLIT_FAULTS[2]), ids),
+        BIN_SPLIT_FAULTS[3]: (same_ids, slot_pass_model(torch, cum_t, words, *tail,
+                                                        fault=BIN_SPLIT_FAULTS[3]), ids),
+    }
+    for fault, (check, bad, good) in candidates.items():
+        if not torch.equal(bad, good):
+            must_reject(fault, lambda: check(bad))
+            rejected[fault] += 1
+    return words, counts, ids
+
+
+def bin_checks(torch, rc, rt, scene, k: int, offsets, tag: str, rejected, split_rejected):
+    """B6 on the passes that bin_gaussians' kernel route hands its two
+    wrappers for `scene` at each slot offset: each pass against its plain
+    version (bin_split_checks), the route's ids bitwise against
+    bin_slots_plain's, and the route's lists (indices, count, overflow)
+    bitwise against the sort route's. Each planted fault that changes the
+    output must be rejected; `rejected` and `split_rejected` count them.
+    Returns [(offset, the count pass's arguments, the slot pass's, lists)]."""
     mean2d, radius, valid, w, h = scene
     out = []
     for off in offsets:
-        seen = []
-        real = rt.bin_slots
+        seen_count, seen = [], []
+        real_count, real = rt.bin_count, rt.bin_slots
+        rt.bin_count = lambda *a: seen_count.append(a) or real_count(*a)
         rt.bin_slots = lambda *a: seen.append(a) or real(*a)
         try:
             lists = rt.bin_gaussians(mean2d, radius, valid, w, h, k, off, use_kernel=True)
         finally:
-            rt.bin_slots = real
-        if len(seen) != 1:
+            rt.bin_count, rt.bin_slots = real_count, real
+        if len(seen) != 1 or len(seen_count) != 1:
             raise AssertionError(f"{tag}: the kernel route did not run at offset {off}")
-        args = seen[0]
+        count_args, args = seen_count[0], seen[0]
+        bin_split_checks(torch, rc, count_args, args, f"{tag} k={k} offset {off}", split_rejected)
         plain = rc.bin_slots_plain(*args)
 
         def same(idx):
@@ -1556,30 +1674,129 @@ def bin_checks(torch, rc, rt, scene, k: int, offsets, tag: str, rejected):
                 rejected[fault] += 1
                 shown.append(fault)
         n = args[5]
-        print(f"{tag} k={k} offset {off}: {args[0].shape[1]} blocks, "
-              f"{int((lists.indices < n).sum())} of {lists.indices.numel()} slots filled; bitwise "
-              f"equal to the twin and the sort route; {len(shown)} planted faults rejected")
-        out.append((off, args, lists))
+        print(f"{tag} k={k} offset {off}: {args[0].shape[0]} blocks, "
+              f"{int((lists.indices < n).sum())} of {lists.indices.numel()} slots filled; each "
+              f"pass bitwise equal to its plain version, the route to the twin and the sort route; "
+              f"{len(shown)} planted faults of the output rejected")
+        out.append((off, count_args, args, lists))
     return out
 
 
-def bin_bound(torch, rc, args, indices, int_rate: float):
-    """B6's bound on these inputs: the bytes it must move (the tile rows of
-    cum, the AABB words of every block that a filled slot lands in, the
-    int64 output) at the HBM rate, or its integer operations (per filled
-    slot the block search, ceil(log2 nb) + 1 compares, and four compares for
-    each of the block's 128 members; per empty slot one compare) at the
-    INT32 rate, whichever is longer."""
-    cum, aabb, k, off, tiles_x, n = args
-    t, nb = cum.shape
+def bin_bound(torch, rc, count_args, args, counts, indices, int_rate: float):
+    """B6's bound on these inputs, pass by pass, each the larger of its
+    bytes at the HBM rate and its integer operations at the INT32 rate.
+    The count pass: its inputs read once (a bool and four float32 bounds a
+    Gaussian), the words and counts written; one increment per (Gaussian,
+    tile of its rectangle). The slot pass: the words of every block that
+    holds a filled slot, the two cum entries of every (tile, block) pair
+    that holds one, the int64 output; four compares per Gaussian of each
+    such pair and one per slot. The entry's bound is the two passes'
+    summed. Also the slot-search formula of the earlier kernel (the tile rows of cum,
+    the words of every block a filled slot lands in and the output; per
+    filled slot a block search, ceil(log2 nb) + 1 compares, and four
+    compares for each of the block's 128 members; per empty slot one
+    compare). Returns {"count", "slot", "old": (ms, by, bytes, ops)}."""
+    cum_t, aabb, k, off, tiles_x, n = args
+    nb, t = cum_t.shape
     filled = indices < n
     n_filled = int(filled.sum())
-    blocks = int(torch.unique(indices[filled] // rc.BIN_BLOCK).numel())
-    nbytes = cum.numel() * 4 + blocks * rc.BIN_BLOCK * 4 + indices.numel() * 8
-    ops = n_filled * (math.ceil(math.log2(nb)) + 1 + 4 * rc.BIN_BLOCK) + (t * k - n_filled)
-    times = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3, "operations": ops / int_rate * 1e3}
-    by = max(times, key=times.get)
-    return (times[by], by), (n_filled, blocks, nbytes, ops)
+    blk = indices[filled] // rc.BIN_BLOCK
+    tile = torch.nonzero(filled, as_tuple=True)[0]
+    n_pairs = int(torch.unique(tile * nb + blk).numel())
+    n_blocks = int(torch.unique(blk).numel())
+    n_gauss = count_args[0].numel()
+
+    def timed(nbytes, ops):
+        times = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3, "operations": ops / int_rate * 1e3}
+        by = max(times, key=times.get)
+        return times[by], by, nbytes, ops
+
+    return {
+        "count": timed(n_gauss * (1 + 4 * 4) + aabb.numel() * 4 + counts.numel() * 4,
+                       int(counts.sum())),
+        "slot": timed(n_blocks * rc.BIN_BLOCK * 4 + n_pairs * 8 + indices.numel() * 8,
+                      n_pairs * rc.BIN_BLOCK * 4 + t * k),
+        "old": timed(cum_t.numel() * 4 + n_blocks * rc.BIN_BLOCK * 4 + indices.numel() * 8,
+                     n_filled * (math.ceil(math.log2(nb)) + 1 + 4 * rc.BIN_BLOCK)
+                     + (t * k - n_filled)),
+        "filled": n_filled, "pairs": n_pairs, "blocks": n_blocks,
+    }
+
+
+def print_bin_bound(bb, tag, ms, card):
+    """One line: each pass's bound and its share reached, and the
+    slot-search formula's."""
+    parts = []
+    for name in ("count", "slot", "old"):
+        b_ms, by, nbytes, ops = bb[name]
+        label = {"count": "count pass", "slot": "slot pass",
+                 "old": "the slot-search formula"}[name]
+        reached = ms[name] if name != "old" else ms["slot"]
+        parts.append(f"{label} {b_ms:.5f} ms ({by}: {nbytes} bytes, {ops} integer operations; "
+                     f"{b_ms / reached:.3f} of it reached by the {'slot' if name == 'old' else name}"
+                     f" pass's {reached:.4f} ms)")
+    print(f"{tag}: {bb['filled']} slots filled from {bb['pairs']} (tile, block) pairs, "
+          f"{bb['blocks']} blocks; bound " + "; ".join(parts) + f" on {card}")
+
+
+def b6_calls(torch, rc, count_args, args):
+    """B6's wrapper calls from the count pass's inputs to the slot pass's
+    ids, and the same through their plain versions: (run, plain)."""
+    tail = args[2:]
+
+    def chain(count, slots):
+        words, counts = count(*count_args)
+        return slots(torch.cumsum(counts, 0, dtype=torch.int32), words, *tail)
+
+    return (lambda: chain(rc.bin_count, rc.bin_slots),
+            lambda: chain(rc.bin_count_plain, rc.bin_slots_plain))
+
+
+def b6_bound_ms(bb):
+    """The B6 entry's bound: the two passes' bounds summed, and what binds
+    the larger."""
+    larger = max(("count", "slot"), key=lambda p: bb[p][0])
+    return bb["count"][0] + bb["slot"][0], f"{larger} pass: {bb[larger][1]}"
+
+
+def route_trace(torch, run, calls: int, label: str, card: str) -> dict:
+    """A trace of `calls` calls of one bin route (`run`): every device
+    operation with its launches and device ms a call (torch.profiler), the
+    host's self ms a call of the operators that launch them, and the
+    host ms a call unprofiled (the calls enqueued back to back, then one
+    synchronize: "enqueue", and to its end: "wall")."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        run()
+    enqueue = (time.perf_counter() - t0) / calls * 1e3
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / calls * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            run()
+        torch.cuda.synchronize()
+    device = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
+            n_e, us = device.get(e.name, (0, 0.0))
+            device[e.name] = (n_e + 1, us + e.time_range.elapsed_us())
+    host = sorted(((a.self_cpu_time_total / calls / 1e3, a.key, a.count / calls)
+                   for a in prof.key_averages() if a.self_cpu_time_total > 0), reverse=True)
+    busy = sum(us for _, us in device.values()) / calls / 1e3
+    ops = sum(c for c, _ in device.values()) / calls
+    print(f"route trace, {label}: {ops:.1f} device operations a call, device busy {busy:.4f} ms a "
+          f"call; host {enqueue:.4f} ms a call to enqueue, {wall:.4f} ms to the end of the last "
+          f"({calls} calls, unprofiled) on {card}")
+    for name, (c, us) in sorted(device.items(), key=lambda x: -x[1][1]):
+        print(f"    device {us / calls / 1e3:9.4f} ms  {c / calls:5.1f}x  {name[:110]}")
+    for ms, key, c in host[:12]:
+        print(f"    host   {ms:9.4f} ms  {c:5.1f}x  {key[:110]}")
+    return {"device_ops": ops, "device_ms": busy, "host_enqueue_ms": enqueue, "host_wall_ms": wall}
 
 
 def driver_phase(torch, np, rc, rt, card, by_phase, int_rate: float) -> dict:
@@ -1588,7 +1805,9 @@ def driver_phase(torch, np, rc, rt, card, by_phase, int_rate: float) -> dict:
     driver"]: B2 and B6 once per mapping iteration (B1 and B6 also in any
     exact render's fallback), B3 in every densify and exact online render,
     B5 never. Returns B1's, B2's and B4's device ms a call in the profiled
-    mapping frame (B4: None where the frame launched none)."""
+    mapping frame (B4: None where the frame launched none), and B6 on the
+    frame's last bin: its passes checked and timed, its bounds, both
+    routes' traces and the bin's inputs (on the host)."""
     import dataclasses
     import os
     import tempfile
@@ -1650,7 +1869,8 @@ def driver_phase(torch, np, rc, rt, card, by_phase, int_rate: float) -> dict:
             if states != [MapperState.BOOTSTRAP] + [MapperState.MAPPING] * (DRIVER_FRAMES - 1):
                 raise AssertionError(f"driver states {states}")
             if not (counts["blend_tiles_bwd"] == iters > 0 and counts["blend_tiles_fwd"] >= iters
-                    and counts["bin_slots"] >= iters and counts["blend_csr_fwd"] > 0
+                    and counts["bin_slots"] >= iters and counts["bin_count"] == counts["bin_slots"]
+                    and counts["blend_csr_fwd"] > 0
                     and counts["blend_csr_dual_fwd"] == 0):
                 raise AssertionError(f"driver launches {counts} for {iters} mapping iterations")
             # a sanity floor (an empty map scores about 5 dB); correctness is
@@ -1660,10 +1880,12 @@ def driver_phase(torch, np, rc, rt, card, by_phase, int_rate: float) -> dict:
                 raise AssertionError(f"driver: {n_gauss} Gaussians, last metrics {met}")
 
             # one more frame, a mapping frame, under the profiler; B6 checked
-            # and timed on the last slot search it hands the kernel
-            seen = []
-            real_slots = rt.bin_slots
+            # and timed on the last bin it runs
+            seen, seen_count, seen_bin = [], [], []
+            real_slots, real_count, real_bin = rt.bin_slots, rt.bin_count, rt.bin_gaussians
             rt.bin_slots = lambda *a: seen.append(a) or real_slots(*a)
+            rt.bin_count = lambda *a: seen_count.append(a) or real_count(*a)
+            rt.bin_gaussians = lambda *a, **kw: seen_bin.append(a) or real_bin(*a, **kw)
             try:
                 # the unprofiled reference: the mean of the frames that mapped
                 watched = profile_calls(torch, lambda: mapper.run(frames[DRIVER_FRAMES]), 1,
@@ -1671,10 +1893,12 @@ def driver_phase(torch, np, rc, rt, card, by_phase, int_rate: float) -> dict:
                                    "mapper frame (a mapping frame)", ("device", "host"),
                                    B1_PASSES + B2_PASSES + B4_PASSES)
             finally:
-                rt.bin_slots = real_slots
+                rt.bin_slots, rt.bin_count, rt.bin_gaussians = real_slots, real_count, real_bin
             rc.reset_launch_counts()
-            if not seen:
-                raise AssertionError("driver: the profiled mapping frame ran no slot search")
+            if not seen or len(seen_count) != len(seen) or seen_bin[-1][5:7] != seen[-1][2:4]:
+                raise AssertionError(f"driver: the profiled mapping frame ran {len(seen)} slot "
+                                     f"passes, {len(seen_count)} count passes, the last bin at "
+                                     f"{seen_bin[-1][5:7] if seen_bin else None}")
             calls_b1 = watched[B1_PASSES[1]][0]
             if not calls_b1 or watched[B1_PASSES[0]][0] != calls_b1:
                 raise AssertionError(f"driver: the profiled mapping frame's B1 launches {watched}")
@@ -1705,17 +1929,32 @@ def driver_phase(torch, np, rc, rt, card, by_phase, int_rate: float) -> dict:
             else:
                 print(f"driver: the profiled mapping frame at k={mapper.cfg.k_per_tile} launched "
                       f"no B4")
-            args = seen[-1]
-            got = rc.bin_slots(*args)
+            args, count_args, bin_in = seen[-1], seen_count[-1], seen_bin[-1]
+            k_d = args[2]
+            split_rejected = dict.fromkeys(BIN_SPLIT_FAULTS, 0)
+            _, counts_d, got = bin_split_checks(torch, rc, count_args, args,
+                                                f"driver bin at k={k_d}", split_rejected)
             if not torch.equal(got, rc.bin_slots_plain(*args)):
                 raise AssertionError("driver: bin_slots differs from its twin")
-            (b_ms, by), (n_filled, n_blocks, nbytes, ops) = bin_bound(torch, rc, args, got, int_rate)
-            ms = kernel_device_ms(torch, lambda: rc.bin_slots(*args), ("bin_slots_kernel",),
-                                  20)["bin_slots_kernel"]
-            print(f"driver bin at k={args[2]}: {args[0].shape[1]} blocks, {n_filled} of "
-                  f"{got.numel()} slots filled from {n_blocks} blocks; bin_slots bitwise equal to "
-                  f"its twin, kernel {ms:.4f} ms, bound {b_ms:.4f} ms ({by}: {nbytes} bytes, {ops} "
-                  f"integer operations) on {card}")
+            bb = bin_bound(torch, rc, count_args, args, counts_d, got, int_rate)
+            run, _ = b6_calls(torch, rc, count_args, args)
+            ms = kernel_device_ms(torch, run, B6_PASSES, 20)
+            driver_b6 = {"k": k_d, "blocks": args[0].shape[0],
+                         "pass_ms": ms, "ms": sum(ms.values()), "bound_ms": b6_bound_ms(bb)[0],
+                         "pass_bound_ms": {p: bb[p][0] for p in ("count", "slot")},
+                         "bound_slot_search_ms": bb["old"][0], "trace": {}}
+            print(f"driver bin at k={k_d}: {args[0].shape[0]} blocks; both passes bitwise equal to "
+                  f"their plain versions, planted faults rejected {split_rejected}; kernel "
+                  f"{driver_b6['ms']:.4f} ms {ms} on {card}")
+            print_bin_bound(bb, f"driver bin at k={k_d}",
+                            {"count": ms[B6_PASSES[0]], "slot": ms[B6_PASSES[1]]}, card)
+            for route, on in (("kernel", True), ("sort", False)):
+                driver_b6["trace"][route] = route_trace(
+                    torch, lambda on=on: rt.bin_gaussians(*bin_in[:7], use_kernel=on),
+                    ROUTE_TRACE_CALLS, f"the {route} route, driver bin (k={k_d}, offset "
+                    f"{bin_in[6]})", card)
+            driver_b6["inputs"] = tuple(x.cpu() if hasattr(x, "cpu") else x for x in bin_in[:7])
+            del seen, seen_count, seen_bin, args, count_args, bin_in, counts_d, got
             rc.reset_launch_counts()
 
             # the outputs and a checkpoint round trip
@@ -1759,7 +1998,7 @@ def driver_phase(torch, np, rc, rt, card, by_phase, int_rate: float) -> dict:
         small_driver_check(torch, np, world)
     finally:
         rt._BIN_KERNEL = False
-    return driver_b1, driver_b2, driver_b4
+    return driver_b1, driver_b2, driver_b4, driver_b6
 
 
 def small_driver_check(torch, np, world, res: int = 64, frames: int = 5) -> None:
@@ -1936,16 +2175,21 @@ def main() -> int:
     from activesplat_tpu_torch.ops import raster_tiled as rt
 
     bin_rejected = dict.fromkeys(BIN_FAULTS, 0)
+    bin_split_rejected = dict.fromkeys(BIN_SPLIT_FAULTS, 0)  # planted faults of B6's two passes
     for n_b, w_b, h_b in BIN_SCENES:
         scene_b = random_bin_scene(torch, n_b, w_b, h_b)
         for k_b in (128, 256):
             bin_checks(torch, rc, rt, scene_b, k_b, (0, 128, 256),
-                       f"bin scene of {n_b} splats at {w_b}x{h_b}", bin_rejected)
+                       f"bin scene of {n_b} splats at {w_b}x{h_b}", bin_rejected,
+                       bin_split_rejected)
     gate_n = GATE_SCENE_BLOCKS * rc.BIN_BLOCK
     bin_checks(torch, rc, rt, random_bin_scene(torch, gate_n, RES, RES), K_PER_TILE, (0, 128, 256),
-               f"bin scene of {gate_n} splats at {RES}x{RES}", bin_rejected)
+               f"bin scene of {gate_n} splats at {RES}x{RES}", bin_rejected, bin_split_rejected)
     if not all(bin_rejected.values()):
         raise AssertionError(f"a planted bin fault never showed on the random scenes: {bin_rejected}")
+    if not all(bin_split_rejected.values()):
+        raise AssertionError(f"a planted fault of B6's two passes never showed on the random "
+                             f"scenes: {bin_split_rejected}")
     del scene_b
     torch.cuda.synchronize()
 
@@ -1972,12 +2216,13 @@ def main() -> int:
     def read_counts(phase, capped=0, csr=0, csr_bwd=None, dual=0, bins=0):
         """Read and reset the counters; the phase must have launched B1 and
         B2 `capped` times each, B3 `csr` times, B4 `csr_bwd` times (by
-        default as often as B3), B5 `dual` times and B6 `bins` times."""
+        default as often as B3), B5 `dual` times and B6's two passes `bins`
+        times each."""
         counts = {fn.__name__: fn.launches for fn in rc.KERNELS}
         rc.reset_launch_counts()
         by_phase[phase] = counts
         expect = dict(zip(counts, (capped, capped, csr, csr if csr_bwd is None else csr_bwd, dual,
-                                   bins)))
+                                   bins, bins)))
         if counts != expect:
             raise AssertionError(f"{phase}: kernel launches {counts}, not {expect}")
         return counts
@@ -2063,7 +2308,7 @@ def main() -> int:
     try:
         its_b = [timed(cfg, TIMED_ITERS, f"timed bin kernel {i}", capped=TIMED_ITERS,
                        bins=TIMED_ITERS)[0] for i in (1, 2)]
-        profile(cfg, PROFILE_EXACT_ITERS, its_b[-1], ("device",))
+        profile(cfg, PROFILE_EXACT_ITERS, its_b[-1], ("device", "host"))
     finally:
         rt._BIN_KERNEL = False
     its_s2, m = timed(cfg, TIMED_ITERS, "timed 2", capped=TIMED_ITERS)
@@ -2322,28 +2567,46 @@ def main() -> int:
         rt.bin_gaussians = real_bin
     prefix, k_main = seen[0][:5], seen[0][5]
     main_rejected = dict.fromkeys(BIN_FAULTS, 0)
-    [(_, bin_args, bin_lists), _] = bin_checks(
+    main_split_rejected = dict.fromkeys(BIN_SPLIT_FAULTS, 0)
+    [(_, count_args, bin_args, bin_lists), _] = bin_checks(
         torch, rc, rt, prefix, k_main, (0, k_main),
-        f"main-path bin, visible prefix of {prefix[0].shape[0]} splats", main_rejected)
+        f"main-path bin, visible prefix of {prefix[0].shape[0]} splats", main_rejected,
+        main_split_rejected)
     if not all(main_rejected.values()):
         raise AssertionError(f"a planted bin fault never showed on the main path: {main_rejected}")
-    b6_bound, (n_filled, n_blocks, b6_bytes, b6_ops) = bin_bound(
-        torch, rc, bin_args, bin_lists.indices, int_rate)
-    route_ms = cuda_ms(lambda: rt.bin_gaussians(*prefix, k_main, 0, use_kernel=True), 20)
-    sort_ms = cuda_ms(lambda: rt.bin_gaussians(*prefix, k_main, 0, use_kernel=False), 20)
-    measure("bin_slots", "activesplat_tpu_torch/csrc/bin_slots.cu", BIN_REPLACES,
-            lambda: rc.bin_slots(*bin_args), lambda: rc.bin_slots_plain(*bin_args),
-            ("bin_slots_kernel",), b6_bound, 0.0)
-    measured[-1].update(route_ms=route_ms, sort_route_ms=sort_ms)
-    print(f"main-path bin at offset 0: {n_filled} of {bin_lists.indices.numel()} slots filled from "
-          f"{n_blocks} of {bin_args[0].shape[1]} blocks; bound {b6_bytes} bytes, {b6_ops} integer "
-          f"operations; the whole kernel route (counts, cumsum, AABB words, B6) {route_ms:.4f} ms "
-          f"per call, the sort route {sort_ms:.4f} ms per call (CUDA events, 20 calls) on {card}")
-    del seen, prefix, bin_args, bin_lists
+    print(f"planted faults of B6's two passes rejected (main path): {main_split_rejected}")
+    counts_main = rc.bin_count_cuda(*count_args)[1]
+    b6_bb = bin_bound(torch, rc, count_args, bin_args, counts_main, bin_lists.indices, int_rate)
+    b6_run, b6_plain = b6_calls(torch, rc, count_args, bin_args)
+    measure("bin_slots", "activesplat_tpu_torch/csrc/bin_slots.cu", BIN_REPLACES, b6_run, b6_plain,
+            B6_PASSES, b6_bound_ms(b6_bb), 0.0)
+    b6_entry = measured[-1]
+    b6_ms = {"count": b6_entry["pass_ms"][B6_PASSES[0]], "slot": b6_entry["pass_ms"][B6_PASSES[1]]}
+    print_bin_bound(b6_bb, "main-path bin at offset 0", b6_ms, card)
+    b6_entry["bound_slot_search_ms"] = b6_bb["old"][0]
+    b6_entry["pass_bound_ms"] = {p: b6_bb[p][0] for p in ("count", "slot")}
+    b6_entry["trace"] = {}
+    for route, on in (("kernel", True), ("sort", False)):
+        b6_entry["trace"][route] = route_trace(
+            torch, lambda on=on: rt.bin_gaussians(*prefix, k_main, 0, use_kernel=on),
+            ROUTE_TRACE_CALLS, f"the {route} route, main-path bin (k={k_main}, offset 0)", card)
+    b6_entry.update(route_ms=cuda_ms(lambda: rt.bin_gaussians(*prefix, k_main, 0, use_kernel=True), 20),
+                    sort_route_ms=cuda_ms(lambda: rt.bin_gaussians(*prefix, k_main, 0,
+                                                                   use_kernel=False), 20))
+    print(f"main-path bin: the whole kernel route (tile bounds, count pass, cumsum, slot pass) "
+          f"{b6_entry['route_ms']:.4f} ms per call, the sort route {b6_entry['sort_route_ms']:.4f} ms "
+          f"per call (CUDA events, 20 calls) on {card}")
+    bin_inputs = {"main": tuple(x.cpu() if hasattr(x, "cpu") else x for x in prefix) + (k_main, 0)}
+    del seen, prefix, count_args, bin_args, bin_lists, counts_main
 
     # ---- phase 3d: the per-frame mapper driver ------------------------- #
-    b1_entry["driver_frame"], b2_entry["driver_frame"], b4_entry["driver_frame"] = driver_phase(
-        torch, np, rc, rt, card, by_phase, int_rate)
+    (b1_entry["driver_frame"], b2_entry["driver_frame"], b4_entry["driver_frame"],
+     b6_entry["driver_bin"]) = driver_phase(torch, np, rc, rt, card, by_phase, int_rate)
+    bin_inputs["driver"] = b6_entry["driver_bin"].pop("inputs")
+    BIN_INPUTS.parent.mkdir(parents=True, exist_ok=True)
+    torch.save(bin_inputs, BIN_INPUTS)
+    print(f"the main path's and the driver's bin inputs saved to {BIN_INPUTS} for "
+          f"scripts/bin_route_trace.py")
 
     # ---- phase 3c: the planner's map queries at 1,000,000 Gaussians ----- #
     from activesplat_tpu_torch.queries.panorama import global_invisibility, local_invisibility

@@ -147,10 +147,10 @@ def test_render_with_the_switch_on_equals_off(max_passes, monkeypatch):
 
 
 def test_bin_slots_refuses_bad_inputs():
-    cum = torch.zeros((4, 2), dtype=torch.int32)
+    cum = torch.zeros((2, 4), dtype=torch.int32)  # (nb, T): two blocks, four tiles
     with pytest.raises(ValueError, match="aabb"):
         raster_cuda.bin_slots(cum, torch.zeros(128, dtype=torch.int32), 128, 0, 2, 10)
-    with pytest.raises(ValueError, match="cum"):
+    with pytest.raises(ValueError, match="cum_t"):
         raster_cuda.bin_slots(cum.long(), torch.zeros(256, dtype=torch.int32), 128, 0, 2, 10)
     with pytest.raises(ValueError, match="cuda"):
         raster_cuda.bin_slots(cum.to("meta"), torch.zeros(256, dtype=torch.int32, device="meta"),

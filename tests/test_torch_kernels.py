@@ -141,9 +141,11 @@ def test_cpu_path_launches_no_kernel():
     rc.blend_csr_bwd(csr, seg, t_u0[::2], t_v0[::2], entry, torch.zeros((T // 2, rc.PX, C)),
                      torch.zeros((T // 2, rc.PX)), T // 2, C)
     rc.blend_csr_dual_fwd(csr, seg, t_u0[::2], t_v0[::2], T // 2, C)
-    cum = torch.arange(1, 3, dtype=torch.int32).repeat(T, 1)  # one member in each of two blocks
-    rc.bin_slots(cum, torch.zeros(2 * rc.BIN_BLOCK, dtype=torch.int32), 128, 0, 4, 256)
-    assert [fn.launches for fn in rc.KERNELS] == [0] * 6
+    # the bin route's two passes: 200 Gaussians (two blocks) over a 4x4 grid
+    bounds = torch.zeros(200)
+    words, counts = rc.bin_count(torch.ones(200, dtype=torch.bool), *(bounds,) * 4, 4, 4)
+    rc.bin_slots(counts.cumsum(0, dtype=torch.int32), words, 128, 0, 4, 200)
+    assert [fn.launches for fn in rc.KERNELS] == [0] * 7
 
 
 @pytest.mark.parametrize(
