@@ -150,6 +150,9 @@ class SplaTAMMapper:
         self.last_metrics: Dict[str, float] = {}
         self.online_metrics: List[Dict[str, float]] = []
         self.tracker = get_tracker(cfg.use_wandb, results_dir)
+        # the latest high-loss reorientation pose, set by the mapper node's
+        # local query and published with each pose (mapper_node.py)
+        self.high_loss_samples_pose_c2w: Optional[np.ndarray] = None
 
         self.dumper: Optional[DatasetDumper] = None
         if results_dir is not None:

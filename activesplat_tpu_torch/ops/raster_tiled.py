@@ -45,6 +45,7 @@ from activesplat_tpu_torch.ops.raster_cuda import (
     BAND_COL,
     BIN_BLOCK,
     BIN_MAX_BLOCKS,
+    BIN_MAX_TILES,
     CSEG,
     LOG_EPS,
     N_ATTR,
@@ -116,7 +117,8 @@ def bin_gaussians(
     Two routes give the same lists. The kernel route (B6) runs when
     `use_kernel` (None: the import-time ACTIVESPLAT_BIN_KERNEL switch) is
     set and the reference's static gate holds (k a multiple of 128, at most
-    BIN_MAX_BLOCKS blocks of 128 Gaussians): per-(block, tile) member counts
+    BIN_MAX_BLOCKS blocks of 128 Gaussians), with at most BIN_MAX_TILES
+    tiles a side, as the packed words hold: per-(block, tile) member counts
     and packed AABB words from bin_count, their cumsum over blocks, and the
     members written into their slots by bin_slots. No host sync.
     Otherwise the sort route: each membership becomes a (tile, depth rank)
@@ -133,6 +135,8 @@ def bin_gaussians(
     if (
         k_per_tile % BIN_BLOCK == 0
         and nb <= BIN_MAX_BLOCKS
+        and tiles_x <= BIN_MAX_TILES
+        and tiles_y <= BIN_MAX_TILES
         and (_BIN_KERNEL if use_kernel is None else use_kernel)
     ):
         return _bin_kernel_route(valid, tx0, tx1, ty0, ty1, tiles_x, tiles_y, k_per_tile, slot_offset)

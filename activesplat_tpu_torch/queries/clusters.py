@@ -24,9 +24,11 @@ each call so that it needs neither:
   count those cases.
 - the 15x15 elliptical structuring element (getStructuringElement).
 - the outer borders of the dilated hole (findContours(RETR_EXTERNAL,
-  CHAIN_APPROX_SIMPLE)): Suzuki-Abe border following from each
-  component's first raster pixel, each straight run compressed to its end
-  points, and the shoelace area (contourArea) to pick the largest. The
+  CHAIN_APPROX_SIMPLE), `outer_contours`, which the planner also uses):
+  Suzuki-Abe border following from the first raster pixel of each
+  component not inside another's hole, each straight run compressed to its
+  end points, in OpenCV's order, and the shoelace area (contourArea) to
+  pick the largest. The
   border's points (not just its hull) must match, since each is lifted to
   3-D with its own depth.
 - the rank-deficient ring's jitter draws from an explicit
@@ -229,41 +231,40 @@ def _outer_border(img: np.ndarray, y0: int, x0: int) -> np.ndarray:
     pixel is (y0, x0) in `img` (nonzero = foreground, zero-padded by one
     pixel), traced as OpenCV's border follower traces it, with each straight
     run compressed to its end points (CHAIN_APPROX_SIMPLE). Returns (K, 2)
-    (x, y) points in `img`'s coordinates."""
-
-    def fg(y, x, s):
-        dx, dy = _CHAIN[s & 7]
-        return img[y + dy, x + dx] != 0
-
+    (x, y) points in `img`'s coordinates. Pixels are walked as offsets into
+    the flattened image."""
+    w = img.shape[1]
+    fg = (img != 0).tobytes()
+    offs = [dy * w + dx for dx, dy in _CHAIN]
+    p0 = y0 * w + x0
     # the last neighbour of the start, searched clockwise from up-left
     s = s_end = 4
     while True:
         s = (s - 1) & 7
-        if fg(y0, x0, s) or s == s_end:
+        if fg[p0 + offs[s]] or s == s_end:
             break
     if s == s_end:  # a single pixel
         return np.array([[x0, y0]])
-    dx1, dy1 = _CHAIN[s]
-    i1 = (y0 + dy1, x0 + dx1)
-    y, x = y0, x0
+    i1 = p0 + offs[s]
+    p = p0
     prev_s = s ^ 4
     out = []
     while True:
         # the next foreground neighbour counter-clockwise after the previous
         for step in range(1, 9):
-            if fg(y, x, s + step):
+            if fg[p + offs[(s + step) & 7]]:
                 s = (s + step) & 7
                 break
         if s != prev_s:
-            out.append((x, y))
+            out.append(p)
             prev_s = s
-        dx, dy = _CHAIN[s]
-        ny, nx = y + dy, x + dx
-        if (ny, nx) == (y0, x0) and (y, x) == i1:
+        nxt = p + offs[s]
+        if nxt == p0 and p == i1:
             break
-        y, x = ny, nx
+        p = nxt
         s = (s + 4) & 7
-    return np.array(out)
+    out = np.array(out)
+    return np.stack([out % w, out // w], axis=1)
 
 
 def _shoelace_area(contour: np.ndarray) -> float:
@@ -273,29 +274,35 @@ def _shoelace_area(contour: np.ndarray) -> float:
     return abs(float(np.sum(np.roll(x, 1) * y - x * np.roll(y, 1)))) * 0.5
 
 
-def largest_outer_contour(mask: np.ndarray) -> Optional[np.ndarray]:
-    """The outer border with the largest area among the 8-connected
-    components of `mask` (RETR_EXTERNAL, CHAIN_APPROX_SIMPLE, then the max
-    of contourArea), as (K, 2) (x, y) points; None for an empty mask. A
-    component inside another's hole never has the largest area, so every
-    component's border is traced as an outer one."""
+def outer_contours(mask: np.ndarray) -> List[np.ndarray]:
+    """findContours(RETR_EXTERNAL, CHAIN_APPROX_SIMPLE): the outer border of
+    every 8-connected component of `mask` that does not lie in another
+    component's hole, as (K, 2) (x, y) points, in OpenCV's order (the
+    borders last found first). A component lies in a hole when the
+    4-connected background left of its first raster pixel is not the
+    background around the image."""
     comp, n = scipy.ndimage.label(mask > 0, structure=np.ones((3, 3), int))
     if n == 0:
-        return None
+        return []
     img = np.pad((mask > 0).astype(np.uint8), 1)
+    background, _ = scipy.ndimage.label(img == 0)
     flat = comp.ravel()
     firsts = np.full(n + 1, flat.size)
     np.minimum.at(firsts, flat, np.arange(flat.size))
-    best, best_area = None, -1.0
-    # OpenCV lists the borders last found first; max() keeps the first of
-    # equal areas
+    out = []
     for c in range(n, 0, -1):
         y0, x0 = divmod(int(firsts[c]), mask.shape[1])
-        contour = _outer_border(img, y0 + 1, x0 + 1) - 1
-        area = _shoelace_area(contour)
-        if area > best_area:
-            best, best_area = contour, area
-    return best
+        if background[y0 + 1, x0] == background[0, 0]:
+            out.append(_outer_border(img, y0 + 1, x0 + 1) - 1)
+    return out
+
+
+def largest_outer_contour(mask: np.ndarray) -> Optional[np.ndarray]:
+    """The outer border with the largest area among the 8-connected
+    components of `mask` (RETR_EXTERNAL, CHAIN_APPROX_SIMPLE, then the max
+    of contourArea), as (K, 2) (x, y) points; None for an empty mask.
+    max() keeps the first of equal areas, in OpenCV's order."""
+    return max(outer_contours(mask), key=_shoelace_area, default=None)
 
 
 def get_convexhull_volume(

@@ -134,13 +134,32 @@ Phases, each fatal on failure:
      of the six views of one global_invisibility call, each view timed, the
      view with the most walked pairs measured as B3's panorama entry; print
      one {"kernels": [...]} line (B3 twice: the training and the panorama
-     stream, each with the launches of its own phases);
-  5. print the device line last.
+     stream, each with the launches of its own phases), after phase 5;
+  5. the exploration episode through the port's run_episode at the
+     hermetic episode's configuration (two_room seed 0, 256x256,
+     MapperConfig(), the bin kernel route on), cut to 300 steps: the mean
+     wall per action and the first one's with the set-up, the stage
+     report, each kernel's launches (and whether the mapper switched to
+     hybrid), device busy time and idle share over the last 10 profiled
+     actions, the outcome (steps, ticks, targets planned, the navigations
+     the FSM ended and the targets reached, each target's closest approach,
+     Gaussians, explored area); fatal: the budget consumed, actions.txt one
+     valid action a step, params.npz, topdown_free_map.png,
+     visited_map.png and planner_log.jsonl written, no NaN parameter, a
+     target planned and a navigation ended; then the small card-against-CPU
+     episode (tests/test_torch_episode.py's parity run, the mapping picks
+     made deterministic on both devices): fatal unless its first target is
+     reached (within px_as_arrived), the actions are equal through that
+     arrival, and the explored area and Gaussian count are within 2%;
+     print one {"kernels": [...]} line, each kernel's launches summed over
+     the main path's phases and the episode;
+  6. print the device line last.
 
 It needs one CUDA card and exits non-zero without one, or without the rest of
 the repository beside it.
 """
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -274,6 +293,30 @@ DRIVER_STEP_NUM = 500  # the episode's step budget (make_synthetic_dataset)
 CAMERA_HEIGHT = 1.25  # RGBDSensor.position above the agent's base
 TURN_DEG = 10.0  # SyntheticDataset's turn and forward step
 FORWARD_STEP = 0.065
+
+# the exploration episode (runtime/launch.run_episode) at
+# make_synthetic_dataset's configuration (runtime/launch.py: two_room, seed
+# 0, 256x256, 90 degrees hfov, depth to 10 m, 10 degree turns, 15 degree
+# tilts, MapperConfig(), pixel_max 360, pano_scale 1.0), its step budget cut
+# from 500 to fit the smoke; the last EPISODE_PROFILED actions run under
+# torch.profiler, after the timed ones
+EPISODE_STEPS = 300
+EPISODE_PROFILED = 10
+# the small card-against-CPU episode: tests/test_torch_episode.py's parity
+# run (single_room seed 2, 48x48, 45 degree turns, 18 steps, the lean
+# mapper), which plans its first target after the 16 actions of its spin,
+# reaches it at tick 3 (0.798 px from it, px_as_arrived 0.827) and begins
+# the local refinement there. Its buffer may grow to 32,768 Gaussians, above the 10,256 the run
+# makes, so that the count at the end is the mapper's and not the cap's.
+SMALL_EPISODE = dict(res=48, steps=18, turn=45.0, start=(3.0, 0.0, 3.0))
+SMALL_EPISODE_CFG = dict(initial_capacity=1 << 12, max_capacity=1 << 15, keyframe_capacity=64,
+                         mapping_iters=2, map_every=5, kf_every=5, mapping_window_size=5,
+                         chunk=128, kf_select_pixels=128, k_per_tile=1024, exact_training="off",
+                         exact_online_metrics=False)
+# the small episode's explored free-map area and Gaussian count at the end,
+# card against CPU
+EPISODE_AREA_RTOL = 0.02
+EPISODE_GAUSSIAN_RTOL = 0.02
 
 # the planner's map queries at bench.py's query size (bench_queries,
 # bench.py:124-156, at its default of 1,000,000 Gaussians)
@@ -1468,13 +1511,24 @@ def small_scene_check(torch, np, exact_training="off", k_per_tile=64):
           f"max grad err {worst:.3e} of scale")
 
 
+def device_kernels(prof) -> list:
+    """A trace's device activity, less the device-side spans of the tracing
+    stages (record_function ranges), which cover the kernels they enclose."""
+    from torch.autograd import DeviceType
+
+    from activesplat_tpu_torch.utils.tracing import stage_report
+
+    stages = set(stage_report())
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False) and e.name not in stages]
+
+
 def profile_calls(torch, fn, calls: int, timed_ms: float, card: str, label: str,
                   tables=("device",), watch=()) -> dict:
     """Run `calls` calls of `fn` under torch.profiler; print the device's
     busy time and idle share per call and the top operators by device and
     (if asked) host time. For each kernel name in `watch`, print and return
     its launches and device ms per launch ({name: (launches, ms)})."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1484,13 +1538,7 @@ def profile_calls(torch, fn, calls: int, timed_ms: float, card: str, label: str,
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) / calls * 1e3
-    # device activity, less the device-side spans of the tracing stages
-    # (record_function ranges), which cover the kernels they enclose
-    from activesplat_tpu_torch.utils.tracing import stage_report
-
-    stages = set(stage_report())
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False) and e.name not in stages]
+    kernels = device_kernels(prof)
     busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / calls
     print(f"profile of {calls} {label} calls on {card}: wall {wall_ms:.3f} ms/call "
           f"under the profiler ({timed_ms:.3f} without), device busy {busy_ms:.3f} ms/call "
@@ -2045,6 +2093,271 @@ def small_driver_check(torch, np, world, res: int = 64, frames: int = 5) -> None
                              f"{b.last_metrics})")
     print(f"small driver ({frames} frames at {res}x{res}, {steps} mapping iterations): the card's "
           f"map equals the CPU's slot for slot, parameters within {worst:.3e}, metrics within 1e-4")
+
+
+@contextlib.contextmanager
+def recorded_targets(planner_fsm):
+    """For the run inside the block, each target the planner plans: its
+    tick, the index of the pose it was planned from in visited_px (the
+    actions taken by then) and its exact pixel position (the decision log
+    rounds it to 0.1 px)."""
+    targets, real_log = [], planner_fsm.PlannerFSM._log
+
+    def log(self, event, **fields):
+        real_log(self, event, **fields)
+        if event == "target":
+            targets.append((self._tick_count, len(self.visited_px) - 1,
+                            self.vg.vertices[fields["node"]].copy()))
+
+    planner_fsm.PlannerFSM._log = log
+    try:
+        yield targets
+    finally:
+        planner_fsm.PlannerFSM._log = real_log
+
+
+def target_timeline(np, planner, targets) -> list:
+    """Each planned target (recorded_targets): the tick it was planned at,
+    the actions taken by then, the agent's closest approach to it in pixels
+    from then until the next target was planned, "reached" when that
+    approach came within the planner's px_as_arrived, and "ended", the tick
+    at which the FSM ended its navigation there (a LOCAL_REFINE begun with
+    continue_global False before the next target; it does so on arrival and
+    also when the target hugs an obstacle; None if it never did)."""
+    out = []
+    for n, (tick, pose, px) in enumerate(targets):
+        nxt = targets[n + 1] if n + 1 < len(targets) else None
+        until = nxt[1] + 1 if nxt else len(planner.visited_px)
+        closest = float(np.min(np.linalg.norm(planner.visited_px[pose:until] - px, axis=1)))
+        out.append({
+            "tick": tick, "actions": pose, "px": [round(float(v), 2) for v in px],
+            "closest_px": round(closest, 3), "reached": closest < planner.px_as_arrived,
+            "ended": next((e["tick"] for e in planner.decision_log
+                           if e["event"] == "refine_begin" and not e["continue_global"]
+                           and e["tick"] > tick and (nxt is None or e["tick"] <= nxt[0])), None),
+        })
+    return out
+
+
+def episode_phase(torch, np, rc, rt, card, by_phase) -> None:
+    """Phase 5: the exploration episode through the port's run_episode at
+    make_synthetic_dataset's configuration, EPISODE_STEPS steps, the bin
+    kernel route on. Each action's wall runs from the start of one simulator
+    step to the start of the next (the host clock after a synchronize): the
+    step, its frame's mapping, and the planner's work until it issues the
+    next action. The first action is reported with the set-up before it;
+    the last EPISODE_PROFILED + 1 are left out of the mean: EPISODE_PROFILED
+    run under torch.profiler, and the last one holds post_processing. The
+    phase's launches go into by_phase["episode"]."""
+    import os
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from activesplat_tpu_torch.io.actions import read_actions
+    from activesplat_tpu_torch.io.params_io import load_params
+    from activesplat_tpu_torch.runtime import planner_fsm
+    from activesplat_tpu_torch.runtime.launch import make_synthetic_dataset, run_episode
+    from activesplat_tpu_torch.utils import tracing
+
+    n = EPISODE_STEPS
+    first_profiled = n - 1 - EPISODE_PROFILED
+    rt._BIN_KERNEL = True
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            ds = make_synthetic_dataset("two_room", 0, n, RES, RES, results_dir=tmp)
+            stamps = []
+            prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            real_move = ds.apply_movement
+
+            def move(twist):
+                torch.cuda.synchronize()
+                stamps.append(time.perf_counter())
+                if len(stamps) - 1 == first_profiled:
+                    prof.start()
+                elif len(stamps) == n:
+                    torch.cuda.synchronize()
+                    prof.stop()
+                return real_move(twist)
+
+            ds.apply_movement = move
+            tracing.reset_stages()
+            rc.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with recorded_targets(planner_fsm) as targets:
+                node, planner = run_episode(ds, tmp)
+            torch.cuda.synchronize()
+            t_end = time.perf_counter()
+            counts = {fn.__name__: fn.launches for fn in rc.KERNELS}
+            rc.reset_launch_counts()
+            by_phase["episode"] = counts
+            steps, budget = ds.get_step_info()
+            if steps != budget or len(stamps) != n:
+                raise AssertionError(f"episode: {steps} of {budget} steps taken, {len(stamps)} "
+                                     f"actions stamped")
+            mean_ms = (stamps[first_profiled] - stamps[1]) / (first_profiled - 1) * 1e3
+            walls = np.diff(stamps[:first_profiled + 1]) * 1e3
+            print(f"episode: {n} steps of two_room at {RES}x{RES} in {t_end - t0:.1f} s on {card}")
+            print(f"episode_action_ms@two_room_{RES}px = {mean_ms:.3f} (mean of actions 2 to "
+                  f"{first_profiled}, host clock, each from a synchronize) on {card}")
+            print(f"episode: set-up {(stamps[0] - t0) * 1e3:.3f} ms, the first action with its "
+                  f"set-up {(stamps[1] - t0) * 1e3:.3f} ms, the last action with post_processing "
+                  f"{(t_end - stamps[-1]) * 1e3:.3f} ms; action walls min / median / max "
+                  f"{walls[1:].min():.3f} / {float(np.median(walls[1:])):.3f} / "
+                  f"{walls[1:].max():.3f} ms")
+            print("episode stages (host wall-clock; total, calls, ms a call, longest call):")
+            for name, (tot, calls, longest) in sorted(tracing.stage_report_full().items()):
+                print(f"  {name:<26} {tot * 1e3:11.3f} ms / {calls:5d} calls = "
+                      f"{tot / calls * 1e3:9.3f} ms a call, longest {longest * 1e3:9.3f} ms")
+            print(f"episode host syncs and device-to-host copies by stage: "
+                  f"{tracing.stage_report_io()}")
+            kernels = device_kernels(prof)
+            window_ms = (stamps[-1] - stamps[first_profiled]) * 1e3
+            busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+            print(f"episode profile of actions {first_profiled + 1} to {n - 1} on {card}: wall "
+                  f"{window_ms / EPISODE_PROFILED:.3f} ms an action under the profiler, device busy "
+                  f"{busy_ms / EPISODE_PROFILED:.3f} ms an action in "
+                  f"{len(kernels) / EPISODE_PROFILED:.0f} kernels an action, idle share "
+                  f"{1.0 - busy_ms / window_ms:.3f} of the profiled wall, "
+                  f"{1.0 - busy_ms / EPISODE_PROFILED / mean_ms:.3f} of the timed mean")
+            print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=15))
+            hybrid = any(h.get("exact_training") == "hybrid" for h in node.mapper.shape_history)
+            print(f"episode launches: {counts}; the mapper switched to hybrid: {hybrid} "
+                  f"(shape history {node.mapper.shape_history})")
+            need = ("blend_tiles_fwd", "blend_tiles_bwd", "blend_csr_fwd", "blend_csr_dual_fwd",
+                    "bin_count", "bin_slots")
+            if (not all(counts[k] > 0 for k in need) or counts["bin_count"] != counts["bin_slots"]
+                    or (counts["blend_csr_bwd"] > 0) != hybrid):
+                raise AssertionError(f"episode launches {counts} (hybrid: {hybrid})")
+
+            # the outcome and the outputs
+            actions = read_actions(os.path.join(tmp, "actions.txt"))
+            if len(actions) != n or not all(0 <= a <= 5 for a in actions):
+                raise AssertionError(f"episode: actions.txt holds {len(actions)} actions "
+                                     f"{sorted(set(actions))} for {n} steps")
+            for rel in ("gaussians_data/params.npz", "topdown_free_map.png", "visited_map.png",
+                        "planner_log.jsonl"):
+                if not os.path.exists(os.path.join(tmp, rel)):
+                    raise AssertionError(f"episode: {rel} was not written")
+            params = load_params(os.path.join(tmp, "gaussians_data", "params.npz"))
+            bad = [k for k, v in params.items()
+                   if np.issubdtype(v.dtype, np.floating) and not np.isfinite(v).all()]
+            if bad:
+                raise AssertionError(f"episode: non-finite parameters in {bad}")
+            log = planner.decision_log
+            timeline = target_timeline(np, planner, targets)
+            reached = [t for t in timeline if t["reached"]]
+            ended = [t for t in timeline if t["ended"] is not None]
+            print(f"episode targets (the tick each was planned at and the actions taken by then, "
+                  f"its position, the closest approach until the next target in px, reached "
+                  f"when within px_as_arrived {planner.px_as_arrived:.3f} px, the tick the FSM "
+                  f"ended its navigation there): {timeline}")
+            area = np.count_nonzero(planner.free_map) * planner.topdown_cfg.meter_per_pixel ** 2
+            print(f"episode outcome: {steps} of {budget} steps, {planner._tick_count} planner "
+                  f"ticks, {sum(e['event'] == 'scores' for e in log)} scoring rounds, "
+                  f"{len(timeline)} targets planned, {len(ended)} ended, {len(reached)} reached, "
+                  f"{node.mapper.num_gaussians()} Gaussians, explored free area {area:.3f} m^2, "
+                  f"panorama cache {node.pano_cache_hits} hits / {node.pano_cache_misses} misses")
+            # the FSM ends a navigation on arrival and where the target hugs an
+            # obstacle; in this scene it does the latter every time (no target
+            # within px_as_arrived in 1,000 steps, scripts/episode_targets.py),
+            # so arrival is held on the small episode below
+            if not ended:
+                raise AssertionError(f"episode: {len(timeline)} targets planned, no navigation "
+                                     f"ended ({len(reached)} reached)")
+    finally:
+        rt._BIN_KERNEL = False
+
+
+def small_episode_check(torch, np, card) -> None:
+    """The port's episode on the card (kernels) against the same episode on
+    the CPU (plain twins): tests/test_torch_episode.py's parity run
+    (SMALL_EPISODE). The card's and the CPU's generators draw different
+    keyframe picks, so both runs pick the current frame in every mapping
+    iteration (torch.rand patched for the check). The CPU run must reach its
+    first planned target (target_timeline), and the card's actions must equal
+    the CPU's up to and including the tick at which the FSM ends its
+    navigation there; if not, the tick that issued the first different action
+    is printed with the two free maps' pixel difference and the two targets.
+    At the end the explored free-map area is within EPISODE_AREA_RTOL and the
+    Gaussian count within EPISODE_GAUSSIAN_RTOL."""
+    import os
+    import tempfile
+
+    from activesplat_tpu_torch.io.actions import read_actions
+    from activesplat_tpu_torch.mapper.config import MapperConfig
+    from activesplat_tpu_torch.runtime import planner_fsm
+    from activesplat_tpu_torch.runtime.dataloader import RGBDSensor, SyntheticDataset
+    from activesplat_tpu_torch.runtime.launch import run_episode
+    from activesplat_tpu_torch.runtime.synthetic import BoxWorld
+
+    cfg = SMALL_EPISODE
+    rand, real_tick = torch.rand, planner_fsm.PlannerFSM.tick
+    runs = {}
+    try:
+        torch.rand = lambda *a, **k: torch.full_like(rand(*a, **k), 1 - 2.0**-24)
+        for dev in ("cpu", "cuda"):
+            ticks = []  # (tick, actions issued so far, free map, latest target)
+
+            def tick(self, ticks=ticks):
+                real_tick(self)
+                last = [e for e in self.decision_log if e["event"] == "target"][-1:]
+                ticks.append((self._tick_count - 1, len(self.visited_px) - 1,
+                              None if self.free_map is None else self.free_map.copy(),
+                              last[0]["node_px"] if last else None))
+
+            planner_fsm.PlannerFSM.tick = tick
+            with tempfile.TemporaryDirectory() as tmp:
+                np.random.seed(0)  # the Voronoi sampling jitter's global stream
+                sensor = RGBDSensor.from_fov(cfg["res"], cfg["res"], 90.0, depth_min=0.0,
+                                             depth_max=10.0)
+                ds = SyntheticDataset(BoxWorld.single_room(seed=2), sensor, step_num=cfg["steps"],
+                                      start_position=np.array(cfg["start"]),
+                                      turn_angle_deg=cfg["turn"], tilt_angle_deg=15.0,
+                                      results_dir=tmp, scene_id="small")
+                with recorded_targets(planner_fsm) as targets:
+                    node, planner = run_episode(ds, tmp,
+                                                mapper_cfg=MapperConfig(**SMALL_EPISODE_CFG),
+                                                pixel_max=56, max_ticks=300, pano_scale=0.4,
+                                                device=dev)
+                runs[dev] = {"actions": read_actions(os.path.join(tmp, "actions.txt")),
+                             "timeline": target_timeline(np, planner, targets), "ticks": ticks,
+                             "gaussians": node.mapper.num_gaussians(),
+                             "area": np.count_nonzero(planner.free_map)
+                             * planner.topdown_cfg.meter_per_pixel ** 2}
+    finally:
+        torch.rand, planner_fsm.PlannerFSM.tick = rand, real_tick
+    a, b = runs["cpu"], runs["cuda"]
+    first = a["timeline"][0] if a["timeline"] else None
+    if first is None or not first["reached"] or first["ended"] is None:
+        raise AssertionError(f"small episode: the CPU run did not reach a first target and end "
+                             f"its navigation there: {a['timeline']}")
+    arrived = first["ended"]
+    k = next(n for t, n, _, _ in a["ticks"] if t == arrived)
+    if b["actions"][:k] != a["actions"][:k]:
+        i = next(j for j in range(k) if a["actions"][j] != b["actions"][j])
+        ta = next(r for r in a["ticks"] if r[1] > i)
+        tb = next(r for r in b["ticks"] if r[0] == ta[0])
+        diff = None if ta[2] is None or tb[2] is None else int((ta[2] != tb[2]).sum())
+        raise AssertionError(f"small episode: action {i} differs (CPU {a['actions'][i]}, card "
+                             f"{b['actions'][i]}), issued at tick {ta[0]}: the free maps differ "
+                             f"in {diff} pixels, targets CPU {ta[3]} card {tb[3]}")
+    if not b["timeline"] or not b["timeline"][0]["reached"]:
+        raise AssertionError(f"small episode: the card's run did not reach its first target: "
+                             f"{b['timeline']}")
+    if (abs(b["area"] - a["area"]) > EPISODE_AREA_RTOL * a["area"]
+            or abs(b["gaussians"] - a["gaussians"]) > EPISODE_GAUSSIAN_RTOL * a["gaussians"]):
+        raise AssertionError(f"small episode: at the end the card has {b['gaussians']} Gaussians "
+                             f"and {b['area']:.3f} m^2 free, the CPU {a['gaussians']} and "
+                             f"{a['area']:.3f} m^2")
+    print(f"small episode ({cfg['steps']} steps of single_room at {cfg['res']}x{cfg['res']}): the "
+          f"card's actions equal the CPU's through tick {arrived}, where the FSM ends its "
+          f"navigation to the first target {first['px']}, reached at {first['closest_px']} px "
+          f"({k} actions; {sum(x == y for x, y in zip(a['actions'], b['actions']))} of "
+          f"{cfg['steps']} equal in all); at the end {b['gaussians']} / {a['gaussians']} "
+          f"Gaussians (capacity {SMALL_EPISODE_CFG['max_capacity']}), {b['area']:.3f} / "
+          f"{a['area']:.3f} m^2 free (card / CPU) on {card}")
 
 
 def driver_intrinsics(np, res: int):
@@ -2824,6 +3137,13 @@ def main() -> int:
     dead_test_off(torch, rc, measured[-1], p_stream, p_tiles, p_c, False, card)
     del pano, p_stream
     print(f"planted faults of the CSR forward's two passes rejected (streams): {split_rejected}")
+
+    # ---- phase 5: the exploration episode -------------------------------- #
+    del qbuf
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    episode_phase(torch, np, rc, rt, card, by_phase)
+    small_episode_check(torch, np, card)
 
     kernels = []
     for entry_k in measured:

@@ -90,6 +90,24 @@ def test_gate_takes_the_sort_route(case, monkeypatch):
     np.testing.assert_array_equal(got.count.numpy(), np.asarray(want.count))
 
 
+def test_gate_sends_wide_frames_to_the_sort_route(monkeypatch):
+    """A frame 4,112 px wide (257 tile columns, more than the packed words
+    hold) with the switch on takes the sort route: the same lists as
+    use_kernel=False, and neither pass of the kernel route runs."""
+    for name in ("bin_count", "bin_slots"):
+        monkeypatch.setattr(raster_tiled, name, lambda *a, name=name: pytest.fail(f"{name} ran"))
+    w, h = 4112, 32
+    assert -(-w // 16) > raster_cuda.BIN_MAX_TILES
+    rng = np.random.default_rng(0)
+    mean2d = np.stack([rng.uniform(-20, w + 20, 1000), rng.uniform(-20, h + 20, 1000)],
+                      1).astype(np.float32)
+    radius = rng.uniform(1, 40, 1000).astype(np.float32)
+    valid = rng.uniform(0, 1, 1000) > 0.15
+    got = port_lists(mean2d, radius, valid, w, h, 128, 0, use_kernel=True)
+    assert_lists_equal(got, port_lists(mean2d, radius, valid, w, h, 128, 0, use_kernel=False))
+    assert int(got.count.sum()) > 0
+
+
 @pytest.mark.parametrize("value,expect", [("1", True), ("0", False), (None, False)])
 def test_switch_is_read_at_import(value, expect):
     env = dict(os.environ, PYTHONPATH=str(ROOT))

@@ -1,5 +1,6 @@
 """The port stands alone: it imports neither JAX nor the JAX package, nor
-OpenCV, scikit-learn, PIL or imageio (which the machine with the card lacks),
+OpenCV, networkx, scikit-learn, PIL or imageio (which the machine with the
+card lacks),
 its entry points run on CUDA unless told otherwise, and its smoke script
 refuses to run without a card."""
 
@@ -25,7 +26,8 @@ from activesplat_tpu_torch.ops import raster_cuda
 
 ROOT = Path(__file__).resolve().parent.parent
 PACKAGE = ROOT / "activesplat_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "activesplat_tpu", "cv2", "sklearn", "PIL", "imageio")
+FORBIDDEN = ("jax", "jaxlib", "flax", "activesplat_tpu", "cv2", "networkx", "sklearn", "PIL",
+             "imageio")
 
 
 def port_modules():
