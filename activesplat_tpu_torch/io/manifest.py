@@ -94,6 +94,15 @@ def load_manifest(out_dir: str) -> dict:
         return json.load(fh)
 
 
+def manifest_intrinsics(manifest: dict) -> np.ndarray:
+    """The dump's (3, 3) pinhole intrinsics."""
+    return np.array([
+        [manifest["fl_x"], 0, manifest["cx"]],
+        [0, manifest["fl_y"], manifest["cy"]],
+        [0, 0, 1],
+    ])
+
+
 def load_frame(out_dir: str, entry: dict):
     """Read one dumped frame back as (rgb float (H,W,3), depth meters (H,W),
     w2c (4,4))."""

@@ -4,14 +4,14 @@ the headless equivalent of the reference's Visualizer orchestrator
 
 Owns the dataset (simulator), the online mapper, and the top-down grid; serves
 the reference's mapper-side services (get_dataset_config, get_topdown_config,
-get_topdown, get_opacity, set_mapper, reset_env) and drives movement from the
-cmd_vel topic. All reference Condition-variable rendezvous become synchronous
+get_topdown, get_opacity, set_mapper, reset_env), drives movement from the
+cmd_vel topic and maps frames published on the frames topic. All reference Condition-variable rendezvous become synchronous
 calls: a get_topdown call renders fresh maps on the spot.
 
 The mapper and its queries run on `device` (CUDA unless the caller names
 another); the simulator, the score cache and the horizon box stay on the
-host. The runtime recorder, the live view and its orbit overlay, and the
-external-frames topic are not ported yet.
+host. The runtime recorder, the live view and its orbit overlay are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ from activesplat_tpu_torch.queries.topdown import (
 )
 from activesplat_tpu_torch.runtime.bus import Bus
 from activesplat_tpu_torch.runtime.dataloader import SyntheticDataset, twist_to_action
-from activesplat_tpu_torch.utils import GlobalState
+from activesplat_tpu_torch.utils import GlobalState, PoseDataType, convert_to_c2w_opencv
 from activesplat_tpu_torch.utils.tracing import stage
 
 
@@ -126,6 +126,7 @@ class MapperNode:
         bus.register_service("set_mapper", self._set_mapper)
         bus.register_service("reset_env", self._reset_env)
         bus.subscribe("cmd_vel", self._on_cmd_vel)
+        bus.subscribe("frames", self._on_frames)
 
         # map the first frame immediately (reference maps frame 0 on startup)
         self.mapper.run(frame0)
@@ -162,6 +163,29 @@ class MapperNode:
         self._publish_pose(frame)
         if self.dataset.is_finished():
             self.finish()
+
+    def _on_frames(self, frame: Dict[str, np.ndarray]) -> None:
+        """External-sensor mode: map a frame published on the 'frames' topic
+        instead of one stepped from the owned simulator (role of
+        __frame_callback, visualizer.py:2044-2115). The frame dict carries
+        rgb (H,W,3 float), depth (H,W meters), c2w, and optionally
+        pose_data_type for on-the-fly convention conversion."""
+        if self._finished:
+            return
+        c2w = convert_to_c2w_opencv(
+            np.asarray(frame["c2w"], np.float64),
+            PoseDataType(frame.get("pose_data_type", "C2W_OPENCV")),
+        )
+        msg = {
+            "rgb": frame["rgb"],
+            "depth": frame["depth"],
+            "c2w": c2w,
+            "frame_id": frame.get("frame_id", self.mapper.tracking_idx),
+        }
+        with stage("mapper/frame"):
+            self.mapper.run(msg)
+        self.last_frame = msg
+        self._publish_pose(msg)
 
     def finish(self) -> None:
         if self._finished:

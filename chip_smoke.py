@@ -152,7 +152,27 @@ Phases, each fatal on failure:
      reached (within px_as_arrived), the actions are equal through that
      arrival, and the explored area and Gaussian count are within 2%;
      print one {"kernels": [...]} line, each kernel's launches summed over
-     the main path's phases and the episode;
+     the main path's phases, the episode and the judges;
+  5b. the judges over phase 5's outputs (eval/, runtime/launch.run_replay):
+     the coverage judge (eval_actions: 200,000 GT samples, 5 cm, the
+     episode's actions.txt replayed in a fresh dataset; fatal unless its
+     numbers are finite, 0 < completeness_ratio <= 1 and the path length is
+     the forward steps times the step); the map-quality judge
+     (eval_map_quality, the exact render at k=1,024 of every 10th dumped
+     frame: B3 once a scored frame, B1 and B2 never; ms a scored frame, then
+     a profile with the device's busy time and idle share); the NVS judge
+     (eval_nvs_from_dump, hold-out every 5th frame: B3 once a frame); a
+     replay of the episode's first 60 actions through run_replay (every
+     action consumed, params.npz written, no NaN parameter); LPIPS(alex) on
+     seeded weights on the card and the CPU (rel 1e-4) with its ms a
+     256x256 pair; the small episode's map scored on both devices (LPIPS
+     through its env gate; within 1e-5 relative, 1e-6 absolute) and
+     fit_offline on its dump on both devices (mapping picks deterministic;
+     the first mapping event's gradients with no sign differing among the
+     significant ones, 99% within 1e-3; metrics within 1e-3, Gaussians
+     within 0.2%; FIT_RTOL says why); B3 held against its twin
+     on the CSR stream of one scored frame (forward, as in 4c), timed and
+     bounded, with the judges' launches as B3's "eval render" entry;
   6. print the device line last.
 
 It needs one CUDA card and exits non-zero without one, or without the rest of
@@ -318,6 +338,35 @@ SMALL_EPISODE_CFG = dict(initial_capacity=1 << 12, max_capacity=1 << 15, keyfram
 EPISODE_AREA_RTOL = 0.02
 EPISODE_GAUSSIAN_RTOL = 0.02
 
+# phase 5b, the judges, over phase 5's outputs: the coverage judge at the
+# reference's settings (eval_actions.py: 200,000 GT samples, 5 cm); the map
+# and NVS judges at scripts/rescore_episode.py's defaults (EP_K, EP_STRIDE)
+# and eval_nvs_from_dump's hold-out; a replay of the episode's first actions
+COVERAGE_SAMPLES = 200_000
+COVERAGE_THRESHOLD = 0.05
+EVAL_K = 1024
+EVAL_STRIDE = 10
+NVS_HOLDOUT = 5
+REPLAY_ACTIONS = 60
+# the phases whose B3 launches render scored frames (B3's "eval render" entry)
+EVAL_PHASES = ("map quality", "map quality timed", "map quality profiled", "nvs")
+# card against CPU: the scores of one map within the tolerance of
+# tests/test_torch_judges.py, LPIPS within that of tests/test_torch_eval.py,
+# the offline fit's Gaussian count within that of tests/test_torch_modes.py.
+# The fit's end metrics are held to 1e-3, not to that test's 1e-5 (the JAX
+# and port fits on one CPU): the quaternions of still-spherical Gaussians
+# have a true gradient of 0, and Adam's eps of 1e-15 turns their rounding
+# noise (1e-10) into whole learning-rate steps whose signs follow the
+# summation order, so the two devices' maps part from the second mapping
+# event on (the PSNR by 1.04e-4 relative on an H100). The first event's
+# gradients are held instead: no sign differs among those above 1e-6 of
+# their field's largest, and 99% of them agree within FIT_GRAD_RTOL.
+JUDGE_RTOL, JUDGE_ATOL = 1e-5, 1e-6
+FIT_RTOL, FIT_GAUSSIAN_RTOL = 1e-3, 2e-3
+FIT_GRAD_RTOL = 1e-3
+LPIPS_REL = 1e-4
+LPIPS_RES = 256
+
 # the planner's map queries at bench.py's query size (bench_queries,
 # bench.py:124-156, at its default of 1,000,000 Gaussians)
 QUERY_GAUSSIANS = 1_000_000
@@ -351,7 +400,7 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-EXTRA_CALLS = 5  # calls traced ahead of the averaged window
+EXTRA_CALLS = 10  # calls traced ahead of the averaged window (the trace misses up to 6)
 
 
 def kernel_device_ms(torch, fn, kernels, reps: int) -> dict:
@@ -2139,7 +2188,7 @@ def target_timeline(np, planner, targets) -> list:
     return out
 
 
-def episode_phase(torch, np, rc, rt, card, by_phase) -> None:
+def episode_phase(torch, np, rc, rt, card, by_phase, out_dir) -> None:
     """Phase 5: the exploration episode through the port's run_episode at
     make_synthetic_dataset's configuration, EPISODE_STEPS steps, the bin
     kernel route on. Each action's wall runs from the start of one simulator
@@ -2148,9 +2197,9 @@ def episode_phase(torch, np, rc, rt, card, by_phase) -> None:
     next action. The first action is reported with the set-up before it;
     the last EPISODE_PROFILED + 1 are left out of the mean: EPISODE_PROFILED
     run under torch.profiler, and the last one holds post_processing. The
-    phase's launches go into by_phase["episode"]."""
+    phase's launches go into by_phase["episode"]; its outputs are written
+    into `out_dir`, which phase 5b's judges read."""
     import os
-    import tempfile
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -2164,7 +2213,7 @@ def episode_phase(torch, np, rc, rt, card, by_phase) -> None:
     first_profiled = n - 1 - EPISODE_PROFILED
     rt._BIN_KERNEL = True
     try:
-        with tempfile.TemporaryDirectory() as tmp:
+        with contextlib.nullcontext(out_dir) as tmp:
             ds = make_synthetic_dataset("two_room", 0, n, RES, RES, results_dir=tmp)
             stamps = []
             prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
@@ -2270,7 +2319,7 @@ def episode_phase(torch, np, rc, rt, card, by_phase) -> None:
         rt._BIN_KERNEL = False
 
 
-def small_episode_check(torch, np, card) -> None:
+def small_episode_check(torch, np, card, cpu_dir=None) -> None:
     """The port's episode on the card (kernels) against the same episode on
     the CPU (plain twins): tests/test_torch_episode.py's parity run
     (SMALL_EPISODE). The card's and the CPU's generators draw different
@@ -2281,7 +2330,8 @@ def small_episode_check(torch, np, card) -> None:
     navigation there; if not, the tick that issued the first different action
     is printed with the two free maps' pixel difference and the two targets.
     At the end the explored free-map area is within EPISODE_AREA_RTOL and the
-    Gaussian count within EPISODE_GAUSSIAN_RTOL."""
+    Gaussian count within EPISODE_GAUSSIAN_RTOL. With `cpu_dir` the CPU run
+    writes its outputs there (phase 5b scores them)."""
     import os
     import tempfile
 
@@ -2308,7 +2358,8 @@ def small_episode_check(torch, np, card) -> None:
                               last[0]["node_px"] if last else None))
 
             planner_fsm.PlannerFSM.tick = tick
-            with tempfile.TemporaryDirectory() as tmp:
+            keep = dev == "cpu" and cpu_dir is not None
+            with contextlib.nullcontext(cpu_dir) if keep else tempfile.TemporaryDirectory() as tmp:
                 np.random.seed(0)  # the Voronoi sampling jitter's global stream
                 sensor = RGBDSensor.from_fov(cfg["res"], cfg["res"], 90.0, depth_min=0.0,
                                              depth_max=10.0)
@@ -2358,6 +2409,252 @@ def small_episode_check(torch, np, card) -> None:
           f"{cfg['steps']} equal in all); at the end {b['gaussians']} / {a['gaussians']} "
           f"Gaussians (capacity {SMALL_EPISODE_CFG['max_capacity']}), {b['area']:.3f} / "
           f"{a['area']:.3f} m^2 free (card / CPU) on {card}")
+
+
+def judges_phase(torch, np, rc, rt, card, by_phase, episode_dir):
+    """Phase 5b: the judges over phase 5's outputs in `episode_dir`, each
+    fatal on failure: the coverage judge replays actions.txt in a fresh
+    dataset of the episode's configuration; the map-quality judge scores
+    every EVAL_STRIDE-th dumped frame with the exact render (B3 once a frame,
+    no B1 or B2), then again timed (the same scores), then once more under
+    torch.profiler; the NVS judge
+    scores the hold-out frames; run_replay maps the first REPLAY_ACTIONS
+    actions on the card. The launch counters are read after each phase.
+    Returns (the CSR stream B3 walks for one scored frame, its tile count,
+    the frame's manifest index)."""
+    import os
+    import tempfile
+
+    from activesplat_tpu_torch.eval.nvs import eval_nvs_from_dump
+    from activesplat_tpu_torch.eval.replay import eval_actions, eval_map_quality
+    from activesplat_tpu_torch.io.actions import read_actions
+    from activesplat_tpu_torch.io.manifest import load_frame, load_manifest, manifest_intrinsics
+    from activesplat_tpu_torch.io.params_io import buffer_from_params, load_params
+    from activesplat_tpu_torch.models.gaussians import make_camera
+    from activesplat_tpu_torch.ops.render import render
+    from activesplat_tpu_torch.runtime.launch import make_synthetic_dataset, run_replay
+
+    def read(phase, **expect):
+        counts = {fn.__name__: fn.launches for fn in rc.KERNELS}
+        rc.reset_launch_counts()
+        by_phase[phase] = counts
+        bad = {k: (counts[k], v) for k, v in expect.items() if counts[k] != v}
+        if bad:
+            raise AssertionError(f"judges, {phase}: launches (got, expected) {bad} of {counts}")
+        return counts
+
+    actions_path = os.path.join(episode_dir, "actions.txt")
+    gdir = os.path.join(episode_dir, "gaussians_data")
+    params_path = os.path.join(gdir, "params.npz")
+    actions = read_actions(actions_path)
+
+    # coverage: the episode's own frames, replayed on the host
+    t0 = time.perf_counter()
+    cov = eval_actions(make_synthetic_dataset("two_room", 0, EPISODE_STEPS, RES, RES,
+                                              results_dir=None),
+                       actions_path, num_gt_samples=COVERAGE_SAMPLES,
+                       dist_threshold=COVERAGE_THRESHOLD, workers=0)
+    cov_s = time.perf_counter() - t0
+    forward = sum(a == 1 for a in actions)
+    numbers = (cov.completeness, cov.completeness_ratio, cov.accuracy, cov.path_length)
+    print(f"judges, coverage of the {len(actions)}-action episode ({COVERAGE_SAMPLES} GT "
+          f"samples, {COVERAGE_THRESHOLD} m): completeness {cov.completeness:.6f} m, "
+          f"completeness_ratio {cov.completeness_ratio:.6f}, accuracy {cov.accuracy:.6f} m, "
+          f"path_length {cov.path_length:.6f} m ({forward} forward steps), "
+          f"{cov.num_observed_points} observed points, {cov_s:.3f} s (host)")
+    if (not all(math.isfinite(x) for x in numbers) or not 0 < cov.completeness_ratio <= 1
+            or abs(cov.path_length - forward * FORWARD_STEP) > 1e-9):
+        raise AssertionError(f"judges: coverage {cov} for {forward} forward steps")
+
+    # map quality: the exact render (B3) of every EVAL_STRIDE-th frame
+    manifest = load_manifest(gdir)
+    n_scored = len(manifest["frames"][::EVAL_STRIDE])
+
+    def quality():
+        return eval_map_quality(params_path, gdir, frame_stride=EVAL_STRIDE, k_per_tile=EVAL_K)
+
+    rc.reset_launch_counts()
+    scores = quality()  # the first call: the allocator's and the kernels' warm-up
+    read("map quality", blend_tiles_fwd=0, blend_tiles_bwd=0, blend_csr_fwd=n_scored,
+         blend_csr_bwd=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = quality()
+    torch.cuda.synchronize()
+    quality_ms = (time.perf_counter() - t0) * 1e3
+    read("map quality timed", blend_tiles_fwd=0, blend_tiles_bwd=0, blend_csr_fwd=n_scored,
+         blend_csr_bwd=0)
+    t0 = time.perf_counter()
+    n_map = int(buffer_from_params(load_params(params_path)).num_active())
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    print(f"judges, map quality of the {n_map}-Gaussian map over {n_scored} of "
+          f"{len(manifest['frames'])} frames (k_per_tile {EVAL_K}, exact): "
+          f"{json.dumps(scores)}; the second call {quality_ms:.1f} ms, of which the map's load "
+          f"{load_ms:.1f} ms: {(quality_ms - load_ms) / n_scored:.3f} ms a scored frame on {card}")
+    if again != scores or not all(math.isfinite(v) for v in scores.values()):
+        raise AssertionError(f"judges: map quality {scores}, again {again}")
+    profile_calls(torch, quality, 1, quality_ms, card, "map-quality judge")
+    read("map quality profiled", blend_csr_fwd=n_scored)
+
+    # the CSR stream that B3 walks for the middle scored frame
+    frame_idx = (n_scored // 2) * EVAL_STRIDE
+    buf = buffer_from_params(load_params(params_path))
+    _, _, w2c = load_frame(gdir, manifest["frames"][frame_idx])
+    cam = make_camera(manifest["w"], manifest["h"], manifest_intrinsics(manifest), w2c)
+
+    def one_render():
+        with torch.no_grad():
+            render(buf, cam, k_per_tile=EVAL_K, exact=True)
+
+    streams = capture_streams("blend_csr", one_render)
+    rc.reset_launch_counts()
+    del buf
+    if len(streams) != 1:
+        raise AssertionError(f"judges: the exact render of frame {frame_idx} handed B3 "
+                             f"{len(streams)} streams")
+
+    # NVS: the hold-out frames
+    t0 = time.perf_counter()
+    nvs = eval_nvs_from_dump(params_path, gdir, holdout_every=NVS_HOLDOUT, k_per_tile=EVAL_K)
+    torch.cuda.synchronize()
+    nvs_ms = (time.perf_counter() - t0) * 1e3
+    read("nvs", blend_tiles_fwd=0, blend_tiles_bwd=0, blend_csr_fwd=nvs["num_eval_frames"],
+         blend_csr_bwd=0)
+    print(f"judges, NVS (hold-out every {NVS_HOLDOUT}, k_per_tile {EVAL_K}): {json.dumps(nvs)}; "
+          f"{nvs_ms / nvs['num_eval_frames']:.3f} ms a frame on {card}")
+    if not all(math.isfinite(v) for v in nvs.values()) or not 0 <= nvs["valid_frame_ratio"] <= 1:
+        raise AssertionError(f"judges: NVS {nvs}")
+
+    # replay of the episode's first actions through the mapper (B6 on, as
+    # in phase 5)
+    rt._BIN_KERNEL = True
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            head = os.path.join(tmp, "actions_head.txt")
+            with open(head, "w") as fh:
+                fh.writelines(f"{a}\n" for a in actions[:REPLAY_ACTIONS])
+            ds = make_synthetic_dataset("two_room", 0, REPLAY_ACTIONS, RES, RES,
+                                        results_dir=None)
+            t0 = time.perf_counter()
+            node = run_replay(ds, head, os.path.join(tmp, "replay"))
+            torch.cuda.synchronize()
+            replay_s = time.perf_counter() - t0
+            counts = read("replay")
+            steps, _ = ds.get_step_info()
+            out = os.path.join(tmp, "replay", "gaussians_data", "params.npz")
+            params = load_params(out) if os.path.exists(out) else {}
+            bad = [k for k, v in params.items()
+                   if np.issubdtype(v.dtype, np.floating) and not np.isfinite(v).all()]
+            print(f"judges, replay of {REPLAY_ACTIONS} actions: {steps} steps, "
+                  f"{node.mapper.mapping_frame_time_count} frames mapped, "
+                  f"{node.mapper.num_gaussians()} Gaussians, {replay_s:.1f} s, launches {counts} "
+                  f"on {card}")
+            if (steps != REPLAY_ACTIONS or node.mapper.mapping_frame_time_count != steps + 1
+                    or not params or bad):
+                raise AssertionError(f"judges: replay took {steps} of {REPLAY_ACTIONS} actions, "
+                                     f"params.npz written: {bool(params)}, non-finite: {bad}")
+    finally:
+        rt._BIN_KERNEL = False
+    stream, n_tiles, _ = streams[0]
+    return stream, n_tiles, frame_idx
+
+
+def lpips_check(torch, np, card, rgb_a, rgb_b) -> float:
+    """LPIPS(alex) on weights drawn from a seed (tests/test_lpips.py's
+    recipe), on the card and on the CPU, on one pair of 256x256 frames:
+    within LPIPS_REL. Returns the card's ms a pair (CUDA events)."""
+    from activesplat_tpu_torch.eval import lpips as lp
+
+    weights = lp.random_weights(np.random.default_rng(3))
+    values = {dev: lp.lpips(rgb_a, rgb_b, weights=weights, device=dev) for dev in ("cpu", "cuda")}
+    if abs(values["cuda"] - values["cpu"]) > LPIPS_REL * abs(values["cpu"]):
+        raise AssertionError(f"LPIPS card {values['cuda']} against CPU {values['cpu']}")
+    net = lp.network(weights, "cuda")
+    a, b = (torch.as_tensor(x, device="cuda").clamp(0, 1) for x in (rgb_a, rgb_b))
+    with torch.no_grad():
+        ms = cuda_ms(lambda: net(a, b), 20)
+    print(f"LPIPS(alex) on seeded weights, a {rgb_a.shape[0]}x{rgb_a.shape[1]} pair: card "
+          f"{values['cuda']:.7f}, CPU {values['cpu']:.7f} (rel {LPIPS_REL}); {ms:.3f} ms a pair "
+          f"(CUDA events, 20 calls) on {card}")
+    return ms
+
+
+def small_judges_check(torch, np, card, small_dir) -> None:
+    """The judges on the card against the same on the CPU, over the small
+    episode's outputs in `small_dir` (phase 5's CPU run): eval_map_quality
+    (exact, k=EVAL_K; LPIPS on seeded weights through the env gate) within
+    JUDGE_RTOL / JUDGE_ATOL, and fit_offline with the small episode's mapper
+    config, the mapping picks made deterministic on both devices (the
+    current frame every iteration, as small_episode_check does): the
+    gradients of its first mapping event (two Adam steps) as FIT_GRAD_RTOL
+    says, its metrics within FIT_RTOL and Gaussian count within
+    FIT_GAUSSIAN_RTOL."""
+    import os
+    import tempfile
+
+    from activesplat_tpu_torch.eval import lpips as lp
+    from activesplat_tpu_torch.eval.replay import eval_map_quality
+    from activesplat_tpu_torch.mapper import step
+    from activesplat_tpu_torch.mapper.config import MapperConfig
+    from activesplat_tpu_torch.runtime.offline_fit import fit_offline
+
+    gdir = os.path.join(small_dir, "gaussians_data")
+    params_path = os.path.join(gdir, "params.npz")
+    rand, old_env = torch.rand, os.environ.get("ACTIVESPLAT_LPIPS_WEIGHTS")
+    with tempfile.TemporaryDirectory() as tmp:
+        weights_path = os.path.join(tmp, "lpips_alex_seeded.npz")
+        np.savez(weights_path, **lp.random_weights(np.random.default_rng(3)))
+        os.environ["ACTIVESPLAT_LPIPS_WEIGHTS"] = weights_path
+        try:
+            scores = {dev: eval_map_quality(params_path, gdir, frame_stride=2, k_per_tile=EVAL_K,
+                                            chunk=128, device=dev) for dev in ("cpu", "cuda")}
+        finally:
+            if old_env is None:
+                os.environ.pop("ACTIVESPLAT_LPIPS_WEIGHTS")
+            else:
+                os.environ["ACTIVESPLAT_LPIPS_WEIGHTS"] = old_env
+    real_adam, grads = step.adam_update, {}
+
+    def adam(params, g, *a, **k):  # the first event's gradients, on the host
+        if len(grads[adam.dev]) < 2:
+            grads[adam.dev].append([t.detach().cpu() for t in g.tensors()])
+        return real_adam(params, g, *a, **k)
+
+    try:
+        torch.rand = lambda *a, **k: torch.full_like(rand(*a, **k), 1 - 2.0**-24)
+        step.adam_update = adam
+        fits = {}
+        for dev in ("cpu", "cuda"):
+            adam.dev, grads[dev] = dev, []
+            fits[dev] = fit_offline(gdir, MapperConfig(**SMALL_EPISODE_CFG), device=dev)
+    finally:
+        torch.rand, step.adam_update = rand, real_adam
+    flips, p99 = 0, 0.0
+    for ga, gb in zip(grads["cpu"], grads["cuda"]):
+        for x, y in zip(ga, gb):
+            sig = x.abs() > 1e-6 * x.abs().max()
+            flips += int((sig & (torch.sign(x) != torch.sign(y))).sum())
+            if sig.any():
+                p99 = max(p99, float(((x - y).abs() / x.abs())[sig].quantile(0.99)))
+    if len(grads["cuda"]) != 2 or flips or p99 > FIT_GRAD_RTOL:
+        raise AssertionError(f"small judges: fit_offline's first-event gradients, card against "
+                             f"CPU: {flips} signs differ, 99th percentile relative error {p99:.2e}")
+    a, b = scores["cpu"], scores["cuda"]
+    if set(a) != set(b) or "lpips" not in a or any(
+            abs(b[k] - a[k]) > JUDGE_ATOL + JUDGE_RTOL * abs(a[k]) for k in a):
+        raise AssertionError(f"small judges: map quality card {b} against CPU {a}")
+    fa, fb = fits["cpu"], fits["cuda"]
+    keys = ("psnr", "ssim", "ms_ssim", "depth_l1", "depth_rmse")
+    worst = max(abs(fb[k] - fa[k]) / abs(fa[k]) for k in keys)
+    if (worst > FIT_RTOL or abs(fb["num_gaussians"] - fa["num_gaussians"])
+            > FIT_GAUSSIAN_RTOL * fa["num_gaussians"]):
+        raise AssertionError(f"small judges: fit_offline card {fb} against CPU {fa}")
+    print(f"small judges (the small episode's {fa['num_frames']} frames): map quality card / "
+          f"CPU {json.dumps(b)} / {json.dumps(a)} (LPIPS on seeded weights); fit_offline "
+          f"{fb['num_gaussians']} / {fa['num_gaussians']} Gaussians, metrics within {worst:.2e} "
+          f"relative (psnr {fb['psnr']:.6f} / {fa['psnr']:.6f}), first-event gradients: no sign "
+          f"differs, 99th percentile relative error {p99:.2e} on {card}")
 
 
 def driver_intrinsics(np, res: int):
@@ -3142,16 +3439,54 @@ def main() -> int:
     del qbuf
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    episode_phase(torch, np, rc, rt, card, by_phase)
-    small_episode_check(torch, np, card)
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as episode_dir, tempfile.TemporaryDirectory() as small_dir:
+        episode_phase(torch, np, rc, rt, card, by_phase, episode_dir)
+        small_episode_check(torch, np, card, small_dir)
+
+        # ---- phase 5b: the judges ------------------------------------------ #
+        t5b = time.perf_counter()
+        e_stream, e_tiles, e_frame = judges_phase(torch, np, rc, rt, card, by_phase, episode_dir)
+        from activesplat_tpu_torch.io.manifest import load_frame, load_manifest
+
+        gdir = Path(episode_dir) / "gaussians_data"
+        pair = [load_frame(str(gdir), e)[0] for e in load_manifest(str(gdir))["frames"][:11:10]]
+        lpips_check(torch, np, card, *pair)
+        small_judges_check(torch, np, card, small_dir)
+    # B3 on the stream of one scored frame of the map-quality judge
+    e_errs, (e_entry, _, _) = csr_kernel_checks(
+        torch, rc, e_stream, e_tiles, f"eval render CSR stream (frame {e_frame}), "
+        f"{e_stream[1].shape[0]} segments", split_rejected, with_bwd=False)
+    e_seg, e_walked, e_live = csr_pair_counts(torch, rc, e_stream, e_entry, e_tiles)
+    print(f"eval render CSR stream: {e_stream[0].shape[0]} entry rows, {e_seg} of "
+          f"{e_stream[1].shape[0]} segments walked, {e_errs['segments'][0]} computed by pass 1, "
+          f"{e_walked} (row, pixel) pairs walked, {e_live} of them live "
+          f"({e_live / e_walked:.4f}); blend_csr_fwd max_abs_err {e_errs['fwd']:.3e}")
+    # bytes: the walked segments' rows, the per-tile segment ranges, the
+    # pixels' outputs (no stash: the judge renders forward only)
+    eval_bytes = (e_seg * rc.CSEG * rc.N_ATTR * 4 + 2 * e_tiles * 4
+                  + e_tiles * rc.PX * 4 * (N_CHANNELS + 1))
+    measure("blend_csr_fwd", "activesplat_tpu_torch/csrc/blend_csr_fwd.cu", CSR_FWD_REPLACES,
+            lambda: rc.blend_csr_fwd(*e_stream, e_tiles, N_CHANNELS),
+            lambda: rc.blend_csr_fwd_plain(*e_stream, e_tiles, N_CHANNELS), CSR_PASSES,
+            bound(eval_bytes, e_walked, e_live, live_f32_fwd(N_CHANNELS)), e_errs["fwd"],
+            plain_reps=2, stream=f"eval render, frame {e_frame}",
+            segments={"walked": e_seg, "computed": e_errs["segments"][0],
+                      "all": e_stream[1].shape[0]})
+    dead_test_off(torch, rc, measured[-1], e_stream, e_tiles, N_CHANNELS, False, card)
+    del e_stream, e_entry
+    print(f"phase 5b (the judges) took {time.perf_counter() - t5b:.1f} s")
 
     kernels = []
     for entry_k in measured:
         name = entry_k["name"]
-        # B3 is measured on two streams: each entry counts the phases of its own
+        # B3 is measured on three streams: each entry counts the phases of its own
         split = "stream" in entry_k and name == "blend_csr_fwd"
+        kind = entry_k.get("stream", "").split()[0] if split else None
         phases = {phase: c[name] for phase, c in by_phase.items() if c[name] and (
-            not split or (phase in PANORAMA_PHASES) == entry_k["stream"].startswith("panorama"))}
+            not split or {"panorama": phase in PANORAMA_PHASES, "eval": phase in EVAL_PHASES}.get(
+                kind, phase not in PANORAMA_PHASES + EVAL_PHASES))}
         n_launches = sum(phases.values())
         print(f"{name}{' (' + entry_k['stream'] + ')' if 'stream' in entry_k else ''}: "
               f"max_abs_err={entry_k['max_abs_err']:.3e} kernel {entry_k['ms']:.4f} ms "

@@ -1,6 +1,6 @@
 """The port stands alone: it imports neither JAX nor the JAX package, nor
-OpenCV, networkx, scikit-learn, PIL or imageio (which the machine with the
-card lacks),
+OpenCV, networkx, scikit-learn, PIL, imageio, torchmetrics or trimesh
+(which the machine with the card lacks),
 its entry points run on CUDA unless told otherwise, and its smoke script
 refuses to run without a card."""
 
@@ -27,7 +27,7 @@ from activesplat_tpu_torch.ops import raster_cuda
 ROOT = Path(__file__).resolve().parent.parent
 PACKAGE = ROOT / "activesplat_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "activesplat_tpu", "cv2", "networkx", "sklearn", "PIL",
-             "imageio")
+             "imageio", "torchmetrics", "trimesh")
 
 
 def port_modules():
