@@ -3,9 +3,10 @@ episodes over scene lists and aggregate the coverage judge (reference:
 scripts/batch/run_batch_scenes.sh + eval_results_actions.py — loops scenes x
 repetitions, then scores every actions.txt).
 
-Only the synthetic scene sets are ported. The reference's Habitat scene
-lists (HABITAT_SCENE_SETS) need scene configs and the Habitat backend,
-which wait for ROADMAP.md, queue A, item 10.3: naming one raises.
+Scene sets: the synthetic ones, and the reference's Habitat scene lists
+(HABITAT_SCENE_SETS) through the scene configs and the Habitat adapter. The
+real simulator needs the habitat wheels; sim_factory=make_mock_sim
+(runtime/mock_habitat.py) runs the whole protocol hermetically.
 """
 
 from __future__ import annotations
@@ -17,7 +18,13 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from activesplat_tpu_torch.device import DeviceLike
-from activesplat_tpu_torch.eval.replay import HABITAT_NOT_PORTED, eval_actions
+from activesplat_tpu_torch.configs import (
+    load_scene_config,
+    load_scene_list,
+    load_user_config,
+    mapper_config_from_scene,
+)
+from activesplat_tpu_torch.eval.replay import eval_actions
 from activesplat_tpu_torch.mapper.config import MapperConfig
 from activesplat_tpu_torch.runtime.launch import make_synthetic_dataset, run_episode
 
@@ -42,11 +49,39 @@ HABITAT_SCENE_SETS: Dict[str, tuple] = {
 
 
 def habitat_scene_specs(set_name: str) -> List[Dict]:
-    raise NotImplementedError(f"the Habitat scene set {set_name!r} {HABITAT_NOT_PORTED}")
+    """Episode specs for a reference scene list (the real simulator needs the
+    habitat wheels; the spec surface is importable everywhere)."""
+    config_name, step_num = HABITAT_SCENE_SETS[set_name]
+    cfg = load_scene_config(config_name)
+    return [
+        {"scene_id": scene, "seed": 0, "step_num": step_num, "scene_config": cfg}
+        for scene in load_scene_list(set_name)
+    ]
 
 
 def habitat_dataset_factory(user_config_path=None, sim_factory=None):
-    raise NotImplementedError(f"the Habitat dataset factory {HABITAT_NOT_PORTED}")
+    """Default dataset_factory(spec, results_dir) for the habitat scene sets:
+    builds HabitatDataset from the spec's scene config + user dataset roots
+    (reference flow: run_batch_scenes.sh -> habitat.launch config/scene_id
+    args -> get_dataset). results_dir=None builds the judge's fresh 'Eval'
+    dataset (no actions.txt, no result dumps — eval_actions.py:42-60)."""
+    from activesplat_tpu_torch.runtime.habitat_backend import get_dataset
+
+    user = load_user_config(user_config_path)
+
+    def factory(spec, results_dir):
+        cfg = dict(spec["scene_config"])
+        cfg["dataset"] = dict(cfg["dataset"], scene_id=spec["scene_id"],
+                              step_num=spec["step_num"])
+        return get_dataset(
+            cfg,
+            user,
+            scene_id=spec["scene_id"] if results_dir is not None else "Eval",
+            results_dir=results_dir,
+            sim_factory=sim_factory,
+        )
+
+    return factory
 
 
 def run_batch(
@@ -58,17 +93,25 @@ def run_batch(
     height: int = 128,
     pixel_max: int = 180,
     dataset_factory=None,
+    user_config_path=None,
+    sim_factory=None,
     device: DeviceLike = None,
 ) -> List[Dict]:
     """Run episodes (on `device`, CUDA unless the caller names the CPU) and
-    the coverage judge over a synthetic scene set; writes actions_error.txt
-    per run and a summary.json (eval_results_actions.py output shape).
-    `dataset_factory(spec, results_dir)` replaces make_synthetic_dataset for
-    both the episode (results_dir set) and the judge's fresh replay
-    (results_dir None)."""
+    the coverage judge over a scene set; writes actions_error.txt per run
+    and a summary.json (eval_results_actions.py output shape). scene_set may
+    be a synthetic set or one of the reference habitat lists
+    (HABITAT_SCENE_SETS, built with the default habitat_dataset_factory
+    unless a dataset_factory is passed; sim_factory and user_config_path
+    thread into the default). `dataset_factory(spec, results_dir)` builds
+    both the episode's dataset (results_dir set) and the judge's fresh
+    replay (results_dir None)."""
     if scene_set in HABITAT_SCENE_SETS:
-        habitat_scene_specs(scene_set)
-    specs = SCENE_SETS[scene_set]
+        specs = habitat_scene_specs(scene_set)
+        if dataset_factory is None:
+            dataset_factory = habitat_dataset_factory(user_config_path, sim_factory)
+    else:
+        specs = SCENE_SETS[scene_set]
     results = []
     for spec in specs:
 
@@ -86,11 +129,18 @@ def run_batch(
                 results_dir=results_dir,
             )
 
+        spec_mapper_cfg, spec_pixel_max = mapper_cfg, pixel_max
+        if "scene_config" in spec:
+            scfg = spec["scene_config"]
+            if spec_mapper_cfg is None:
+                spec_mapper_cfg = mapper_config_from_scene(scfg)
+            spec_pixel_max = scfg.get("painter", {}).get("grid_map", {}).get("pixel_max",
+                                                                             pixel_max)
         for rep in range(repetitions):
             run_name = f"{spec['scene_id']}-{spec['seed']}-rep{rep}"
             results_dir = os.path.join(output_dir, run_name)
-            run_episode(build(results_dir), results_dir, mapper_cfg=mapper_cfg,
-                        pixel_max=pixel_max, device=device)
+            run_episode(build(results_dir), results_dir, mapper_cfg=spec_mapper_cfg,
+                        pixel_max=spec_pixel_max, device=device)
             report = eval_actions(build(None), os.path.join(results_dir, "actions.txt"))
             with open(os.path.join(results_dir, "actions_error.txt"), "w") as fh:
                 fh.write(report.as_row() + "\n")

@@ -17,11 +17,13 @@ nearest distances equals the nearest distance against the union cloud, so
 one tree over all observed points serves, in float64 on the host with
 scipy's cKDTree (`workers` threads its queries).
 
+The GT surface is the synthetic world's (or the Habitat mock's) analytic
+one, or for a mesh-backed dataset area-weighted samples of its scene mesh,
+read in numpy (eval/mesh.py; the JAX package samples it with trimesh, which
+draws other points).
+
 Map quality renders a saved map at every dumped frame pose on `device` and
 scores it there (frame_scores), one host read per frame.
-
-Only the synthetic worlds are ported: a mesh-backed dataset's GT surface
-needs the Habitat side of the runtime (ROADMAP.md, queue A, item 10.3).
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from scipy.spatial import cKDTree
 
 from activesplat_tpu_torch.device import DeviceLike, resolve_device
 from activesplat_tpu_torch.eval import lpips as lpips_alex
+from activesplat_tpu_torch.eval.mesh import sample_mesh_surface
 from activesplat_tpu_torch.eval.metrics import SCORE_KEYS, frame_scores, ms_ssim_levels
 from activesplat_tpu_torch.io.actions import read_actions
 from activesplat_tpu_torch.io.manifest import load_frame, load_manifest, manifest_intrinsics
@@ -42,10 +45,6 @@ from activesplat_tpu_torch.io.params_io import buffer_from_params, load_params
 from activesplat_tpu_torch.models.gaussians import make_camera
 from activesplat_tpu_torch.ops.render import render
 from activesplat_tpu_torch.runtime.dataloader import SimAction, SyntheticDataset
-
-HABITAT_NOT_PORTED = ("is not ported to activesplat_tpu_torch yet: the Habitat datasets, their "
-                      "scene meshes and scene configs wait for ROADMAP.md, queue A, item 10.3")
-
 
 @dataclasses.dataclass
 class CoverageReport:
@@ -87,12 +86,18 @@ def _observed_cloud(frames: List, intrinsics: np.ndarray, point_subsample: int) 
 
 def sample_gt_surface(dataset, num_samples: int = 200_000) -> np.ndarray:
     """GT surface samples for the coverage judge: the synthetic world's
-    analytic surfaces. A mesh-backed dataset (Habitat) is refused."""
+    analytic surfaces, or — for mesh-backed datasets like Habitat — 200k
+    area-weighted samples of the GT scene mesh (eval_actions.py:65-67)."""
     world = getattr(dataset, "world", None)
+    if world is None:
+        # HabitatDataset driven by the BoxWorld mock sim: the analytic
+        # geometry lives on the simulator (runtime/mock_habitat.py)
+        world = getattr(getattr(dataset, "_sim", None), "world", None)
     if world is not None:
         return world.sample_surface(num_samples, seed=0)
-    if getattr(dataset, "scene_mesh_url", None):
-        raise NotImplementedError(f"coverage of a mesh-backed dataset {HABITAT_NOT_PORTED}")
+    mesh_url = getattr(dataset, "scene_mesh_url", None)
+    if mesh_url:
+        return sample_mesh_surface(mesh_url, num_samples)
     raise ValueError("dataset exposes neither .world nor .scene_mesh_url; pass gt_samples=")
 
 
@@ -110,6 +115,8 @@ def eval_actions(
     results_dir=None, so that it writes no actions.txt) and score coverage
     (eval_actions.py:42-153 semantics; 200k GT samples, 5 cm completeness
     threshold). workers > 1 threads the tree queries."""
+    if hasattr(dataset, "setup") and getattr(dataset, "_sim", None) is None:
+        dataset.setup()  # fresh HabitatDataset in 'Eval' mode
     dataset.reset()
     if gt_samples is None:
         gt_samples = sample_gt_surface(dataset, num_gt_samples)

@@ -29,6 +29,12 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
 
 def write_png(path: str, img: np.ndarray) -> None:
     """Write (H, W, 3) uint8 as RGB, (H, W) uint8 or uint16 as grey."""
+    with open(path, "wb") as fh:
+        fh.write(encode_png(img))
+
+
+def encode_png(img: np.ndarray) -> bytes:
+    """The PNG file of (H, W, 3) uint8 RGB or (H, W) uint8/uint16 grey."""
     img = np.asarray(img)
     if img.dtype == np.uint8 and img.ndim == 3 and img.shape[2] == 3:
         colour, depth = 2, 8
@@ -42,9 +48,8 @@ def write_png(path: str, img: np.ndarray) -> None:
     rows = rows.reshape(h, -1)
     raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1)  # filter 0 per row
     header = struct.pack(">IIBBBBB", w, h, depth, colour, 0, 0, 0)
-    with open(path, "wb") as fh:
-        fh.write(_SIGNATURE + _chunk(b"IHDR", header)
-                 + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)) + _chunk(b"IEND", b""))
+    return (_SIGNATURE + _chunk(b"IHDR", header)
+            + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)) + _chunk(b"IEND", b""))
 
 
 def _paeth(a: int, b: int, c: int) -> int:
@@ -80,7 +85,11 @@ def read_png(path: str) -> np.ndarray:
     """(H, W) grey or (H, W, C) colour pixels, uint8 or uint16, in the
     file's channel order (RGB, RGBA)."""
     with open(path, "rb") as fh:
-        blob = fh.read()
+        return decode_png(fh.read(), path)
+
+
+def decode_png(blob: bytes, path: str = "the data") -> np.ndarray:
+    """read_png of a PNG file's bytes."""
     if blob[:8] != _SIGNATURE:
         raise ValueError(f"{path} is not a PNG file")
     pos, idat, header = 8, [], None

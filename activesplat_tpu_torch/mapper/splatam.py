@@ -13,7 +13,7 @@ Differences from the JAX package, on purpose: no mesh sharding and no relay
 retries; random draws come from one torch.Generator (so the same seed picks
 other keyframes than jax.random), whose state a checkpoint stores under its
 own key; the keyframe dumps are written by the port's PNG codec with a JET
-table equal to OpenCV's.
+table equal to OpenCV's (io/colormaps.py).
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from activesplat_tpu_torch.device import DeviceLike, resolve_device
+from activesplat_tpu_torch.io.colormaps import JET_RGB
 from activesplat_tpu_torch.io.manifest import DatasetDumper
 from activesplat_tpu_torch.io.metrics_log import get_tracker
 from activesplat_tpu_torch.io.params_io import (
@@ -55,16 +56,6 @@ from activesplat_tpu_torch.queries.panorama import global_invisibility, local_in
 from activesplat_tpu_torch.utils import OPENCV_TO_OPENGL
 from activesplat_tpu_torch.utils.tracing import fetch, format_stage_report, host_value, stage
 from activesplat_tpu_torch.utils.transforms import mat_to_q_pos, rot_axis
-
-# OpenCV's COLORMAP_JET as RGB rows: three clipped ramps of slope 4 per
-# level; OpenCV's float table rounds one blue entry down
-_LEVELS = np.arange(256)
-JET_RGB = np.stack(
-    [np.clip(c - np.abs(4 * _LEVELS - d), 0, 255) for c, d in ((383, 765), (382, 510), (383, 255))],
-    axis=-1,
-).astype(np.uint8)
-JET_RGB[159, 2] = 1
-
 
 @torch.no_grad()
 def _exact_online_scores(buf, cam, rgb_gt, depth_gt, *, chunk: int, k_per_tile: int):
@@ -614,12 +605,14 @@ class SplaTAMMapper:
     @torch.no_grad()
     def render_view(self, cam: Camera, scale_modifier: float = 1.0) -> Dict[str, np.ndarray]:
         """Full-channel view render (render_o3d_image role,
-        splatam/__init__.py:634-695): rgb (float), depth and opacity."""
+        splatam/__init__.py:634-695): rgb (float), depth and opacity, in one
+        host read."""
         out = render(
             self.buf, cam, bg=torch.ones(3, device=self.device), scale_modifier=scale_modifier,
             chunk=self.cfg.chunk, k_per_tile=self.cfg.k_per_tile, exact=self.cfg.k_per_tile > 0,
         )
-        return {"rgb": fetch(out.rgb), "depth": fetch(out.depth), "opacity": fetch(out.alpha)}
+        both = fetch(torch.cat([out.rgb, out.depth[..., None], out.alpha[..., None]], dim=-1))
+        return {"rgb": both[..., :3], "depth": both[..., 3], "opacity": both[..., 4]}
 
     def get_global_invisibility(self, view_c2w: np.ndarray, node_positions):
         """Per-node (invisibility, hole volume, reach) scores."""

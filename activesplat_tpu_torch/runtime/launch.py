@@ -2,24 +2,29 @@
 roslaunch-equivalent entry point.
 
 Wires the mapper node and the planner FSM over the in-process bus and runs a
-full active-exploration episode on a synthetic scene (reference:
-launch/habitat.launch starting mapper_node.py + planner_node.py). The mapper
-and its queries run on CUDA unless the caller names another device; the
-simulator and the planner run on the host. Outputs land in the reference's
-result layout: results_dir/{gaussians_data/{params.npz, transforms.json,
-rgb, depth}, actions.txt, visited_map.png, topdown_free_map.png,
-voronoi_graph.png, planner_log.jsonl}.
+full active-exploration episode (reference: launch/habitat.launch starting
+mapper_node.py + planner_node.py) on a synthetic scene or, from a scene
+config of a Habitat format (gibson, mp3d, replica), through the Habitat
+adapter (runtime/habitat_backend.py) on the real simulator or its BoxWorld
+mock. The mapper and its queries run on CUDA unless the caller names another
+device; the simulator and the planner run on the host. Outputs land in the
+reference's result layout: results_dir/{gaussians_data/{params.npz,
+transforms.json, rgb, depth}, actions.txt, visited_map.png,
+topdown_free_map.png, voronoi_graph.png, planner_log.jsonl}, with
+--save_runtime_data 1 also topdown_map/, opacity/ and current_vis_data/.
 
     python -m activesplat_tpu_torch.runtime.launch --scene_id two_room --results_dir DIR
+    python -m activesplat_tpu_torch.runtime.launch --config gibson_high_resolution \
+        --habitat_sim mock --save_runtime_data 1 --live_view_port 0 --results_dir DIR
     python -m activesplat_tpu_torch.runtime.launch --mode replay --actions DIR/actions.txt \
         --results_dir DIR2
     python -m activesplat_tpu_torch.runtime.launch --mode manual --results_dir DIR3
 
---mode replay drives a recorded actions.txt through the mapper with no
-planner; --mode manual maps while keys read from stdin drive the agent.
-Not ported yet: scene configs (--config, --user_config), the Habitat
-backends (--habitat_sim), the multi-device mesh (--mesh), the live view and
-the runtime recorder (--save_runtime_data 1).
+CLI flags the user passes beat the scene config's values, which beat the
+defaults. --mode replay drives a recorded actions.txt through the mapper
+with no planner; --mode manual maps while keys read from stdin drive the
+agent. --habitat_sim real needs the habitat-sim and habitat-lab wheels.
+Not ported yet: the multi-device mesh (--mesh, ROADMAP.md queue A item 12).
 """
 
 from __future__ import annotations
@@ -34,6 +39,13 @@ from typing import Optional
 import numpy as np
 import torch
 
+from activesplat_tpu_torch.configs import (
+    MESH_NOT_PORTED,
+    dataset_kwargs_from_scene,
+    load_scene_config,
+    load_user_config,
+    mapper_config_from_scene,
+)
 from activesplat_tpu_torch.device import DeviceLike
 from activesplat_tpu_torch.mapper.config import MapperConfig
 from activesplat_tpu_torch.runtime.bus import Bus
@@ -51,9 +63,8 @@ from activesplat_tpu_torch.utils.tracing import format_stage_report, trace_captu
 
 
 def _ensure_setup(dataset) -> None:
-    """A dataset that builds its simulator lazily in setup() (the Habitat
-    one in the JAX package) is set up once; SyntheticDataset has no setup.
-    Idempotent."""
+    """HabitatDataset builds its simulator lazily in setup() (import-gated on
+    the wheels); SyntheticDataset has no setup. Idempotent."""
     if hasattr(dataset, "setup") and getattr(dataset, "_sim", None) is None:
         dataset.setup()
 
@@ -102,8 +113,13 @@ def run_episode(
     results_dir: str,
     mapper_cfg: Optional[MapperConfig] = None,
     pixel_max: int = 360,
+    save_runtime_data: bool = False,
+    save_dataset: bool = True,
     max_ticks: int = 100000,
     pano_scale: float = 1.0,
+    live_view_port=None,
+    single_floor_expansion=(0.25, 2.0),
+    agent_foot_adjust: float = 0.0,
     device: DeviceLike = None,
 ):
     """Run one exploration episode to budget exhaustion. Returns
@@ -118,10 +134,16 @@ def run_episode(
         mapper_cfg,
         results_dir,
         pixel_max=pixel_max,
+        single_floor_expansion=single_floor_expansion,
+        agent_foot_adjust=agent_foot_adjust,
+        save_runtime_data=save_runtime_data,
+        save_dataset=save_dataset,
         pano_scale=pano_scale,
+        live_view_port=live_view_port,
         device=device,
     )
-    planner = PlannerFSM(bus, live_view=mapper_node.live_view)
+    planner = PlannerFSM(bus, save_runtime_data=save_runtime_data,
+                         live_view=mapper_node.live_view)
     with trace_capture():
         planner.run(max_ticks=max_ticks)
     mapper_node.finish()
@@ -209,18 +231,102 @@ def run_manual(
                   pixel_max, save_dataset, pano_scale, device)
 
 
-NOT_PORTED = "is not ported to activesplat_tpu_torch yet (ROADMAP.md, queue A, item 10.3)"
+HABITAT_FORMATS = ("gibson", "mp3d", "replica")
+
+
+def build_episode_from_config(
+    scene_cfg: Optional[dict],
+    results_dir: Optional[str],
+    scene_id: Optional[str] = None,
+    user_config_path: Optional[str] = None,
+    sim_factory=None,
+    overrides: Optional[dict] = None,
+) -> dict:
+    """Compose everything an episode needs from a scene-config dict: the
+    dataset (HabitatDataset for gibson/mp3d/replica formats, SyntheticDataset
+    otherwise), the MapperConfig, and the painter/planner knobs the launcher
+    consumes (reference arg plumbing: launch/habitat.launch:1-23 ->
+    scripts/nodes/mapper_node.py:34-137, config JSON -> env yaml -> dataset
+    root -> HabitatDataset).
+
+    `overrides` (CLI flags the user passed explicitly) win over config
+    values; config values win over defaults. Returns dict(dataset,
+    mapper_cfg, pixel_max, single_floor_expansion, agent_foot_adjust)."""
+    scene_cfg = scene_cfg or {}
+    overrides = {k: v for k, v in (overrides or {}).items() if v is not None}
+    fmt = scene_cfg.get("dataset", {}).get("format", "synthetic")
+
+    if fmt in HABITAT_FORMATS:
+        from activesplat_tpu_torch.runtime.habitat_backend import get_dataset
+
+        user = load_user_config(user_config_path)
+        if "step_num" in overrides:
+            scene_cfg = dict(scene_cfg)
+            scene_cfg["dataset"] = dict(scene_cfg["dataset"], step_num=overrides["step_num"])
+        dataset = get_dataset(
+            scene_cfg,
+            user,
+            scene_id=scene_id or "None",
+            results_dir=results_dir,
+            sim_factory=sim_factory,
+        )
+    else:
+        kw = dataset_kwargs_from_scene(scene_cfg)
+        for key in ("scene_id", "seed", "step_num", "width", "height"):
+            if key in overrides:
+                kw[key] = overrides[key]
+        if scene_id:
+            kw["scene_id"] = scene_id
+        dataset = make_synthetic_dataset(results_dir=results_dir, **kw)
+
+    mapper = scene_cfg.get("mapper", {})
+    single_floor = mapper.get("single_floor", {}).get("expansion", {})
+    return {
+        "dataset": dataset,
+        "mapper_cfg": mapper_config_from_scene(scene_cfg),
+        "pixel_max": overrides.get(
+            "pixel_max",
+            scene_cfg.get("painter", {}).get("grid_map", {}).get("pixel_max", 360),
+        ),
+        "single_floor_expansion": (
+            float(single_floor.get("foot", 0.25)),
+            float(single_floor.get("head", 2.0)),
+        ),
+        "agent_foot_adjust": float(scene_cfg.get("planner", {}).get("agent_foot_adjust", 0.0)),
+    }
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description="ActiveSplat episode launcher (PyTorch/CUDA)")
-    parser.add_argument("--scene_id", default="two_room", choices=["two_room", "single_room"])
-    parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--step_num", type=int, default=500)
-    parser.add_argument("--width", type=int, default=256)
-    parser.add_argument("--height", type=int, default=256)
+    parser.add_argument(
+        "--config", default=None,
+        help="scene config: a bundled name (gibson, gibson_high_resolution, mp3d, "
+        "synthetic_small, ...) or a JSON path; gibson/mp3d/replica formats build a "
+        "HabitatDataset from the env yaml + user-config dataset roots",
+    )
+    parser.add_argument(
+        "--scene_id", default=None,
+        help="scene override (any Habitat scene id, or two_room/single_room for synthetic "
+        "configs)",
+    )
+    parser.add_argument("--user_config", default=None,
+                        help="dataset-roots JSON (config/.templates/user_config.json layout)")
+    parser.add_argument(
+        "--habitat_sim", default="real", choices=["real", "mock"],
+        help="real: the habitat-sim wheels (absent unless installed); mock: the BoxWorld-backed "
+        "mock simulator (runtime/mock_habitat.py), hermetic",
+    )
+    parser.add_argument("--mesh", type=int, default=None, choices=[0, 1],
+                        help="the multi-device mesh: not ported yet, refused")
+    parser.add_argument("--seed", type=int, default=None)
+    parser.add_argument("--step_num", type=int, default=None)
+    parser.add_argument("--width", type=int, default=None)
+    parser.add_argument("--height", type=int, default=None)
     parser.add_argument("--results_dir", required=True)
-    parser.add_argument("--pixel_max", type=int, default=360)
+    parser.add_argument("--pixel_max", type=int, default=None)
+    parser.add_argument("--save_runtime_data", type=int, default=0)
+    parser.add_argument("--live_view_port", type=int, default=None,
+                        help="serve the headless live-view dashboard on this port (0 = auto)")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     parser.add_argument(
         "--mode", default="auto", choices=["auto", "replay", "manual"],
@@ -228,41 +334,47 @@ def main(argv=None):
         "manual: stdin keyboard teleop",
     )
     parser.add_argument("--actions", default=None, help="actions.txt for replay mode")
-    # the JAX launcher's other options, refused until they are ported
-    parser.add_argument("--config", default=None)
-    parser.add_argument("--user_config", default=None)
-    parser.add_argument("--habitat_sim", default=None)
-    parser.add_argument("--mesh", type=int, default=None)
-    parser.add_argument("--live_view_port", type=int, default=None)
-    parser.add_argument("--save_runtime_data", type=int, default=0)
     args = parser.parse_args(argv)
 
-    for flag, value, default in (
-        ("--config", args.config, None), ("--user_config", args.user_config, None),
-        ("--habitat_sim", args.habitat_sim, None), ("--mesh", args.mesh, None),
-        ("--live_view_port", args.live_view_port, None),
-        ("--save_runtime_data", args.save_runtime_data, 0),
-    ):
-        if value != default:
-            parser.exit(2, f"{flag} {value} {NOT_PORTED}\n")
-
+    if args.mesh:
+        parser.exit(2, f"--mesh {args.mesh}: {MESH_NOT_PORTED}\n")
     if args.mode == "replay" and not args.actions:
         parser.error("--mode replay requires --actions")
 
+    scene_cfg = load_scene_config(args.config) if args.config else None
+    sim_factory = None
+    if args.habitat_sim == "mock":
+        from activesplat_tpu_torch.runtime.mock_habitat import make_mock_sim
+
+        sim_factory = make_mock_sim
+
     os.makedirs(args.results_dir, exist_ok=True)
     # the replayed actions are read, not written: the replay's dataset logs none
-    dataset = make_synthetic_dataset(
-        args.scene_id, args.seed, args.step_num, args.width, args.height,
-        results_dir=None if args.mode == "replay" else args.results_dir,
+    episode = build_episode_from_config(
+        scene_cfg or {"dataset": {"format": "synthetic", "scene_id": "two_room"}},
+        None if args.mode == "replay" else args.results_dir,
+        scene_id=args.scene_id,
+        user_config_path=args.user_config,
+        sim_factory=sim_factory,
+        overrides={"seed": args.seed, "step_num": args.step_num, "width": args.width,
+                   "height": args.height, "pixel_max": args.pixel_max},
     )
-    common = dict(pixel_max=args.pixel_max, device=args.device)
+    dataset = episode["dataset"]
+    # without --config the entry points' own MapperConfig() applies
+    common = dict(mapper_cfg=episode["mapper_cfg"] if scene_cfg else None,
+                  pixel_max=episode["pixel_max"], device=args.device)
     start = time.perf_counter()
     if args.mode == "replay":
         mapper_node = run_replay(dataset, args.actions, args.results_dir, **common)
     elif args.mode == "manual":
         mapper_node = run_manual(dataset, args.results_dir, **common)
     else:
-        mapper_node, planner = run_episode(dataset, args.results_dir, **common)
+        mapper_node, planner = run_episode(
+            dataset, args.results_dir, save_runtime_data=bool(args.save_runtime_data),
+            live_view_port=args.live_view_port,
+            single_floor_expansion=episode["single_floor_expansion"],
+            agent_foot_adjust=episode["agent_foot_adjust"], **common,
+        )
     if args.device != "cpu":
         torch.cuda.synchronize()
     wall = time.perf_counter() - start
@@ -272,8 +384,8 @@ def main(argv=None):
               f"{mapper_node.mapper.num_gaussians()} gaussians")
         print(format_stage_report())
         return
-    free = 0 if planner.free_map is None else np.count_nonzero(planner.free_map)
-    area = free * planner.topdown_cfg.meter_per_pixel ** 2
+    area = (0.0 if planner.free_map is None
+            else np.count_nonzero(planner.free_map) * planner.topdown_cfg.meter_per_pixel ** 2)
     print(f"episode finished: {steps} steps in {wall:.1f} s ({wall / max(steps, 1) * 1e3:.1f} ms "
           f"an action, set-up and outputs included), {mapper_node.mapper.num_gaussians()} "
           f"gaussians, explored free area {area:.2f} m^2")

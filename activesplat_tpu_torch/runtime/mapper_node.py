@@ -10,12 +10,17 @@ calls: a get_topdown call renders fresh maps on the spot.
 
 The mapper and its queries run on `device` (CUDA unless the caller names
 another); the simulator, the score cache and the horizon box stay on the
-host. The runtime recorder, the live view and its orbit overlay are not
-ported yet.
+host. With `save_runtime_data` the runtime recorder (io/recorder.py) writes
+the top-down maps, the local panoramas and, every `record_view_every` steps,
+the current view and its 2x3 panel; with `live_view_port` the live view
+(runtime/liveview.py) serves the same and an orbit render of the map. One
+exact render and one host read of the current view feed both; the orbit
+render runs once a map version, only with the live view.
 """
 
 from __future__ import annotations
 
+import json
 import os
 from typing import Dict, Optional
 
@@ -26,6 +31,7 @@ from activesplat_tpu_torch.device import DeviceLike
 from activesplat_tpu_torch.mapper.config import MapperConfig
 from activesplat_tpu_torch.mapper.geometry import backproject
 from activesplat_tpu_torch.mapper.splatam import SplaTAMMapper
+from activesplat_tpu_torch.planner import draw
 from activesplat_tpu_torch.queries.topdown import (
     IncrementalTopdown,
     TopdownConfig,
@@ -47,8 +53,11 @@ class MapperNode:
         pixel_max: int = 360,
         single_floor_expansion=(0.25, 2.0),  # (foot, head) — gibson.json mapper block
         agent_foot_adjust: float = 0.0,
+        save_runtime_data: bool = False,
         save_dataset: bool = True,
         pano_scale: float = 1.0,
+        record_view_every: int = 100,
+        live_view_port: Optional[int] = None,
         pano_cache: str = "version",  # off | version
         pano_cache_capacity: int = 1024,
         device: DeviceLike = None,
@@ -56,6 +65,8 @@ class MapperNode:
         self.bus = bus
         self.dataset = dataset
         self.results_dir = results_dir
+        self.save_runtime_data = save_runtime_data
+        self.record_view_every = max(int(record_view_every), 1)
         os.makedirs(results_dir, exist_ok=True)
         self.global_state = GlobalState.AUTO_PLANNING
 
@@ -95,6 +106,14 @@ class MapperNode:
         # Incremental topdown engine: exact changed-box diff vs a param
         # snapshot, windowed re-render when the change is local.
         self._topdown_inc = IncrementalTopdown(self.topdown_cfg)
+        # /map3d.png state: orbit render of the live Gaussian map, refreshed
+        # on map_version change at the topdown polling cadence (headless
+        # counterpart of the reference GUI's 3D widget + trajectory,
+        # visualizer.py:1515-1664). The azimuth advances per refresh so the
+        # dashboard view orbits as the map evolves.
+        self._map3d_version = -1
+        self._map3d_azimuth = 0.0
+        self._trajectory: list = []
         # Panorama score cache (get_opacity GLOBAL): the reference re-renders
         # every node's 3-view panorama on every SELECT_TARGET tick
         # (splatam/__init__.py:697-759). Keyed on the quantized node
@@ -117,7 +136,17 @@ class MapperNode:
         self.pano_cache_stale = 0
         self.last_frame: Optional[Dict[str, np.ndarray]] = frame0
         self._finished = False
-        self.live_view = None  # the dashboard is not ported yet
+        self.recorder = None
+        if save_runtime_data:
+            from activesplat_tpu_torch.io.recorder import RuntimeRecorder
+
+            self.recorder = RuntimeRecorder(results_dir)
+        self.live_view = None
+        if live_view_port is not None:
+            from activesplat_tpu_torch.runtime.liveview import LiveView
+
+            self.live_view = LiveView(live_view_port)
+            print(f"live view: http://127.0.0.1:{self.live_view.port}/")
 
         bus.register_service("get_dataset_config", lambda: cfg_ds)
         bus.register_service("get_topdown_config", self._get_topdown_config)
@@ -135,6 +164,7 @@ class MapperNode:
     # ------------------------------------------------------------------ #
 
     def _publish_pose(self, frame: Dict[str, np.ndarray]) -> None:
+        self._trajectory.append(np.asarray(frame["c2w"], np.float64)[:3, 3].copy())
         self.bus.publish("camera_pose", np.asarray(frame["c2w"], np.float64))
         self.bus.publish("movement_fail_times", self.movement_fail_times)
         if self.mapper.high_loss_samples_pose_c2w is not None:
@@ -160,9 +190,43 @@ class MapperNode:
         with stage("mapper/frame"):
             self.mapper.run(frame)
         self.last_frame = frame
+        if self.live_view is not None or self.recorder is not None:
+            with stage("runtime/view"):
+                self._record_view(frame)
         self._publish_pose(frame)
         if self.dataset.is_finished():
             self.finish()
+
+    def _record_view(self, frame: Dict[str, np.ndarray]) -> None:
+        """The live view's metrics every step; every record_view_every steps
+        one exact render of the current view (one host read) feeds both the
+        live view and the recorder's view and 2x3 panel."""
+        step, budget = self.dataset.get_step_info()
+        if self.live_view is not None:
+            self.live_view.update_metrics({
+                "step": step,
+                "step_budget": budget,
+                "num_gaussians": self.mapper.num_gaussians(),
+                **self.mapper.last_metrics,
+            })
+        if step % self.record_view_every:
+            return
+        view = self.mapper.render_view(self.mapper._camera(np.linalg.inv(frame["c2w"])))
+        if self.live_view is not None:
+            self.live_view.update_view(view["rgb"], view["depth"])
+        if self.recorder is not None:
+            gt_d = np.asarray(frame["depth"], np.float64)
+            mask = gt_d > 0
+            diff = np.abs(gt_d - view["depth"])[mask]
+            depth_l1 = float(diff.mean()) if mask.any() else 0.0
+            err = np.mean((np.asarray(frame["rgb"], np.float64) - view["rgb"]) ** 2)
+            psnr = float(-10.0 * np.log10(max(err, 1e-12)))
+            self.recorder.save_rgbd_silhouette(
+                step, frame["rgb"], gt_d, view["rgb"], view["depth"], view["opacity"], psnr,
+                depth_l1,
+            )
+            rgb8 = (np.clip(view["rgb"], 0, 1) * 255).astype(np.uint8)
+            self.recorder.save_view(step, rgb8, view["depth"])
 
     def _on_frames(self, frame: Dict[str, np.ndarray]) -> None:
         """External-sensor mode: map a frame published on the 'frames' topic
@@ -193,11 +257,81 @@ class MapperNode:
         self._finished = True
         self.global_state = GlobalState.QUIT
         self.mapper.post_processing()
+        # gt_mesh.json: GT-mesh pointer for offline judges, written when the
+        # dataset is backed by a scene mesh (visualizer.py:1185-1190)
+        cfg_ds = self.dataset.dataset_config(self.results_dir)
+        mesh_url = cfg_ds.get("scene_mesh_url")
+        if mesh_url and os.path.exists(mesh_url):
+            tf = np.asarray(cfg_ds.get("scene_mesh_transform", np.eye(4))).tolist()
+            with open(os.path.join(self.results_dir, "gt_mesh.json"), "w") as fh:
+                json.dump({"mesh_url": mesh_url, "mesh_transform": tf}, fh, indent=4)
+        if self.live_view is not None:
+            self.live_view.close()
         if self.bus.has_service("set_planner_state"):
             self.bus.call("set_planner_state", GlobalState.QUIT)
 
     # ------------------------------------------------------------------ #
     # services
+
+    def _orbit_c2w(self, azimuth_rad: float) -> np.ndarray:
+        """OpenCV c2w orbiting the scene center at ~50 deg elevation, framed
+        from the topdown grid's bbox (so the whole explored slab is visible)."""
+        cfg = self.topdown_cfg
+        du, dv = cfg.world_dim_index
+        (u0, u1), (v0, v1) = cfg.world_2d_bbox
+        center = np.zeros(3)
+        center[du], center[dv] = cfg.world_center
+        center[cfg.height_axis] = 0.5 * (cfg.agent_foot + cfg.agent_head)
+        extent = max(u1 - u0, v1 - v0)
+        eye = center.copy()
+        eye[du] += 0.8 * extent * np.cos(azimuth_rad)
+        eye[dv] += 0.8 * extent * np.sin(azimuth_rad)
+        eye[cfg.height_axis] += 0.95 * extent
+        up = np.zeros(3)
+        up[cfg.height_axis] = 1.0
+        fwd = center - eye
+        fwd /= np.linalg.norm(fwd)
+        right = np.cross(fwd, up)
+        right /= np.linalg.norm(right)
+        down = np.cross(fwd, right)
+        c2w = np.eye(4)
+        c2w[:3, 0], c2w[:3, 1], c2w[:3, 2], c2w[:3, 3] = right, down, fwd, eye
+        return c2w
+
+    def _update_map3d(self, map_version: int) -> None:
+        """Refresh /map3d.png: one exact render of the full map from the
+        orbit camera, with the agent trajectory projected on top (drawn with
+        planner/draw.py's OpenCV rules). Costs one render per map change and
+        only runs when the live view is enabled."""
+        if self.live_view is None or map_version == self._map3d_version:
+            return
+        self._map3d_version = map_version
+        self._map3d_azimuth += np.deg2rad(15.0)
+        c2w = self._orbit_c2w(self._map3d_azimuth)
+        w2c = np.linalg.inv(c2w)
+        view = self.mapper.render_view(self.mapper._camera(w2c))
+        img = (np.clip(view["rgb"], 0, 1) * 255).astype(np.uint8).copy()
+        if self._trajectory:
+            pts = np.asarray(self._trajectory, np.float64)
+            pc = (w2c[:3, :3] @ pts.T).T + w2c[:3, 3]
+            K = self.mapper.intrinsics
+            z = pc[:, 2]
+            uv = np.stack(
+                [
+                    K[0, 0] * pc[:, 0] / np.maximum(z, 1e-6) + K[0, 2],
+                    K[1, 1] * pc[:, 1] / np.maximum(z, 1e-6) + K[1, 2],
+                ],
+                axis=1,
+            )
+            ok = z > 1e-3
+            # draw visible polyline segments (both endpoints in front)
+            ij = uv.astype(np.int32)
+            for a in range(len(ij) - 1):
+                if ok[a] and ok[a + 1]:
+                    draw.line(img, tuple(ij[a]), tuple(ij[a + 1]), (64, 200, 255), 1)
+            if ok[-1]:
+                draw.circle(img, tuple(ij[-1]), 3, (255, 80, 80), -1)
+        self.live_view.update_map3d(img)
 
     def _get_topdown_config(self) -> Dict:
         cfg = self.topdown_cfg
@@ -223,6 +357,12 @@ class MapperNode:
             with stage("queries/topdown"):
                 free_binary, unobserved_binary = self._topdown_inc.refresh(self.mapper.buf)
             self._topdown_cache = (ver, free_binary, unobserved_binary)
+            if self.recorder is not None:
+                self.recorder.save_topdown(free_binary, unobserved_binary)
+            if self.live_view is not None:
+                self.live_view.update_topdown(free_binary, unobserved_binary)
+                with stage("runtime/map3d"):
+                    self._update_map3d(ver)
         response = {
             "free_map": free_binary,
             "visible_map": unobserved_binary,
@@ -259,7 +399,12 @@ class MapperNode:
                 "nodes_id": list(nodes_id) if nodes_id is not None else [],
             }
         with stage("queries/panorama_local"):
-            total, best_pose, _invis = self.mapper.get_local_invisibility(view_c2w)
+            total, best_pose, invis = self.mapper.get_local_invisibility(view_c2w)
+        if self.live_view is not None:
+            self.live_view.update_panorama(invis)
+        if self.recorder is not None:
+            step, _ = self.dataset.get_step_info()
+            self.recorder.save_panorama(step, "local", invis)
         # High-loss reorientation proposal, computed lazily at its single
         # consumption point (here) from the current frame and map; the
         # reference recomputes it at the top of every __mapping

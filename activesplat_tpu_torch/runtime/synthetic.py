@@ -1,5 +1,8 @@
-"""Synthetic indoor world: a numpy RGB-D raycaster over box geometry (copy of
-activesplat_tpu/runtime/synthetic.py, numpy raycaster only).
+"""Synthetic indoor world: an RGB-D raycaster over box geometry (copy of
+activesplat_tpu/runtime/synthetic.py). `BoxWorld.render` runs the native C++
+raycaster (runtime/native_raycast.py, built at first use) unless
+ACTIVESPLAT_NATIVE=0 selects the numpy one below; a native build that fails
+raises rather than falling back.
 
 Hermetic stand-in for the Habitat simulator. Provides procedural rooms
 (axis-aligned box room + box obstacles, checker-textured walls) with exact
@@ -13,6 +16,7 @@ OpenCV-convention c2w (x right, y down, z forward).
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import List, Tuple
 
 import numpy as np
@@ -103,6 +107,13 @@ class BoxWorld:
         z-depth in meters, clamped to 0 outside [depth_min, depth_max] like
         the reference's DepthFilter (src/dataloader/image_transforms.py:34-46)).
         """
+        if os.environ.get("ACTIVESPLAT_NATIVE", "1") != "0":
+            from activesplat_tpu_torch.runtime import native_raycast
+
+            return native_raycast.raycast(
+                c2w, intrinsics, width, height, self.size, self.obstacles.reshape(-1, 6),
+                depth_min, depth_max,
+            )
         fx, fy = intrinsics[0, 0], intrinsics[1, 1]
         cx, cy = intrinsics[0, 2], intrinsics[1, 2]
         us, vs = np.meshgrid(np.arange(width), np.arange(height))

@@ -45,12 +45,23 @@ def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
     )
 
 
+def np_quat_to_rotmat(q_wxyz: np.ndarray) -> np.ndarray:
+    """wxyz quaternion -> (3, 3) rotation matrix, through scipy's rotation
+    as the JAX package computes it."""
+    q = np.asarray(q_wxyz, dtype=np.float64)
+    return Rotation.from_quat(np.roll(q, -1, axis=-1)).as_matrix()
+
+
+def np_rotmat_to_quat(matrix3: np.ndarray) -> np.ndarray:
+    """(3, 3) rotation matrix -> wxyz quaternion, through scipy's rotation."""
+    q_xyzw = Rotation.from_matrix(np.asarray(matrix3, dtype=np.float64)).as_quat()
+    return np.roll(q_xyzw, 1, axis=-1)
+
+
 def mat_to_q_pos(pose: np.ndarray):
     """(4, 4) pose -> (wxyz quaternion, translation)
-    (semantics of src/utils/pose_utils.py:13-21), through scipy's rotation
-    as the JAX package computes it."""
-    q_xyzw = Rotation.from_matrix(np.asarray(pose[:3, :3], np.float64)).as_quat()
-    return np.roll(q_xyzw, 1, axis=-1), pose[:3, 3].copy()
+    (semantics of src/utils/pose_utils.py:13-21)."""
+    return np_rotmat_to_quat(pose[:3, :3]), pose[:3, 3].copy()
 
 
 def rot_axis(view_c2w: np.ndarray, axis: str, angle_rad: float) -> np.ndarray:

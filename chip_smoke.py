@@ -173,7 +173,35 @@ Phases, each fatal on failure:
      within 0.2%; FIT_RTOL says why); B3 held against its twin
      on the CSR stream of one scored frame (forward, as in 4c), timed and
      bounded, with the judges' launches as B3's "eval render" entry;
-  6. print the device line last.
+  6. the Habitat path at 512x512: the launcher's CLI (runtime/launch.main)
+     with --config gibson_high_resolution --habitat_sim mock
+     --save_runtime_data 1 --live_view_port 0 on the card, the bin kernel
+     route on, the config's 1,000 steps cut to 150 (every other knob the
+     config's: 512x512, mapping_iters 10, map_every 5, pixel_max 360): the
+     mean wall per action, the stage report, each kernel's launches and the
+     B3 launches of the recorder's and live view's view renders and of the
+     orbit overlay apart, device busy time and idle share over the last 10
+     profiled actions, the Gaussians, explored area, targets planned and
+     reached; fatal: the sensor 512x512 with cx = cy = 255, the budget
+     consumed with one valid action a step in actions.txt, params.npz
+     finite, the recorder's topdown_map/, opacity/ and current_vis_data/
+     filled and its first 2x3 panel 1,024x1,536, no gt_mesh.json, the live
+     view's page, view, top-down map and metrics fetched over HTTP while the
+     episode runs (metrics step positive), each kernel launched (B4 exactly
+     when the mapper went hybrid); the coverage judge through the adapter
+     on the episode's actions.txt (a fresh Eval dataset on the mock, 200,000
+     GT samples, 5 cm; fatal unless finite and 0 < completeness_ratio <= 1);
+     each kernel held against its twin, timed and bounded as in phase 4 on
+     this phase's inputs (B1/B2 on the last training render's tile rows over
+     1,024 tiles, B3 on the last exact render's CSR stream of the frame, B4
+     on the training stream if the mapper went hybrid, B5 on the last
+     top-down query's stream, B6 on the last 512x512 bin), each entry
+     counting the launches of this phase only; the small mock-Habitat
+     episode on the card against the CPU (tests/test_torch_habitat_episode.py's
+     parity run, deterministic picks: every action and the Gaussian count
+     equal, the area within 2%); one 512x512 frame of the native raycaster
+     against the numpy one on the host (within 1e-4, both timed);
+  7. print the device line last.
 
 It needs one CUDA card and exits non-zero without one, or without the rest of
 the repository beside it.
@@ -376,6 +404,25 @@ QUERY_NODES = ((4.0, 1.25, 2.0), (6.0, 1.25, 3.0))  # two panorama nodes at scal
 QUERY_VIEW = (5.0, 1.25, 1.5)  # the camera's position
 DUAL_CHANNELS = 3  # the top-down walk composites rgb
 
+# phase 6, the Habitat path at 512x512: the launcher's CLI with the
+# gibson_high_resolution scene config (512x512, mapping_iters 10, map_every
+# 5, pixel_max 360) on the Habitat adapter's BoxWorld mock, the recorder and
+# the live view on, the bin kernel route on; the step budget cut from the
+# config's 1,000; the last HABITAT_PROFILED actions run under torch.profiler
+HABITAT_CONFIG = "gibson_high_resolution"
+HABITAT_RES = 512
+HABITAT_STEPS = 150
+HABITAT_PROFILED = 10
+# the phases whose launches phase 6's kernel entries count, and no other entry
+HABITAT_PHASES = ("habitat episode",)
+# the small card-against-CPU mock episode: tests/test_torch_habitat_episode.py's
+# parity run (the gibson config on a 48x48 env yaml, 45 degree turns, scene
+# id Elmira, 18 steps, the lean mapper of SMALL_EPISODE_CFG)
+HABITAT_SMALL = dict(res=48, steps=18, turn=45.0, scene="Elmira")
+# the native raycaster against the numpy one (tests/test_native.py's tolerance)
+NATIVE_ATOL = 1e-4
+NATIVE_REPS = 5
+
 
 def nvidia_smi(query: str) -> str:
     out = subprocess.run(
@@ -400,7 +447,9 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-EXTRA_CALLS = 10  # calls traced ahead of the averaged window (the trace misses up to 6)
+# calls traced ahead of the averaged window: the trace has missed up to 17
+# of the first launches after it starts (H100 runs), and a retry doubles them
+EXTRA_CALLS = 40
 
 
 def kernel_device_ms(torch, fn, kernels, reps: int) -> dict:
@@ -408,7 +457,7 @@ def kernel_device_ms(torch, fn, kernels, reps: int) -> dict:
     {name: ms} for each name in `kernels` (a kernel is the one whose name
     contains it, launched once per call), the mean of exactly the last
     `reps` launches of it in a torch.profiler trace of reps + EXTRA_CALLS
-    calls of the wrapper `fn`; each reading is printed with the launches
+    (or, on a retry, more) calls of the wrapper `fn`; each reading is printed with the launches
     it averages and those the trace held. The wrapper's host work and its
     small helper kernels are left out (back-to-back wrapper calls measure
     the host when the kernels are shorter than the wrapper's Python)."""
@@ -417,11 +466,12 @@ def kernel_device_ms(torch, fn, kernels, reps: int) -> dict:
 
     fn()  # warm
     torch.cuda.synchronize()
-    calls = reps + EXTRA_CALLS
     # the trace may miss the first launches after it starts: the extra calls
     # absorb that; a trace holding fewer than reps launches of a kernel, or
-    # more than one per call, is traced again (at most three times)
-    for _ in range(3):
+    # more than one per call, is traced again with twice the extra calls (at
+    # most four traces)
+    for attempt in range(4):
+        calls = reps + EXTRA_CALLS * 2 ** attempt
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
@@ -891,6 +941,22 @@ def threshold_pairs(torch, rc, stream, segs, pieces=1):
     return out
 
 
+def threshold_logt_allowance(torch, rc, stream, walked, n_tiles):
+    """Per (tile, pixel): what the pairs at the alpha threshold in the
+    tile's walked segments (`walked`) can move its log-transmittance,
+    -log1p(-ALPHA_MIN (1 + EDGE_RTOL)) each. split_checks allows each pass-1
+    log step this much (a pair there may be live on one side only: the
+    kernels contract the power's products into FMAs); the wrapper's logT and
+    stash sum those steps, so they carry the same allowance."""
+    seg_tile = stream[1]
+    idx = torch.nonzero(walked).squeeze(1)
+    per_tile = torch.zeros((n_tiles + 1, rc.PX), device=stream[0].device)
+    if idx.numel():
+        edge = threshold_pairs(torch, rc, stream, idx)[:, 0, :]
+        per_tile.index_add_(0, seg_tile[idx].long().clamp(max=n_tiles), edge)
+    return per_tile[:n_tiles] * -math.log1p(-rc.ALPHA_MIN * (1 + EDGE_RTOL))
+
+
 def dead_test_off(torch, rc, entry_k, stream, n_tiles, c, dual, card):
     """Pass 1's device time with the dead-pair test off (margin +inf kills
     no pair, so every pair pays its special functions) beside its time
@@ -1152,16 +1218,21 @@ def csr_kernel_checks(torch, rc, stream, n_tiles: int, tag: str, rejected, c: in
     near = near[:n_tiles]
     strict_seg = in_grid & ~near[seg_tile.long().clamp(max=n_tiles - 1)]
     near_seg = in_grid & ~strict_seg
+    # pairs at the alpha threshold: a tile's allowance bounds every stash of it too
+    edge = threshold_logt_allowance(torch, rc, stream, in_grid & (ent_k.amax(dim=1) >= rc.LOG_EPS),
+                                    n_tiles)
+    edge_seg = edge[seg_tile.long().clamp(max=n_tiles - 1)]
 
     def fwd_shares(acc, lt, ent):
         chan = acc_p.abs().amax(dim=(0, 1))
         acc_lim = (REL_TOL + (SKIP_ATOL - REL_TOL) * near.float())[:, None, None] * chan
         out = [check_close(f"{tag} csr fwd accum", acc, acc_p, acc_lim)]
-        for what, got, want, strict, loose in (("logT", lt, lt_p, ~near, near),
-                                               ("entry", ent, ent_p, strict_seg, near_seg)):
+        for what, got, want, strict, loose, allow in (
+                ("logT", lt, lt_p, ~near, near, edge),
+                ("entry", ent, ent_p, strict_seg, near_seg, edge_seg)):
             got_s, want_s = got[strict], want[strict]
             out.append(check_close(f"{tag} csr fwd {what}", got_s, want_s,
-                                   LOGT_ATOL + REL_TOL * want_s.abs()))
+                                   LOGT_ATOL + REL_TOL * want_s.abs() + allow[strict]))
             out.append(check_close(f"{tag} csr fwd {what} (boundary tiles)", got[loose].exp(),
                                    want[loose].exp(), torch.tensor(SKIP_ATOL)))
         if bool(ent[~in_grid].any()):
@@ -1294,14 +1365,18 @@ def dual_kernel_checks(torch, rc, stream, n_tiles: int, tag: str, rejected,
     near = torch.zeros(n_tiles + 1, dtype=torch.bool, device="cuda")
     near[seg_tile[seg_near & in_grid].long()] = True
     near = near[:n_tiles]
+    # pairs at the alpha threshold among the walked rows, and among the band's
+    walk = in_grid & (ent_k.amax(dim=1) >= rc.LOG_EPS)
+    edge = threshold_logt_allowance(torch, rc, stream, walk, n_tiles)
+    edge_band = threshold_logt_allowance(torch, rc, (banded, *stream[1:]), walk, n_tiles)
 
     def shares(acc, lt, lb):
         chan = acc_p.abs().amax(dim=(0, 1))
         acc_lim = (REL_TOL + (SKIP_ATOL - REL_TOL) * near.float())[:, None, None] * chan
         out = [check_close(f"{tag} dual accum", acc, acc_p, acc_lim)]
-        for what, got, want in (("logT", lt, lt_p), ("band logT", lb, lb_p)):
+        for what, got, want, allow in (("logT", lt, lt_p, edge), ("band logT", lb, lb_p, edge_band)):
             out.append(check_close(f"{tag} dual {what}", got[~near], want[~near],
-                                   LOGT_ATOL + REL_TOL * want[~near].abs()))
+                                   LOGT_ATOL + REL_TOL * want[~near].abs() + allow[~near]))
             out.append(check_close(f"{tag} dual {what} (boundary tiles)", got[near].exp(),
                                    want[near].exp(), torch.tensor(SKIP_ATOL)))
         return max(out)
@@ -2657,6 +2732,503 @@ def small_judges_check(torch, np, card, small_dir) -> None:
           f"differs, 99th percentile relative error {p99:.2e} on {card}")
 
 
+def habitat_env_yaml(path, res: int, turn: float) -> str:
+    """tests/test_torch_habitat.py's small env yaml (activesplat_pointnav.yaml's
+    agent at res x res), written by hand: the card's machine has no PyYAML."""
+    sensor = (f"            width: {res}\n            height: {res}\n            hfov: 90\n"
+              f"            position: [0, 1.25, 0]\n")
+    Path(path).write_text(
+        "habitat:\n  simulator:\n"
+        f"    turn_angle: {turn}\n    tilt_angle: 15\n    forward_step_size: 0.065\n"
+        "    agents:\n      main_agent:\n        height: 1.5\n        radius: 0.1\n"
+        "        sim_sensors:\n          rgb_sensor:\n" + sensor
+        + "          depth_sensor:\n" + sensor
+        + "            min_depth: 0.0\n            max_depth: 10.0\n"
+        "    habitat_sim_v0:\n      allow_sliding: false\n")
+    return str(path)
+
+
+def fetch_live_view(port: int) -> dict:
+    """/, /view.png, /topdown.png and /metrics.json of the live view at
+    `port`, each checked: the page names the live view, each PNG starts with
+    the PNG signature."""
+    import urllib.request
+
+    got = {}
+    for path in ("/", "/view.png", "/topdown.png", "/metrics.json"):
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=10) as r:
+            got[path] = r.read()
+    if b"live view" not in got["/"]:
+        raise AssertionError("live view: / is not the dashboard")
+    for path in ("/view.png", "/topdown.png"):
+        if got[path][:8] != b"\x89PNG\r\n\x1a\n":
+            raise AssertionError(f"live view: {path} is not a PNG")
+    return {"metrics": json.loads(got["/metrics.json"]),
+            "bytes": {k: len(v) for k, v in got.items()}}
+
+
+def habitat_phase(torch, np, rc, rt, card, by_phase, out_dir) -> dict:
+    """Phase 6: the gibson_high_resolution configuration through the
+    launcher's CLI (runtime/launch.main: --config, --habitat_sim mock,
+    --save_runtime_data 1, --live_view_port 0) on the card, HABITAT_STEPS
+    steps, the bin kernel route on. Each action's wall runs from the start
+    of one simulator step to the start of the next (host clock after a
+    synchronize); the last HABITAT_PROFILED + 1 are left out of the mean, as
+    in phase 5. While the episode runs, a planner-tick hook fetches the live
+    view's page, view, top-down map and metrics once the view exists. The
+    B3 launches of the recorder's and live view's view renders and of the
+    orbit overlay are counted apart. The kernels' inputs are kept from the
+    run: the last training call's tile rows (B1/B2), the last exact render's
+    CSR stream of the 512x512 frame (B3) and, once the mapper trains hybrid,
+    the last training CSR stream (B4), the last top-down query's stream
+    (B5) and the last 512x512 bin that the kernel route takes (B6). Fatal: the sensor (512x512, cx = cy
+    = 255), the budget consumed with one valid action a step in actions.txt,
+    params.npz finite, the recorder's folders filled and its first panel
+    1,024x1,536, no gt_mesh.json (the mock's mesh path does not exist), the
+    live view fetched, each kernel launched (B4 exactly when hybrid)."""
+    import os
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from activesplat_tpu_torch.io.actions import read_actions
+    from activesplat_tpu_torch.io.params_io import load_params
+    from activesplat_tpu_torch.io.png import read_png
+    from activesplat_tpu_torch.runtime import launch, planner_fsm
+    from activesplat_tpu_torch.runtime.habitat_backend import HabitatDataset
+    from activesplat_tpu_torch.runtime.mapper_node import MapperNode
+    from activesplat_tpu_torch.utils import tracing
+
+    n = HABITAT_STEPS
+    first_profiled = n - 1 - HABITAT_PROFILED
+    keep = {"tiles": None, "csr": None, "csr_train": None, "dual": None, "bin": None}
+    stamps, live, ran, apart = [], {}, {}, {"view": 0, "map3d": 0}
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    n_tiles = (HABITAT_RES // 16) ** 2
+    real = {"blend_tiles": rt.blend_tiles, "blend_csr": rt.blend_csr,
+            "blend_csr_dual_fwd": rt.blend_csr_dual_fwd, "bin_gaussians": rt.bin_gaussians}
+    real_move, real_tick = HabitatDataset.apply_movement, planner_fsm.PlannerFSM.tick
+    real_view, real_map3d = MapperNode._record_view, MapperNode._update_map3d
+    real_run = launch.run_episode
+
+    def blend_tiles(rows, u0, v0, c):
+        if rows.requires_grad:  # a training render
+            keep["tiles"] = (rows.detach(), u0, v0)
+        return real["blend_tiles"](rows, u0, v0, c)
+
+    def blend_csr(rows, seg_tile, seg_u0, seg_v0, t, c):
+        if t == n_tiles:  # the 512x512 frame's, not a panorama view's
+            keep["csr_train" if rows.requires_grad else "csr"] = (
+                (rows.detach(), seg_tile, seg_u0, seg_v0), t, c)
+        return real["blend_csr"](rows, seg_tile, seg_u0, seg_v0, t, c)
+
+    def blend_csr_dual_fwd(*a):
+        keep["dual"] = (a[:4], a[4], a[5])
+        return real["blend_csr_dual_fwd"](*a)
+
+    def bin_gaussians(*a, **kw):
+        # a 512x512 bin that the kernel route takes (its gate: k a multiple of
+        # 128, at most BIN_MAX_BLOCKS blocks; larger prefixes take the sort route)
+        if (a[3] == a[4] == HABITAT_RES and a[5] % rc.BIN_BLOCK == 0
+                and -(-a[0].shape[0] // rc.BIN_BLOCK) <= rc.BIN_MAX_BLOCKS):
+            keep["bin"] = a
+        return real["bin_gaussians"](*a, **kw)
+
+    def move(self, twist):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        if len(stamps) - 1 == first_profiled:
+            prof.start()
+        elif len(stamps) == n:
+            torch.cuda.synchronize()
+            prof.stop()
+        return real_move(self, twist)
+
+    def tick(self):
+        real_tick(self)
+        if not live and self.live_view is not None and self.live_view._get("view") is not None:
+            t0 = time.perf_counter()
+            live.update(fetch_live_view(self.live_view.port), ms=(time.perf_counter() - t0) * 1e3,
+                        actions=len(stamps))
+
+    b3 = next(fn for fn in rc.KERNELS if fn.__name__ == "blend_csr_fwd")
+
+    def counted(kind, fn):
+        def wrapped(self, *a):
+            before = b3.launches
+            fn(self, *a)
+            apart[kind] += b3.launches - before
+        return wrapped
+
+    def run_episode(*a, **kw):
+        ran["node"], ran["planner"] = real_run(*a, **kw)
+        return ran["node"], ran["planner"]
+
+    rt._BIN_KERNEL = True
+    rt.blend_tiles, rt.blend_csr, rt.blend_csr_dual_fwd, rt.bin_gaussians = (
+        blend_tiles, blend_csr, blend_csr_dual_fwd, bin_gaussians)
+    HabitatDataset.apply_movement, planner_fsm.PlannerFSM.tick = move, tick
+    MapperNode._record_view = counted("view", real_view)
+    MapperNode._update_map3d = counted("map3d", real_map3d)
+    launch.run_episode = run_episode
+    try:
+        tracing.reset_stages()
+        rc.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with recorded_targets(planner_fsm) as targets:
+            launch.main(["--config", HABITAT_CONFIG, "--habitat_sim", "mock", "--step_num", str(n),
+                         "--save_runtime_data", "1", "--live_view_port", "0",
+                         "--results_dir", out_dir])
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+    finally:
+        rt._BIN_KERNEL = False
+        rt.blend_tiles, rt.blend_csr, rt.blend_csr_dual_fwd, rt.bin_gaussians = real.values()
+        HabitatDataset.apply_movement, planner_fsm.PlannerFSM.tick = real_move, real_tick
+        MapperNode._record_view, MapperNode._update_map3d = real_view, real_map3d
+        launch.run_episode = real_run
+    counts = {fn.__name__: fn.launches for fn in rc.KERNELS}
+    rc.reset_launch_counts()
+    by_phase["habitat episode"] = counts
+    node, planner = ran["node"], ran["planner"]
+    ds, s = node.dataset, node.dataset.sensor
+
+    # the configuration and the budget
+    # the Habitat principal point: cx = cy = W/2 - 1 = 255
+    if (s.width, s.height, s.cx, s.cy) != (HABITAT_RES, HABITAT_RES, *[HABITAT_RES / 2 - 1] * 2):
+        raise AssertionError(f"habitat: sensor {s.width}x{s.height}, cx {s.cx}, cy {s.cy}")
+    cfg = node.mapper.cfg
+    steps, budget = ds.get_step_info()
+    if steps != budget or budget != n or len(stamps) != n:
+        raise AssertionError(f"habitat: {steps} of {budget} steps taken, {len(stamps)} actions "
+                             f"stamped")
+    mean_ms = (stamps[first_profiled] - stamps[1]) / (first_profiled - 1) * 1e3
+    walls = np.diff(stamps[:first_profiled + 1]) * 1e3
+    print(f"habitat: {n} steps of {HABITAT_CONFIG} (mock scene {ds.get_scene_id()}, "
+          f"{type(ds).__name__} on {type(ds._sim).__name__}, {s.width}x{s.height}, cx {s.cx}, "
+          f"cy {s.cy}, mapping_iters {cfg.mapping_iters}, map_every {cfg.map_every}, pixel_max "
+          f"{max(node.topdown_cfg.grid_shape)}; the config's 1,000 steps cut to {n}) in "
+          f"{t_end - t0:.1f} s on {card}")
+    print(f"habitat_action_ms@{HABITAT_CONFIG}_{HABITAT_RES}px = {mean_ms:.3f} (mean of actions 2 "
+          f"to {first_profiled}, host clock, each from a synchronize) on {card}")
+    print(f"habitat: set-up {(stamps[0] - t0) * 1e3:.3f} ms, the first action with its set-up "
+          f"{(stamps[1] - t0) * 1e3:.3f} ms, the last action with post_processing "
+          f"{(t_end - stamps[-1]) * 1e3:.3f} ms; action walls min / median / max "
+          f"{walls[1:].min():.3f} / {float(np.median(walls[1:])):.3f} / {walls[1:].max():.3f} ms")
+    print("habitat stages (host wall-clock; total, calls, ms a call, longest call):")
+    for name, (tot, calls, longest) in sorted(tracing.stage_report_full().items()):
+        print(f"  {name:<26} {tot * 1e3:11.3f} ms / {calls:5d} calls = "
+              f"{tot / calls * 1e3:9.3f} ms a call, longest {longest * 1e3:9.3f} ms")
+    print(f"habitat host syncs and device-to-host copies by stage: {tracing.stage_report_io()}")
+    kernels = device_kernels(prof)
+    window_ms = (stamps[-1] - stamps[first_profiled]) * 1e3
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    print(f"habitat profile of actions {first_profiled + 1} to {n - 1} on {card}: wall "
+          f"{window_ms / HABITAT_PROFILED:.3f} ms an action under the profiler, device busy "
+          f"{busy_ms / HABITAT_PROFILED:.3f} ms an action in "
+          f"{len(kernels) / HABITAT_PROFILED:.0f} kernels an action, idle share "
+          f"{1.0 - busy_ms / window_ms:.3f} of the profiled wall, "
+          f"{1.0 - busy_ms / HABITAT_PROFILED / mean_ms:.3f} of the timed mean")
+    print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=15))
+    hybrid = any(h.get("exact_training") == "hybrid" for h in node.mapper.shape_history)
+    print(f"habitat launches: {counts}; the mapper switched to hybrid: {hybrid} (shape history "
+          f"{node.mapper.shape_history})")
+    print(f"habitat: B3 launches of the view renders (recorder and live view, every "
+          f"{node.record_view_every} steps) {apart['view']}, of the orbit overlay {apart['map3d']}, "
+          f"of everything else {counts['blend_csr_fwd'] - apart['view'] - apart['map3d']}")
+    need = ("blend_tiles_fwd", "blend_tiles_bwd", "blend_csr_fwd", "blend_csr_dual_fwd",
+            "bin_count", "bin_slots")
+    if (not all(counts[k] > 0 for k in need) or counts["bin_count"] != counts["bin_slots"]
+            or (counts["blend_csr_bwd"] > 0) != hybrid or not apart["view"] or not apart["map3d"]):
+        raise AssertionError(f"habitat launches {counts} (hybrid: {hybrid}, apart: {apart})")
+
+    # the outputs
+    actions = read_actions(os.path.join(out_dir, "actions.txt"))
+    if len(actions) != n or not all(0 <= a <= 5 for a in actions):
+        raise AssertionError(f"habitat: actions.txt holds {len(actions)} actions for {n} steps")
+    params = load_params(os.path.join(out_dir, "gaussians_data", "params.npz"))
+    bad = [k for k, v in params.items()
+           if np.issubdtype(v.dtype, np.floating) and not np.isfinite(v).all()]
+    if bad:
+        raise AssertionError(f"habitat: non-finite parameters in {bad}")
+    written = {d: sorted(os.listdir(os.path.join(out_dir, d)))
+               for d in ("topdown_map", "opacity", "current_vis_data")}
+    empty = [d for d, files in written.items() if not files]
+    if empty:
+        raise AssertionError(f"habitat: the recorder's {empty} are empty")
+    panel = next(f for f in written["current_vis_data"] if f.startswith("rgbd_sil_"))
+    shape = read_png(os.path.join(out_dir, "current_vis_data", panel)).shape
+    if shape != (2 * HABITAT_RES, 3 * HABITAT_RES, 3):
+        raise AssertionError(f"habitat: {panel} decodes to {shape}")
+    if os.path.exists(os.path.join(out_dir, "gt_mesh.json")):
+        raise AssertionError("habitat: gt_mesh.json written for a mesh that does not exist")
+    if not live or not live["metrics"].get("step", 0) > 0:
+        raise AssertionError(f"habitat: the live view was not fetched during the run: {live}")
+    print(f"habitat recorder: {', '.join(f'{d}/ {len(f)} files' for d, f in written.items())}; "
+          f"{panel} {shape[1]}x{shape[0]}; live view fetched after {live['actions']} actions in "
+          f"{live['ms']:.1f} ms ({live['bytes']}), metrics {live['metrics']}")
+    timeline = target_timeline(np, planner, targets)
+    reached = [t for t in timeline if t["reached"]]
+    ended = [t for t in timeline if t["ended"] is not None]
+    area = np.count_nonzero(planner.free_map) * planner.topdown_cfg.meter_per_pixel ** 2
+    print(f"habitat targets: {timeline}")
+    print(f"habitat outcome: {steps} of {budget} steps, {planner._tick_count} planner ticks, "
+          f"{len(timeline)} targets planned, {len(ended)} ended, {len(reached)} reached, "
+          f"{node.mapper.num_gaussians()} Gaussians, explored free area {area:.3f} m^2")
+    missing = [k for k, v in keep.items() if v is None and (k != "csr_train" or hybrid)]
+    if missing:
+        raise AssertionError(f"habitat: no inputs kept for {missing}")
+    return {**keep, "hybrid": hybrid, "gaussians": node.mapper.num_gaussians(),
+            "action_ms": mean_ms}
+
+
+def habitat_small_check(torch, np, card) -> None:
+    """The Habitat adapter on its mock on the card against the same on the
+    CPU: tests/test_torch_habitat_episode.py's parity run (HABITAT_SMALL),
+    the mapping picks the current frame on both devices. Fatal unless every
+    action is equal, the Gaussian counts are equal and the explored area is
+    within EPISODE_AREA_RTOL."""
+    import os
+    import tempfile
+
+    from activesplat_tpu_torch.configs import load_scene_config
+    from activesplat_tpu_torch.io.actions import read_actions
+    from activesplat_tpu_torch.mapper.config import MapperConfig
+    from activesplat_tpu_torch.runtime.launch import build_episode_from_config, run_episode
+    from activesplat_tpu_torch.runtime.mock_habitat import make_mock_sim
+
+    c = HABITAT_SMALL
+    rand = torch.rand
+    runs = {}
+    try:
+        torch.rand = lambda *a, **k: torch.full_like(rand(*a, **k), 1 - 2.0**-24)
+        for dev in ("cpu", "cuda"):
+            with tempfile.TemporaryDirectory() as tmp:
+                cfg = json.loads(json.dumps(load_scene_config("gibson")))
+                cfg["env"]["config"] = habitat_env_yaml(os.path.join(tmp, "env.yaml"), c["res"],
+                                                        c["turn"])
+                cfg["dataset"].update(step_num=c["steps"], scene_id=c["scene"], far=10)
+                cfg["painter"]["grid_map"]["pixel_max"] = 56
+                np.random.seed(0)  # the Voronoi sampling jitter's global stream
+                ep = build_episode_from_config(cfg, tmp, sim_factory=make_mock_sim)
+                node, planner = run_episode(
+                    ep["dataset"], tmp, mapper_cfg=MapperConfig(**SMALL_EPISODE_CFG),
+                    pixel_max=ep["pixel_max"], max_ticks=300, pano_scale=0.4,
+                    single_floor_expansion=ep["single_floor_expansion"],
+                    agent_foot_adjust=ep["agent_foot_adjust"], device=dev)
+                runs[dev] = {"actions": read_actions(os.path.join(tmp, "actions.txt")),
+                             "gaussians": node.mapper.num_gaussians(),
+                             "area": np.count_nonzero(planner.free_map)
+                             * planner.topdown_cfg.meter_per_pixel ** 2}
+    finally:
+        torch.rand = rand
+    a, b = runs["cpu"], runs["cuda"]
+    if (a["actions"] != b["actions"] or a["gaussians"] != b["gaussians"]
+            or abs(b["area"] - a["area"]) > EPISODE_AREA_RTOL * a["area"]):
+        raise AssertionError(f"small habitat episode: card {b}, CPU {a}")
+    print(f"small habitat episode ({c['steps']} steps of the gibson config on the mock, scene "
+          f"{c['scene']}, {c['res']}x{c['res']}): the card's {len(b['actions'])} actions equal the "
+          f"CPU's, {b['gaussians']} / {a['gaussians']} Gaussians, {b['area']:.3f} / "
+          f"{a['area']:.3f} m^2 free (card / CPU) on {card}")
+
+
+def habitat_coverage(np, card, out_dir) -> None:
+    """The coverage judge over phase 6's actions.txt through the adapter: a
+    fresh Eval dataset on the mock (get_dataset, scene_id "Eval"),
+    COVERAGE_SAMPLES GT samples of the mock's world, COVERAGE_THRESHOLD.
+    Fatal unless every number is finite and 0 < completeness_ratio <= 1."""
+    import os
+
+    from activesplat_tpu_torch.configs import load_scene_config, load_user_config
+    from activesplat_tpu_torch.eval.replay import eval_actions
+    from activesplat_tpu_torch.runtime.habitat_backend import get_dataset
+    from activesplat_tpu_torch.runtime.mock_habitat import make_mock_sim
+
+    t0 = time.perf_counter()
+    ds = get_dataset(load_scene_config(HABITAT_CONFIG), load_user_config(), scene_id="Eval",
+                     sim_factory=make_mock_sim)
+    report = eval_actions(ds, os.path.join(out_dir, "actions.txt"),
+                          num_gt_samples=COVERAGE_SAMPLES, dist_threshold=COVERAGE_THRESHOLD)
+    nums = (report.completeness, report.completeness_ratio, report.accuracy, report.path_length)
+    if not all(math.isfinite(x) for x in nums) or not 0 < report.completeness_ratio <= 1:
+        raise AssertionError(f"habitat coverage: {report}")
+    print(f"habitat coverage (eval_actions through the adapter, {COVERAGE_SAMPLES} GT samples of "
+          f"the mock's world, {COVERAGE_THRESHOLD} m): {report.as_row()} (completeness, "
+          f"completeness_ratio, accuracy, path length), {report.num_observed_points} observed "
+          f"points, {time.perf_counter() - t0:.1f} s on the host of {card}")
+
+
+def native_raycast_check(np, card) -> None:
+    """One HABITAT_RES x HABITAT_RES frame of the mock's world (BoxWorld.render),
+    the native raycaster (built from csrc/raycast.cpp) against the numpy one
+    on the host: NATIVE_REPS calls each, the frames within NATIVE_ATOL."""
+    import os
+
+    from activesplat_tpu_torch.runtime import native_raycast
+    from activesplat_tpu_torch.runtime.synthetic import BoxWorld
+    from activesplat_tpu_torch.utils.transforms import rot_axis
+
+    world = BoxWorld.two_room(seed=0)
+    f = HABITAT_RES / 2
+    intr = np.array([[f, 0, f - 1], [0, f, f - 1], [0, 0, 1]])
+    c2w = query_pose(np, (5.0, 1.25, 1.5))
+    c2w = rot_axis(c2w, "y", np.deg2rad(35.0))
+    t0 = time.perf_counter()
+    native_raycast.get_lib()
+    build_s = time.perf_counter() - t0
+    frames, ms = {}, {}
+    old = os.environ.get("ACTIVESPLAT_NATIVE")
+    try:
+        for label, flag in (("native", "1"), ("numpy", "0")):
+            os.environ["ACTIVESPLAT_NATIVE"] = flag
+            frames[label] = world.render(c2w, intr, HABITAT_RES, HABITAT_RES)
+            t0 = time.perf_counter()
+            for _ in range(NATIVE_REPS):
+                world.render(c2w, intr, HABITAT_RES, HABITAT_RES)
+            ms[label] = (time.perf_counter() - t0) / NATIVE_REPS * 1e3
+    finally:
+        if old is None:
+            os.environ.pop("ACTIVESPLAT_NATIVE", None)
+        else:
+            os.environ["ACTIVESPLAT_NATIVE"] = old
+    err = max(float(np.abs(a - b).max()) for a, b in zip(frames["native"], frames["numpy"]))
+    if err > NATIVE_ATOL:
+        raise AssertionError(f"native raycaster: {err:.3e} from the numpy one")
+    print(f"native raycaster: {HABITAT_RES}x{HABITAT_RES} frame {ms['native']:.3f} ms native, "
+          f"{ms['numpy']:.3f} ms numpy ({NATIVE_REPS} calls each, host clock), max difference "
+          f"{err:.3e}; library load (built if missing) {build_s:.2f} s, on the host of {card}")
+
+
+def habitat_kernels(torch, np, rc, rt, card, hab, measure, bound, int_rate) -> None:
+    """Phase 6's kernels against their twins on the inputs that
+    habitat_phase kept (`hab`), each timed and bounded through main's
+    `measure` and `bound` as in phase 4, each entry counting the launches
+    of HABITAT_PHASES only. Frees the inputs as it goes."""
+    seg_bytes = rc.SEG * rc.N_ATTR * 4
+    entries = []
+
+    def timed(*a, **kw):
+        entries.append(measure(*a, **kw))
+        return entries[-1]
+
+    where = f"{HABITAT_CONFIG} {HABITAT_RES}x{HABITAT_RES}"
+    # B1 and B2 on the last training render's tile rows (T = 1,024 tiles)
+    h_rows, h_u0, h_v0 = hab["tiles"]
+    h_rows = h_rows.contiguous()
+    h_t, h_k, _ = h_rows.shape
+    h_tile_rej, h_fwd_rej = dict.fromkeys(TILE_SPLIT_FAULTS, 0), dict.fromkeys(TILE_FWD_FAULTS, 0)
+    h_errs, (h_entry, h_g_acc, h_g_lt) = kernel_checks(
+        torch, rc, h_rows, h_u0, h_v0, f"{where} mapping rows T={h_t} K={h_k}", h_tile_rej,
+        h_fwd_rej)
+    h_walked, h_live, h_live_wr = pair_counts(torch, rc, h_rows, h_u0, h_v0, h_entry)
+    h_px_bytes = h_t * rc.PX * 4
+    h_walk_bytes = h_walked // (rc.SEG * rc.PX) * seg_bytes + 2 * h_t * 4
+    h_fwd = (h_rows, h_u0, h_v0, N_CHANNELS)
+    h_bwd = (h_rows, h_u0, h_v0, h_entry, h_g_acc, h_g_lt, N_CHANNELS)
+    h_pairs = {"walked": h_walked, "live": h_live, "live_warp_rows": h_live_wr,
+               "warp_rows": h_walked // 32}
+    stream_6 = f"{where} (phase 6)"
+    timed("blend_tiles_fwd", "activesplat_tpu_torch/csrc/blend_fwd.cu", FWD_REPLACES,
+          lambda: rc.blend_tiles_fwd(*h_fwd, with_entry=True),
+          lambda: rc.blend_tiles_fwd_plain(*h_fwd, with_entry=True), B1_PASSES,
+          bound(h_walk_bytes + h_px_bytes * (N_CHANNELS + 1 + h_k // rc.SEG), h_walked, h_live,
+                live_f32_fwd(N_CHANNELS)),
+          h_errs["fwd"], stream=stream_6, phases=HABITAT_PHASES, tiles=h_t, k=h_k,
+          pairs=h_pairs,
+          segments=dict(zip(("computed", "walked"), h_errs["segments"]), all=h_t * (h_k // rc.SEG)))
+    timed("blend_tiles_bwd", "activesplat_tpu_torch/csrc/blend_bwd.cu", BWD_REPLACES,
+          lambda: rc.blend_tiles_bwd(*h_bwd), lambda: rc.blend_tiles_bwd_plain(*h_bwd),
+          B2_PASSES,
+          bound(h_walk_bytes + h_px_bytes * (h_k // rc.SEG + N_CHANNELS + 1)
+                + h_t * h_k * rc.N_ATTR * 4, h_walked, h_live, live_f32_bwd(N_CHANNELS)),
+          h_errs["bwd"], stream=stream_6, phases=HABITAT_PHASES, tiles=h_t, k=h_k,
+          pairs=h_pairs)
+    del h_fwd, h_bwd, h_entry, h_g_acc, h_g_lt
+    hab.pop("tiles")
+    # B3 on the last exact render's CSR stream of the 512x512 frame, B4 on
+    # the training stream once the mapper trains hybrid
+    print(f"habitat: the mapper went hybrid during the run: {hab['hybrid']} (B4 "
+          f"{'checked on its training stream' if hab['hybrid'] else 'not launched'})")
+    (h_stream, h_tiles, h_c) = hab["csr"]
+    h_stream = (h_stream[0].contiguous(), *h_stream[1:])
+    h_csr_rej = dict.fromkeys(SPLIT_FAULTS, 0)
+    h_cerrs, (h_centry, _, _) = csr_kernel_checks(
+        torch, rc, h_stream, h_tiles, f"{where} exact render CSR stream, "
+        f"{h_stream[1].shape[0]} segments", h_csr_rej, c=h_c, with_bwd=False)
+    h_cseg, h_cwalked, h_clive = csr_pair_counts(torch, rc, h_stream, h_centry, h_tiles)
+    timed("blend_csr_fwd", "activesplat_tpu_torch/csrc/blend_csr_fwd.cu", CSR_FWD_REPLACES,
+          lambda: rc.blend_csr_fwd(*h_stream, h_tiles, h_c),
+          lambda: rc.blend_csr_fwd_plain(*h_stream, h_tiles, h_c), CSR_PASSES,
+          bound(h_cseg * rc.CSEG * rc.N_ATTR * 4 + 2 * h_tiles * 4
+                + h_tiles * rc.PX * 4 * (h_c + 1), h_cwalked, h_clive, live_f32_fwd(h_c)),
+          h_cerrs["fwd"], plain_reps=2, stream=stream_6, phases=HABITAT_PHASES,
+          segments={"walked": h_cseg, "computed": h_cerrs["segments"][0],
+                    "all": h_stream[1].shape[0]})
+    del h_stream, h_centry
+    hab.pop("csr")
+    if hab["hybrid"]:
+        (h_stream, h_tiles, h_c) = hab["csr_train"]
+        h_stream = (h_stream[0].contiguous(), *h_stream[1:])
+        h_b4_rej = dict.fromkeys(B4_SPLIT_FAULTS, 0)
+        h_berrs, (h_bentry, h_bg_acc, h_bg_lt) = csr_kernel_checks(
+            torch, rc, h_stream, h_tiles, f"{where} hybrid training CSR stream, "
+            f"{h_stream[1].shape[0]} segments", h_csr_rej, c=h_c, bwd_rejected=h_b4_rej)
+        h_bseg, h_bwalked, h_blive = csr_pair_counts(torch, rc, h_stream, h_bentry, h_tiles)
+        h_bvisited = int(torch.unique(h_stream[1][h_stream[1] < h_tiles]).numel())
+        h_bn_seg = h_stream[1].shape[0]
+        h_b4 = (*h_stream, h_bentry, h_bg_acc, h_bg_lt, h_tiles, h_c)
+        timed("blend_csr_bwd", "activesplat_tpu_torch/csrc/blend_csr_bwd.cu", CSR_BWD_REPLACES,
+              lambda: rc.blend_csr_bwd(*h_b4), lambda: rc.blend_csr_bwd_plain(*h_b4), B4_PASSES,
+              bound(h_bseg * rc.CSEG * rc.N_ATTR * 4 + 2 * h_tiles * 4 + h_bn_seg * rc.PX * 4
+                    + h_bvisited * rc.PX * 4 * (h_c + 1) + h_bn_seg * rc.CSEG * rc.N_ATTR * 4,
+                    h_bwalked, h_blive, live_f32_bwd(h_c)),
+              h_berrs["bwd"], stream=stream_6, phases=HABITAT_PHASES,
+              pairs={"walked": h_bwalked, "live": h_blive})
+        del h_b4, h_stream, h_bentry, h_bg_acc, h_bg_lt
+    hab.pop("csr_train", None)
+    # B5 on the last top-down query's stream
+    (h_dstream, h_dtiles, _) = hab.pop("dual")
+    h_dstream = (h_dstream[0].contiguous(), *h_dstream[1:])
+    h_derr, h_dentry, _, (h_dcomputed, _) = dual_kernel_checks(
+        torch, rc, h_dstream, h_dtiles, f"{where} top-down CSR stream, "
+        f"{h_dstream[1].shape[0]} segments", h_csr_rej, require_exit_fault=False)
+    h_dseg, h_dwalked, h_dlive, h_dband = dual_pair_counts(torch, rc, h_dstream, h_dentry,
+                                                           h_dtiles)
+    h_dual = (*h_dstream, h_dtiles, DUAL_CHANNELS)
+    timed("blend_csr_dual_fwd", "activesplat_tpu_torch/csrc/blend_csr_dual.cu", DUAL_REPLACES,
+          lambda: rc.blend_csr_dual_fwd(*h_dual), lambda: rc.blend_csr_dual_fwd_plain(*h_dual),
+          CSR_PASSES,
+          bound(h_dseg * rc.CSEG * rc.N_ATTR * 4 + 2 * h_dtiles * 4
+                + h_dtiles * rc.PX * 4 * (DUAL_CHANNELS + 2), h_dwalked, h_dlive,
+                live_f32_fwd(DUAL_CHANNELS), h_dband, h_dband),
+          h_derr, plain_reps=2, stream=stream_6, phases=HABITAT_PHASES,
+          segments={"walked": h_dseg, "computed": h_dcomputed, "all": h_dstream[1].shape[0]})
+    del h_dual, h_dstream, h_dentry
+    # B6 on the last 512x512 bin
+    h_bin = hab.pop("bin")
+    h_bin_rej, h_bin_split_rej = dict.fromkeys(BIN_FAULTS, 0), dict.fromkeys(BIN_SPLIT_FAULTS, 0)
+    [(_, h_count_args, h_bin_args, h_lists)] = bin_checks(
+        torch, rc, rt, h_bin[:5], h_bin[5], (h_bin[6],),
+        f"{where} bin, visible prefix of {h_bin[0].shape[0]} splats", h_bin_rej, h_bin_split_rej)
+    h_counts = rc.bin_count_cuda(*h_count_args)[1]
+    h_bb = bin_bound(torch, rc, h_count_args, h_bin_args, h_counts, h_lists.indices, int_rate)
+    h_b6_run, h_b6_plain = b6_calls(torch, rc, h_count_args, h_bin_args)
+    b6 = timed("bin_slots", "activesplat_tpu_torch/csrc/bin_slots.cu", BIN_REPLACES, h_b6_run,
+               h_b6_plain, B6_PASSES, b6_bound_ms(h_bb), 0.0, stream=stream_6,
+               phases=HABITAT_PHASES, k=h_bin[5], offset=h_bin[6])
+    print_bin_bound(h_bb, f"{where} bin (k={h_bin[5]}, offset {h_bin[6]})",
+                    {"count": b6["pass_ms"][B6_PASSES[0]], "slot": b6["pass_ms"][B6_PASSES[1]]},
+                    card)
+    del h_bin, h_count_args, h_bin_args, h_lists, h_counts
+    print(f"planted faults rejected at {where}: B1's passes {h_fwd_rej}, B2's {h_tile_rej}, "
+          f"the CSR forwards' {h_csr_rej}")
+    for e in entries:
+        print(f"{e['name']} at {where}: kernel {e['ms']:.4f} ms {e.get('pass_ms', '')}, "
+              f"wrapper {e['wrapper_ms']:.4f} ms, twin {e['plain_ms']:.4f} ms, bound "
+              f"{e['bound_ms']:.4f} ms ({e['bound_by']}, {e['bound_ms'] / e['ms']:.3f} of it "
+              f"reached), max_abs_err {e['max_abs_err']:.3e} on {card}")
+
+
 def driver_intrinsics(np, res: int):
     """The episode's sensor (RGBDSensor.from_fov): 90 degrees hfov, square
     pixels, cx = W/2 - 1."""
@@ -3057,6 +3629,7 @@ def main() -> int:
             "plain_ms": plain_ms, "bound_ms": b_ms_by[0], "bound_by": b_ms_by[1],
             "library_ms": None, **({"pass_ms": pass_ms} if len(kernels) > 1 else {}), **extra,
         })
+        return measured[-1]
 
     measure("blend_tiles_fwd", "activesplat_tpu_torch/csrc/blend_fwd.cu", FWD_REPLACES,
             lambda: rc.blend_tiles_fwd(*fwd_args, with_entry=True),
@@ -3478,6 +4051,19 @@ def main() -> int:
     del e_stream, e_entry
     print(f"phase 5b (the judges) took {time.perf_counter() - t5b:.1f} s")
 
+    # ---- phase 6: the Habitat path at 512x512 --------------------------- #
+    t6 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as habitat_dir:
+        hab = habitat_phase(torch, np, rc, rt, card, by_phase, habitat_dir)
+        habitat_coverage(np, card, habitat_dir)
+    habitat_kernels(torch, np, rc, rt, card, hab, measure, bound, int_rate)
+    habitat_small_check(torch, np, card)
+    native_raycast_check(np, card)
+    print(f"phase 6 (the Habitat path at {HABITAT_RES}x{HABITAT_RES}) took "
+          f"{time.perf_counter() - t6:.1f} s")
+
     kernels = []
     for entry_k in measured:
         name = entry_k["name"]
@@ -3485,8 +4071,10 @@ def main() -> int:
         split = "stream" in entry_k and name == "blend_csr_fwd"
         kind = entry_k.get("stream", "").split()[0] if split else None
         phases = {phase: c[name] for phase, c in by_phase.items() if c[name] and (
-            not split or {"panorama": phase in PANORAMA_PHASES, "eval": phase in EVAL_PHASES}.get(
-                kind, phase not in PANORAMA_PHASES + EVAL_PHASES))}
+            phase in entry_k["phases"] if "phases" in entry_k else phase not in HABITAT_PHASES and (
+                not split or {"panorama": phase in PANORAMA_PHASES,
+                              "eval": phase in EVAL_PHASES}.get(
+                    kind, phase not in PANORAMA_PHASES + EVAL_PHASES)))}
         n_launches = sum(phases.values())
         print(f"{name}{' (' + entry_k['stream'] + ')' if 'stream' in entry_k else ''}: "
               f"max_abs_err={entry_k['max_abs_err']:.3e} kernel {entry_k['ms']:.4f} ms "

@@ -1,6 +1,7 @@
 """The port stands alone: it imports neither JAX nor the JAX package, nor
-OpenCV, networkx, scikit-learn, PIL, imageio, torchmetrics or trimesh
-(which the machine with the card lacks),
+OpenCV, networkx, scikit-learn, PIL, imageio, torchmetrics, trimesh or
+PyYAML (which the machine with the card lacks), the Habitat wheels only
+inside HabitatDataset.setup(),
 its entry points run on CUDA unless told otherwise, and its smoke script
 refuses to run without a card."""
 
@@ -27,7 +28,10 @@ from activesplat_tpu_torch.ops import raster_cuda
 ROOT = Path(__file__).resolve().parent.parent
 PACKAGE = ROOT / "activesplat_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "activesplat_tpu", "cv2", "networkx", "sklearn", "PIL",
-             "imageio", "torchmetrics", "trimesh")
+             "imageio", "torchmetrics", "trimesh", "yaml")
+# imported by the real-simulator branch only, inside this function
+HABITAT_WHEELS = ("habitat", "omegaconf")
+HABITAT_GATE = ("activesplat_tpu_torch/runtime/habitat_backend.py", "HabitatDataset.setup")
 
 
 def port_modules():
@@ -69,6 +73,37 @@ def test_port_imports_with_jax_blocked():
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_import_in_source(path):
     assert not imported_roots(path) & set(FORBIDDEN)
+
+
+def wheel_imports(path: Path):
+    """(qualified name of the enclosing function, module) of every import
+    of the Habitat wheels in `path`."""
+    found = []
+
+    def visit(node, scope):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+                visit(child, scope + (child.name,))
+                continue
+            names = []
+            if isinstance(child, ast.Import):
+                names = [a.name for a in child.names]
+            elif isinstance(child, ast.ImportFrom) and child.level == 0:
+                names = [child.module]
+            found.extend((".".join(scope), n) for n in names if n.split(".")[0] in HABITAT_WHEELS)
+            visit(child, scope)
+
+    visit(ast.parse(path.read_text()), ())
+    return found
+
+
+def test_habitat_wheels_only_inside_setup():
+    where = {str(p.relative_to(ROOT)): wheel_imports(p)
+             for p in [ROOT / "chip_smoke.py", *PACKAGE.rglob("*.py")]}
+    gate_file, gate_fn = HABITAT_GATE
+    assert {f for f, found in where.items() if found} == {gate_file}
+    assert {fn for fn, _ in where[gate_file]} == {gate_fn}
+    assert {m.split(".")[0] for _, m in where[gate_file]} == set(HABITAT_WHEELS)
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):

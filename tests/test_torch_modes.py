@@ -235,9 +235,11 @@ def test_launch_cli_replay_and_refusals(recorded, tmp_path, monkeypatch, capsys)
     assert "replay finished: 4 steps" in capsys.readouterr().out
     assert os.path.exists(os.path.join(out, "gaussians_data", "params.npz"))
     assert not os.path.exists(os.path.join(out, "actions.txt"))  # read, not written
-    for extra in (["--mode", "replay"], ["--config", "gibson"], ["--habitat_sim", "mock"],
-                  ["--save_runtime_data", "1"]):
+    # the options still refused: replay without its actions, and the
+    # multi-device mesh (the Habitat options are ported:
+    # tests/test_torch_habitat_episode.py)
+    for extra in (["--mode", "replay"], ["--mesh", "1"]):
         with pytest.raises(SystemExit) as exc:
             launch.main(base + extra)
         assert exc.value.code == 2, extra
-    assert "queue A, item 10.3" in capsys.readouterr().err
+    assert "queue A, item 12" in capsys.readouterr().err
