@@ -14,9 +14,6 @@ from activesplat_tpu_torch.mapper.config import LearningRates, MapperConfig
 
 CONFIG_DIR = os.path.dirname(os.path.abspath(__file__))
 
-MESH_NOT_PORTED = ("the multi-device mesh (use_mesh) is not ported to activesplat_tpu_torch yet "
-                   "(ROADMAP.md, queue A, item 12)")
-
 
 def load_scene_config(name_or_path: str) -> dict:
     """Load a scene JSON by name (bundled synthetic configs at the top level,
@@ -54,8 +51,8 @@ def load_user_config(path: str | None = None) -> dict:
 def mapper_config_from_scene(cfg: dict, **overrides) -> MapperConfig:
     """Build a MapperConfig from the scene JSON's mapper block
     (key layout mirrors config/datasets/gibson.json 'mapper' + the SplaTAM
-    module config tier). A config that asks for the multi-device mesh is
-    refused."""
+    module config tier). `use_mesh` shards the mapper's renders over the
+    visible devices (mapper/splatam.py)."""
     mapper = cfg.get("mapper", {})
     splatam = cfg.get("splatam", {})
     lrs = LearningRates(**splatam.get("lrs", {}))
@@ -74,8 +71,6 @@ def mapper_config_from_scene(cfg: dict, **overrides) -> MapperConfig:
         lrs=lrs,
     )
     kwargs.update(overrides)
-    if kwargs["use_mesh"]:
-        raise NotImplementedError(MESH_NOT_PORTED)
     return MapperConfig(**kwargs)
 
 

@@ -1,5 +1,5 @@
 """The per-frame online mapper (counterpart of
-activesplat_tpu/mapper/splatam.py, single device).
+activesplat_tpu/mapper/splatam.py).
 
 Frame scheduling (map_every / kf_every), first-frame init, densification with
 buffer growth, the mapping event split at prune fire points, the exact online
@@ -9,11 +9,15 @@ exact_training "auto" -> "hybrid" switch, the dataset dump and the final
 params.npz export. Tracking is skipped: ground-truth poses are written into
 the camera trajectory, as in the reference (splatam/__init__.py:399-405).
 
-Differences from the JAX package, on purpose: no mesh sharding and no relay
-retries; random draws come from one torch.Generator (so the same seed picks
-other keyframes than jax.random), whose state a checkpoint stores under its
-own key; the keyframe dumps are written by the port's PNG codec with a JET
-table equal to OpenCV's (io/colormaps.py).
+With cfg.use_mesh, or an explicit mesh, the mapping events, the
+densification render and the panorama queries shard over a device mesh
+(parallel/sharded.py).
+
+Differences from the JAX package, on purpose: no relay retries; random
+draws come from one torch.Generator (so the same seed picks other keyframes
+than jax.random), whose state a checkpoint stores under its own key; the
+keyframe dumps are written by the port's PNG codec with a JET table equal
+to OpenCV's (io/colormaps.py).
 """
 
 from __future__ import annotations
@@ -51,6 +55,7 @@ from activesplat_tpu_torch.mapper.step import (
 from activesplat_tpu_torch.models.gaussians import Camera, GaussianBuffer, make_camera
 from activesplat_tpu_torch.ops.render import render
 from activesplat_tpu_torch.ops.ssim import psnr
+from activesplat_tpu_torch.parallel.sharded import RenderMesh, mesh_for_height, visible_devices
 from activesplat_tpu_torch.queries.clusters import _dbscan_exact, resize_linear_u8
 from activesplat_tpu_torch.queries.panorama import global_invisibility, local_invisibility
 from activesplat_tpu_torch.utils import OPENCV_TO_OPENGL
@@ -89,11 +94,33 @@ class SplaTAMMapper:
         checkpoint_interval: int = 5,
         pano_scale: float = 1.0,
         device: DeviceLike = None,
+        mesh: Optional[RenderMesh] = None,
     ):
         self.device = resolve_device(device)
         self.pano_scale = pano_scale
         self.cfg = cfg
         self.width, self.height = int(width), int(height)
+        # shard every training render's rows over a device mesh: built here
+        # when cfg.use_mesh is set, over the visible devices of the map's
+        # type; an explicit `mesh` wins
+        if mesh is None and cfg.use_mesh:
+            mesh = mesh_for_height(self.height, visible_devices(self.device.type))
+            if mesh is None:
+                print(f"mapper: use_mesh is set but fewer than two {self.device.type} devices "
+                      f"split {self.height} rows into whole 16 px tile rows; rendering unsharded")
+        if mesh is not None and cfg.use_gs_densification:
+            print("mapper: use_gs_densification needs the single-device mean2d gradient tap "
+                  "— disabling the mesh")
+            mesh = None
+        self.mesh = mesh
+        # densify renders at height / densify_downscale_factor: its own
+        # (possibly smaller) mesh must split THAT height into whole tile rows
+        self._densify_mesh = None
+        if mesh is not None:
+            f = max(int(cfg.densify_downscale_factor), 1)
+            self._densify_mesh = mesh_for_height(self.height // f, mesh.devices)
+            print(f"mapper: sharding renders over {mesh.px} devices "
+                  f"({self.height // mesh.px} rows each)")
         self.intrinsics = np.asarray(intrinsics, np.float64)
         self.step_num = int(step_num)
         self.results_dir = results_dir
@@ -311,13 +338,10 @@ class SplaTAMMapper:
         # densification on map frames (splatam/__init__.py:408-417)
         if is_map_frame and self.cfg.add_new_gaussians and frame_id > 0:
             with stage("mapper/densify"):
-                self.buf, dropped, _ = densify_phase(
-                    self.buf, cam, rgb_j, depth_j, float(frame_id), self.cfg
-                )
+                args = (cam, rgb_j, depth_j, float(frame_id), self.cfg, self._densify_mesh)
+                self.buf, dropped, _ = densify_phase(self.buf, *args)
                 if self._grow_if_needed(host_value(dropped), 4096):
-                    self.buf, dropped, _ = densify_phase(
-                        self.buf, cam, rgb_j, depth_j, float(frame_id), self.cfg
-                    )
+                    self.buf, dropped, _ = densify_phase(self.buf, *args)
 
         # the mapping event, split into segments at prune-schedule fire points
         # (each segment re-initializes Adam and redraws its keyframe window)
@@ -336,7 +360,7 @@ class SplaTAMMapper:
                     nxt = next((j for j in range(i + 1, iter_per_frame) if fires(j)), iter_per_frame)
                     self.buf, self.store, metrics = mapping_phase(
                         self.buf, self.store, rgb_j, depth_j, w2c_t, frame_id, cam,
-                        self.generator, self.cfg, nxt - i,
+                        self.generator, self.cfg, nxt - i, mesh=self.mesh,
                     )
                     i = nxt
                 packed = host_value(metrics["packed"])  # one read, which waits for the event
@@ -617,12 +641,12 @@ class SplaTAMMapper:
     def get_global_invisibility(self, view_c2w: np.ndarray, node_positions):
         """Per-node (invisibility, hole volume, reach) scores."""
         return global_invisibility(self.buf, np.asarray(view_c2w), node_positions,
-                                   chunk=self.cfg.chunk, scale=self.pano_scale)
+                                   chunk=self.cfg.chunk, scale=self.pano_scale, mesh=self.mesh)
 
     def get_local_invisibility(self, view_c2w: np.ndarray,
                                cluster_invisibility_threshold: float = 25.0):
         return local_invisibility(self.buf, np.asarray(view_c2w), cluster_invisibility_threshold,
-                                  chunk=self.cfg.chunk, scale=self.pano_scale)
+                                  chunk=self.cfg.chunk, scale=self.pano_scale, mesh=self.mesh)
 
     @torch.no_grad()
     def get_high_loss_samples(

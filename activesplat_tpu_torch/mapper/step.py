@@ -1,7 +1,9 @@
 """The mapping computation: loss, one optimization iteration, the per-frame
 mapping event with the optional mean2d gradient tap, first-frame
 initialization, silhouette and gradient densification, and pruning
-(counterpart of activesplat_tpu/mapper/step.py, single device).
+(counterpart of activesplat_tpu/mapper/step.py); with a mesh
+(parallel/sharded.py) the mapping event's and the densification's renders
+shard their rows over its devices.
 
 Where the JAX package runs a mapping event as one compiled lax.scan, the port
 runs a Python loop of iterations; every iteration stays on the device (the
@@ -62,30 +64,36 @@ def mapping_loss(
         k_per_tile=cfg.k_per_tile,
         grad_exact=_grad_exact(cfg),
     )
+    return loss_from_render(out.rgb, out.depth, out.alpha, out.radii, out.dropped, im_gt,
+                            depth_gt, cfg)
 
+
+def loss_from_render(rgb, depth, alpha, radii, dropped, im_gt, depth_gt, cfg: MapperConfig):
+    """The mapping loss of one rendered frame and its LossAux (shared by
+    mapping_loss and the mesh's parallel/sharded.sharded_mapping_loss)."""
     mask = depth_gt > 0
     if cfg.ignore_outlier_depth_loss:
-        depth_error = torch.abs(depth_gt - out.depth.detach()) * mask
+        depth_error = torch.abs(depth_gt - depth.detach()) * mask
         # the median of the two middle values, as jnp.median takes it
         mask = mask & (depth_error < 10.0 * torch.quantile(depth_error.reshape(-1), 0.5))
     if cfg.use_sil_for_loss:
-        mask = mask & (out.alpha.detach() > cfg.sil_thres)
+        mask = mask & (alpha.detach() > cfg.sil_thres)
     mask = mask.to(torch.float32)
 
-    depth_l1 = torch.sum(torch.abs(depth_gt - out.depth) * mask) / torch.clamp(
+    depth_l1 = torch.sum(torch.abs(depth_gt - depth) * mask) / torch.clamp(
         mask.sum(), min=1.0
     )
-    rgb_l1 = torch.mean(torch.abs(out.rgb - im_gt))
-    ssim_val = ssim(out.rgb, im_gt)
+    rgb_l1 = torch.mean(torch.abs(rgb - im_gt))
+    ssim_val = ssim(rgb, im_gt)
     loss_im = 0.8 * rgb_l1 + 0.2 * (1.0 - ssim_val)
     loss = cfg.loss_w_im * loss_im + cfg.loss_w_depth * depth_l1
     aux = LossAux(
         rgb_l1=rgb_l1.detach(),
         depth_l1=depth_l1.detach(),
         ssim=ssim_val.detach(),
-        radii=out.radii.detach(),
-        psnr=psnr(out.rgb.detach(), im_gt),
-        dropped=out.dropped,
+        radii=radii.detach(),
+        psnr=psnr(rgb.detach(), im_gt),
+        dropped=dropped,
     )
     return loss, aux
 
@@ -135,12 +143,20 @@ def mapping_loss_with_tap(
     return loss, aux
 
 
-def loss_and_grads(buf: GaussianBuffer, cam, im_gt, depth_gt, cfg):
-    """(loss, aux, grads) of mapping_loss with respect to buf.params."""
+def loss_and_grads(buf: GaussianBuffer, cam, im_gt, depth_gt, cfg, mesh=None):
+    """(loss, aux, grads) of mapping_loss with respect to buf.params; with
+    `mesh` (parallel/sharded.RenderMesh) of sharded_mapping_loss, the loss
+    and aux brought to the map's device."""
     params = buf.params.map(lambda p: p.detach().requires_grad_(True))
-    loss, aux = mapping_loss(params, buf, cam, im_gt, depth_gt, cfg)
+    if mesh is None:
+        loss, aux = mapping_loss(params, buf, cam, im_gt, depth_gt, cfg)
+    else:
+        from activesplat_tpu_torch.parallel.sharded import sharded_mapping_loss
+
+        loss, aux = sharded_mapping_loss(params, buf, cam, im_gt, depth_gt, cfg, mesh)
+        aux = LossAux(*(x.to(buf.device) for x in aux))
     grads = torch.autograd.grad(loss, params.tensors())
-    return loss.detach(), aux, GaussianParams(*grads)
+    return loss.detach().to(buf.device), aux, GaussianParams(*grads)
 
 
 def loss_and_grads_with_tap(buf: GaussianBuffer, cam, im_gt, depth_gt, cfg):
@@ -213,13 +229,20 @@ def mapping_phase(
     generator: torch.Generator,
     cfg: MapperConfig,
     num_iters: int,
+    mesh=None,
 ):
     """One per-frame mapping event: keyframe selection, num_iters Adam
     iterations over keyframes drawn from the window, fresh optimizer state.
     `generator` lies on the store's device. With use_gs_densification each
     iteration also accumulates the mean2d gradient norm of every Gaussian it
     saw into grad_accum and denom (accumulate_mean2d_gradient,
-    slam_external.py:100-108). Returns (buf, store, metrics)."""
+    slam_external.py:100-108). `mesh` (parallel/sharded.RenderMesh) shards
+    every training render's rows over its devices (sharded_mapping_loss);
+    the draws are the same with and without it. Returns (buf, store,
+    metrics)."""
+    if mesh is not None and cfg.use_gs_densification:
+        raise ValueError("the gradient-densification tap is single-device only; disable "
+                         "use_gs_densification to map on a mesh")
     store = store.with_scratch(cur_rgb, cur_depth, cur_w2c, cur_frame_id)
     sel_ids, sel_valid = select_keyframes_overlap(
         store, cur_depth, cur_w2c, cam.fx, cam.fy, cam.cx, cam.cy, generator,
@@ -242,7 +265,7 @@ def mapping_phase(
         if cfg.use_gs_densification:
             loss, aux, grads, g_tap = loss_and_grads_with_tap(buf, cam_i, im, dep, cfg)
         else:
-            loss, aux, grads = loss_and_grads(buf, cam_i, im, dep, cfg)
+            loss, aux, grads = loss_and_grads(buf, cam_i, im, dep, cfg, mesh=mesh)
         buf, opt_state = _step(buf, opt_state, grads, aux, cfg)
         if cfg.use_gs_densification:
             seen = aux.radii > 0
@@ -301,6 +324,7 @@ def densify_phase(
     depth_gt: torch.Tensor,
     frame_id: float,
     cfg: MapperConfig,
+    mesh=None,
 ):
     """Silhouette/depth-error densification (add_new_gaussians semantics,
     splatam.py:332-379): pixels the map does not yet explain become new
@@ -308,7 +332,10 @@ def densify_phase(
     (cfg.densify_downscale_factor). The silhouette comes from an exact
     render (B3 over CSR runs, forward only): a k-truncated silhouette reads
     falsely low on dense tiles and re-adds present surfaces every map frame.
-    Returns (buf, num_dropped, num_inserted)."""
+    With `mesh` and k_per_tile > 0 the silhouette render shards its rows
+    over the mesh (parallel/sharded.render_sharded_tiled, the multi-pass
+    walk over ceil(N/k) windows, exact as well). Returns (buf,
+    num_dropped, num_inserted)."""
     f = max(int(cfg.densify_downscale_factor), 1)
     if f > 1:
         cam = cam.replace(
@@ -317,8 +344,16 @@ def densify_phase(
         )
         rgb = rgb[::f, ::f][: cam.height, : cam.width]
         depth_gt = depth_gt[::f, ::f][: cam.height, : cam.width]
-    out = render(buf, cam, chunk=cfg.chunk, k_per_tile=cfg.k_per_tile, exact=cfg.k_per_tile > 0)
-    sil, out_depth = out.alpha, out.depth
+    if mesh is not None and cfg.k_per_tile > 0:
+        from activesplat_tpu_torch.parallel.sharded import render_sharded_tiled
+
+        _, out_depth, sil, _, _ = render_sharded_tiled(buf, cam, mesh, k_per_tile=cfg.k_per_tile,
+                                                       exact=True)
+        out_depth, sil = out_depth.to(buf.device), sil.to(buf.device)
+    else:
+        out = render(buf, cam, chunk=cfg.chunk, k_per_tile=cfg.k_per_tile,
+                     exact=cfg.k_per_tile > 0)
+        sil, out_depth = out.alpha, out.depth
     depth_error = torch.abs(depth_gt - out_depth) * (depth_gt > 0)
     non_presence_depth = (
         (out_depth > depth_gt)

@@ -108,6 +108,17 @@ class GaussianBuffer:
             denom=torch.zeros((capacity,), **f32),
         )
 
+    def to(self, device) -> "GaussianBuffer":
+        """The buffer on `device`: itself where it lies there already, else
+        a copy."""
+        if torch.device(device) == self.device:
+            return self
+        return GaussianBuffer(
+            params=self.params.map(lambda x: x.to(device)),
+            **{f.name: getattr(self, f.name).to(device)
+               for f in dataclasses.fields(self) if f.name != "params"},
+        )
+
     def grown(self, new_capacity: int) -> "GaussianBuffer":
         """A copy with capacity extended to ``new_capacity``; the new slots
         are inactive, with normalizable quats and log scale -10."""

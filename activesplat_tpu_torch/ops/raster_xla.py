@@ -49,8 +49,13 @@ def rasterize_sorted(
     width: int,
     height: int,
     chunk: int = 128,
+    row_offset: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Front-to-back alpha compositing over pre-sorted Gaussians.
+
+    `row_offset` renders rows [row_offset, row_offset + height) of a larger
+    frame (the row-sharded render, parallel/sharded.py).
+
     Returns (accum (H*W, C), log_transmittance (H*W,))."""
     n = mean2d.shape[0]
     pad = -(-n // chunk) * chunk - n
@@ -62,7 +67,7 @@ def rasterize_sorted(
     dev, dtype = colors.device, colors.dtype
     idx = torch.arange(p, dtype=dtype, device=dev)
     px = idx % width
-    py = torch.floor(idx / width)
+    py = torch.floor(idx / width) + row_offset
 
     accum = torch.zeros((p, colors.shape[-1]), dtype=dtype, device=dev)
     log_t = torch.zeros((p,), dtype=dtype, device=dev)

@@ -9,7 +9,9 @@ volumes by DBSCAN and convex hulls, local queries propose a reorientation
 toward the largest invisible cluster.
 
 Every view is an exact forward render (the CSR walk, kernel B3), one view
-after another on the map's device. The score inputs are quantized on the
+after another on the map's device; with a mesh (parallel/sharded.py) the
+views split into contiguous blocks, one a device, each rendered against
+the buffer copied there. The score inputs are quantized on the
 device (depth to uint16 millimetres, alpha to uint8 / 255, rounded half to
 even, as the reference rounds) and cross to the host in one copy each. A
 node at the origin (position all zero) is skipped and scores (0, 0, 0); its
@@ -23,6 +25,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from activesplat_tpu_torch.device import current_device
 from activesplat_tpu_torch.models.gaussians import Camera, GaussianBuffer, make_camera
 from activesplat_tpu_torch.ops.render import render
 from activesplat_tpu_torch.queries.clusters import (
@@ -77,15 +80,34 @@ def _render_views(buf: GaussianBuffer, poses: np.ndarray, chunk: int, scale: flo
     return tuple(torch.stack([getattr(o, f) for o in outs]) for f in ("rgb", "depth", "alpha"))
 
 
-def _render_views_quantized(buf: GaussianBuffer, poses: np.ndarray, chunk: int, scale: float):
-    """_render_views with the score inputs quantized on the device: depth as
-    uint16 millimetres (the dataset-dump precision), alpha as uint8 / 255.
-    Hole scoring thresholds invisibility at 0.3 and 0.8, far above 1/255,
-    and the host copy shrinks 2.7x."""
+def _quantized(buf: GaussianBuffer, poses: np.ndarray, chunk: int, scale: float):
     _, depth, alpha = _render_views(buf, poses, chunk, scale)
     depth_mm = torch.clamp(torch.round(depth * 1000.0), 0, 65535).to(torch.uint16)
     alpha_u8 = torch.round(torch.clamp(alpha, 0.0, 1.0) * 255.0).to(torch.uint8)
     return depth_mm, alpha_u8
+
+
+def _render_views_quantized(buf: GaussianBuffer, poses: np.ndarray, chunk: int, scale: float,
+                            mesh=None):
+    """_render_views with the score inputs quantized on the device: depth as
+    uint16 millimetres (the dataset-dump precision), alpha as uint8 / 255.
+    Hole scoring thresholds invisibility at 0.3 and 0.8, far above 1/255,
+    and the host copy shrinks 2.7x.
+
+    `mesh` (parallel/sharded.RenderMesh) shards the views: contiguous
+    blocks, one a device (sizes differ by at most one view), each rendered
+    against the buffer copied to that device; the quantized outputs come
+    back to the map's device. A view renders alike on any device of a type,
+    so the outputs equal the unsharded ones."""
+    if mesh is None:
+        return _quantized(buf, poses, chunk, scale)
+    parts = []
+    for dev, block in zip(mesh.devices, np.array_split(poses, mesh.px)):
+        if len(block):
+            with current_device(dev):
+                parts.append(tuple(x.to(buf.device) for x in _quantized(
+                    buf.to(dev), block, chunk, scale)))
+    return tuple(torch.cat(p, 0) for p in zip(*parts))
 
 
 def render_panorama(
@@ -106,6 +128,7 @@ def global_invisibility(
     node_positions: np.ndarray,  # (N, 3) world positions (height from the view)
     chunk: int = 256,
     scale: float = 1.0,
+    mesh=None,
 ) -> List[Tuple[float, float, float]]:
     """Per-node (sum_invisibility, hole_volume, reach) scores
     (get_global_invisibility, splatam/__init__.py:697-759: the node's
@@ -116,7 +139,8 @@ def global_invisibility(
     `reach` is the radius within which a map change can move this node's
     score: the largest depth over pixels with alpha >= ALPHA_SOLID, or +inf
     when any pixel is still a hole (content appearing at any distance
-    through a hole can change the score)."""
+    through a hole can change the score). `mesh` shards the views over its
+    devices (_render_views_quantized)."""
     node_positions = np.asarray(node_positions, np.float64).reshape(-1, 3)
     n = len(node_positions)
     skip = np.all(node_positions == 0, axis=1)
@@ -130,7 +154,8 @@ def global_invisibility(
         c2w[2, 3] = node_positions[i, 2]  # the camera's height is kept (splatam/__init__.py:703-704)
         poses.append(pano_view_poses(c2w))
     width, height = pano_dims(scale)
-    depth_mm, alpha_u8 = _render_views_quantized(buf, np.concatenate(poses, 0), chunk, scale)
+    depth_mm, alpha_u8 = _render_views_quantized(buf, np.concatenate(poses, 0), chunk, scale,
+                                                 mesh)
     depth = fetch(depth_mm).reshape(-1, PANO_VIEWS, height, width).astype(np.float64) / 1000.0
     alpha = fetch(alpha_u8).reshape(-1, PANO_VIEWS, height, width).astype(np.float64) / 255.0
 
@@ -152,13 +177,15 @@ def local_invisibility(
     cluster_invisibility_threshold: float = 25.0,
     chunk: int = 256,
     scale: float = 1.0,
+    mesh=None,
 ) -> Tuple[float, Optional[np.ndarray], np.ndarray]:
     """Local refinement query: (sum_invisibility, best reorientation c2w or
     None, invisibility panorama). A reorientation toward the largest
     invisible cluster is proposed when its direction is > 15 degrees off
     centre (get_local_invisibility, splatam/__init__.py:761-838). Only the
-    alpha panorama crosses to the host."""
-    _, alpha_u8 = _render_views_quantized(buf, pano_view_poses(view_c2w), chunk, scale)
+    alpha panorama crosses to the host. `mesh` shards the three views over
+    its devices (_render_views_quantized)."""
+    _, alpha_u8 = _render_views_quantized(buf, pano_view_poses(view_c2w), chunk, scale, mesh)
     invis = 1.0 - np.concatenate(fetch(alpha_u8), axis=1) / 255.0
     sum_invis = float(np.sum(invis))
     best_pose = None

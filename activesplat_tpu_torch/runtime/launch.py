@@ -24,12 +24,16 @@ CLI flags the user passes beat the scene config's values, which beat the
 defaults. --mode replay drives a recorded actions.txt through the mapper
 with no planner; --mode manual maps while keys read from stdin drive the
 agent. --habitat_sim real needs the habitat-sim and habitat-lab wheels.
-Not ported yet: the multi-device mesh (--mesh, ROADMAP.md queue A item 12).
+--mesh 1 shards the mapper's renders over the visible devices of its type
+(MapperConfig.use_mesh, parallel/sharded.py); with fewer than two that
+split the height into whole 16 px tile rows, one card for example, the
+mapper says so and renders unsharded.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import itertools
 import os
 import sys
@@ -40,7 +44,6 @@ import numpy as np
 import torch
 
 from activesplat_tpu_torch.configs import (
-    MESH_NOT_PORTED,
     dataset_kwargs_from_scene,
     load_scene_config,
     load_user_config,
@@ -317,7 +320,8 @@ def main(argv=None):
         "mock simulator (runtime/mock_habitat.py), hermetic",
     )
     parser.add_argument("--mesh", type=int, default=None, choices=[0, 1],
-                        help="the multi-device mesh: not ported yet, refused")
+                        help="1: shard the mapper's renders over the visible devices "
+                        "(MapperConfig.use_mesh; needs >1 device and height %% (devices*16) == 0)")
     parser.add_argument("--seed", type=int, default=None)
     parser.add_argument("--step_num", type=int, default=None)
     parser.add_argument("--width", type=int, default=None)
@@ -336,8 +340,6 @@ def main(argv=None):
     parser.add_argument("--actions", default=None, help="actions.txt for replay mode")
     args = parser.parse_args(argv)
 
-    if args.mesh:
-        parser.exit(2, f"--mesh {args.mesh}: {MESH_NOT_PORTED}\n")
     if args.mode == "replay" and not args.actions:
         parser.error("--mode replay requires --actions")
 
@@ -361,8 +363,10 @@ def main(argv=None):
     )
     dataset = episode["dataset"]
     # without --config the entry points' own MapperConfig() applies
-    common = dict(mapper_cfg=episode["mapper_cfg"] if scene_cfg else None,
-                  pixel_max=episode["pixel_max"], device=args.device)
+    mapper_cfg = episode["mapper_cfg"] if scene_cfg else None
+    if args.mesh is not None:
+        mapper_cfg = dataclasses.replace(mapper_cfg or MapperConfig(), use_mesh=bool(args.mesh))
+    common = dict(mapper_cfg=mapper_cfg, pixel_max=episode["pixel_max"], device=args.device)
     start = time.perf_counter()
     if args.mode == "replay":
         mapper_node = run_replay(dataset, args.actions, args.results_dir, **common)

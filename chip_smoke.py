@@ -201,7 +201,35 @@ Phases, each fatal on failure:
      parity run, deterministic picks: every action and the Gaussian count
      equal, the area within 2%); one 512x512 frame of the native raycaster
      against the numpy one on the host (within 1e-4, both timed);
-  7. print the device line last.
+  7. the multi-device path (parallel/sharded.py) on a virtual mesh that
+     names the card MESH_SHARDS=4 times (torch.cuda.device_count() printed;
+     over several cards the sharded render is also held against the
+     unsharded one on the real devices, a branch that says so where it does
+     not run): the ms per mapping iteration on phase 3's map, unsharded
+     (mapping_iteration) and sharded (sharded_mapping_step), 20 iterations a
+     run in turns (unsharded, sharded, sharded, unsharded), timed in a child
+     process (chip_smoke.py --mesh-timing) that runs no profiler session;
+     then on phase 3's map at 256x256 (64 rows a shard): render_sharded_tiled
+     against render (B1 four times; `dropped` the sum of the shards' own),
+     sharded_mapping_loss's value and gradients against mapping_loss for
+     "off" (k=256: B1 and B2 four times), "on" (k=256: B3 and B4 four times)
+     and "hybrid" at k=64 (the mesh trains it as "on": B3 and B4 four times,
+     against the unsharded "on"); one mapping_phase event of 10 iterations
+     with mesh= against the unsharded event (the same store and draws; B1
+     and B2 40 times against 10): the first iteration's gradients and
+     metrics tight, every iteration's metrics within MESH_METRIC_RTOL; 10
+     sharded steps under torch.profiler (device busy time and idle share);
+     B1 and B2 on one shard's tile rows and B3 and B4 on its CSR stream,
+     each held against its twin with its two passes against their plain
+     versions and planted faults rejected, timed and bounded, each entry
+     counting this phase's sharded launches only (MESH_PHASES); the driver
+     (SplaTAMMapper, MapperConfig(), the bin kernel route on) over 10
+     frames with the mesh against the unsharded driver: the Gaussian count
+     equal, the last metrics within MESH_METRIC_RTOL; global_invisibility
+     and local_invisibility on phase 3c's query map with the views sharded,
+     equal to the unsharded queries bitwise. Every launch count asserted;
+     the tolerances are MESH_*'s;
+  8. print the device line last.
 
 It needs one CUDA card and exits non-zero without one, or without the rest of
 the repository beside it.
@@ -423,6 +451,42 @@ HABITAT_SMALL = dict(res=48, steps=18, turn=45.0, scene="Elmira")
 NATIVE_ATOL = 1e-4
 NATIVE_REPS = 5
 
+
+# phase 7, the multi-device path on a virtual mesh of the one card: the row
+# shards of parallel/sharded.py, MESH_SHARDS of them naming cuda:0, on phase
+# 3's map at RES x RES (64 rows a shard); one mapping event, the driver over
+# MESH_FRAMES frames, the panorama queries on phase 3c's query map; the ms
+# per iteration timed in a child process (MESH_TIMING_FLAG) that runs no
+# profiler session.
+MESH_SHARDS = 4
+MESH_EVENT_ITERS = 10
+MESH_TIMED_ITERS = 20
+MESH_PROFILED = 10
+MESH_FRAMES = 10
+MESH_KERNEL_SHARD = 1  # the shard whose tile rows and CSR stream B1-B4 are held on
+MESH_TIMING_FLAG = "--mesh-timing"
+MESH_TIMING_TIMEOUT = 300
+# Tolerances, sharded against unsharded on one card. A shard's means shift
+# by a whole number of tile rows, exactly in float32 and on the bins' 1/8 px
+# grid, so its tiles get the full frame's rows and their pixel offsets round
+# alike: the images agree to MESH_IMG_REL of each field's largest value
+# (bitwise, expected) and the loss to MESH_LOSS_RTOL. The gradient of a
+# Gaussian that spans two shards sums the shards' parts once more:
+# MESH_GRAD_REL of each field's largest. A mapping event's later iterations
+# and the driver's metrics part as FIT_RTOL says (Adam's eps of 1e-15 on
+# zero-gradient quaternions): MESH_METRIC_RTOL.
+MESH_IMG_REL = 1e-6
+MESH_LOSS_RTOL = 1e-6
+MESH_GRAD_REL = 1e-5
+MESH_METRIC_RTOL = FIT_RTOL
+# the phases of the sharded runs, whose launches phase 7's kernel entries
+# count, and those of the unsharded runs they are held against, which no
+# entry counts
+MESH_PHASES = ("mesh render", "mesh loss off", "mesh loss on", "mesh loss hybrid",
+               "mesh mapping_phase", "mesh profiled", "mesh driver", "mesh global_invisibility",
+               "mesh local_invisibility")
+MESH_REFERENCE_PHASES = tuple(p.replace("mesh ", "mesh reference ", 1) for p in MESH_PHASES
+                              if p != "mesh profiled")
 
 def nvidia_smi(query: str) -> str:
     out = subprocess.run(
@@ -3229,6 +3293,420 @@ def habitat_kernels(torch, np, rc, rt, card, hab, measure, bound, int_rate) -> N
               f"reached), max_abs_err {e['max_abs_err']:.3e} on {card}")
 
 
+def mesh_counts(rc, by_phase, phase, expect=None):
+    """Read and reset the launch counters into by_phase[phase]; with `expect`
+    ({kernel: launches}, every kernel it does not name 0) assert them."""
+    counts = {fn.__name__: fn.launches for fn in rc.KERNELS}
+    rc.reset_launch_counts()
+    by_phase[phase] = counts
+    if expect is not None:
+        want = {name: expect.get(name, 0) for name in counts}
+        if counts != want:
+            raise AssertionError(f"{phase}: kernel launches {counts}, not {want}")
+    return counts
+
+
+def rel_err(torch, got, want) -> float:
+    """The largest difference over the largest magnitude of `want`."""
+    return float((got - want).abs().max()) / (float(want.abs().max()) + 1e-30)
+
+
+def shard_inputs(torch, buf, cam, shard: int, rows: int):
+    """One shard's inputs to the tiled rasterizer, as render_sharded_tiled
+    hands them over: the projected arrays with the means shifted into the
+    shard's rows (no gradient)."""
+    from activesplat_tpu_torch.ops.projection import adaptive_cull_radius, project_gaussians
+
+    p = buf.params
+    with torch.no_grad():
+        proj = project_gaussians(p.means3d, p.quats, p.log_scales, buf.active, cam.w2c,
+                                 cam.fx, cam.fy, cam.cx, cam.cy, cam.width, cam.height)
+        opac = torch.sigmoid(p.logit_opacities)
+        radius, valid = adaptive_cull_radius(proj.radius, proj.valid, opac)
+        colors = torch.cat([p.rgb, proj.depth[:, None], (proj.depth ** 2)[:, None]], -1)
+        mean2d = proj.mean2d - proj.mean2d.new_tensor([0.0, float(shard * rows)])
+    return mean2d, proj.conic, opac, colors, valid, radius, proj.depth
+
+
+def mesh_timing(torch, np) -> int:
+    """The child process of phase 7 (b): ms per mapping iteration on phase
+    3's map, unsharded (mapping_iteration) and on the virtual mesh
+    (sharded_mapping_step), MESH_TIMED_ITERS chained iterations a run, in
+    turns (unsharded, sharded, sharded, unsharded) after one warm-up each,
+    in a process that runs no profiler session. Prints one JSON line."""
+    from activesplat_tpu_torch.mapper.adam import AdamState
+    from activesplat_tpu_torch.mapper.step import mapping_iteration
+    from activesplat_tpu_torch.ops import raster_cuda as rc
+    from activesplat_tpu_torch.parallel.sharded import make_render_mesh, sharded_mapping_step
+    from activesplat_tpu_torch.runtime.bench_scene import build_map
+
+    scene = build_map(N_GAUSSIANS, RES, k_per_tile=K_PER_TILE)
+    buf, cam, cfg = scene.buf, scene.cam, scene.cfg
+    rgb, depth = scene.frame(scene.c2w)
+    mesh = make_render_mesh([torch.device("cuda", 0)] * MESH_SHARDS)
+    steps = {"unsharded": lambda b, o: mapping_iteration(b, o, cam, rgb, depth, cfg),
+             "sharded": lambda b, o: sharded_mapping_step(b, o, cam, rgb, depth, cfg, mesh)}
+    per_iter = {"unsharded": 1, "sharded": MESH_SHARDS}
+
+    def run(name, iters):
+        b, opt = buf, AdamState.init(buf.params)
+        torch.cuda.synchronize()
+        rc.reset_launch_counts()
+        t0 = time.perf_counter()
+        acc = torch.zeros((), device="cuda")
+        for _ in range(iters):
+            b, opt, m = steps[name](b, opt)
+            acc = acc + m["loss"]
+        final = float(acc)  # synchronises
+        ms = (time.perf_counter() - t0) / iters * 1e3
+        counts = {fn.__name__: fn.launches for fn in rc.KERNELS}
+        want = iters * per_iter[name]
+        if not math.isfinite(final) or counts["blend_tiles_fwd"] != want or counts[
+                "blend_tiles_bwd"] != want:
+            raise AssertionError(f"mesh timing, {name}: loss {final}, launches {counts}")
+        return ms
+
+    for name in steps:
+        run(name, 1)
+    order = ("unsharded", "sharded", "sharded", "unsharded")
+    out = {name: [] for name in steps}
+    for name in order:
+        out[name].append(run(name, MESH_TIMED_ITERS))
+    print(json.dumps({"mesh_timing": out, "order": order, "iters": MESH_TIMED_ITERS}))
+    return 0
+
+
+def mesh_phase(torch, np, rc, rt, card, by_phase, measure, bound) -> None:
+    """Phase 7: the multi-device path on a virtual mesh of the card (see the
+    module docstring). The sharded runs' launches go into by_phase under
+    MESH_PHASES, the unsharded runs they are held against under
+    MESH_REFERENCE_PHASES; the kernel entries of this phase count
+    MESH_PHASES only."""
+    from activesplat_tpu_torch.mapper import step
+    from activesplat_tpu_torch.mapper.adam import AdamState
+    from activesplat_tpu_torch.mapper.config import MapperConfig
+    from activesplat_tpu_torch.mapper.keyframes import KeyframeStore
+    from activesplat_tpu_torch.mapper.splatam import SplaTAMMapper
+    from activesplat_tpu_torch.ops.raster_tiled import csr_rows, tile_rows
+    from activesplat_tpu_torch.ops.render import render
+    from activesplat_tpu_torch.parallel import sharded
+    from activesplat_tpu_torch.queries.panorama import global_invisibility, local_invisibility
+    from activesplat_tpu_torch.runtime.bench_scene import build_map
+    from activesplat_tpu_torch.runtime.synthetic import BoxWorld
+    from activesplat_tpu_torch.utils.transforms import rot_axis
+
+    t7 = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    mesh = sharded.make_render_mesh([torch.device("cuda", 0)] * MESH_SHARDS)
+    rows = RES // MESH_SHARDS
+    print(f"phase 7: torch.cuda.device_count() = {n_cards}; a virtual mesh of {mesh.px} shards "
+          f"on {mesh.devices[0]} ({rows} rows each at {RES}x{RES}) on {card}")
+    b1, b2, b3, b4 = (fn.__name__ for fn in rc.KERNELS[:4])
+
+    # (b, timing) ms per iteration in a child process that runs no profiler
+    # session, before anything else of this phase
+    t0 = time.perf_counter()
+    child = subprocess.run([sys.executable, str(Path(__file__).resolve()), MESH_TIMING_FLAG],
+                           capture_output=True, text=True, timeout=MESH_TIMING_TIMEOUT)
+    if child.returncode != 0:
+        raise AssertionError(f"mesh timing child failed ({child.returncode}):\n"
+                             f"{child.stdout[-2000:]}\n{child.stderr[-4000:]}")
+    timing = json.loads(child.stdout.strip().splitlines()[-1])["mesh_timing"]
+    un_ms, sh_ms = sum(timing["unsharded"]) / 2, sum(timing["sharded"]) / 2
+    print(f"mesh_ms_per_iter@{N_GAUSSIANS}g_{RES}px = {sh_ms:.3f} on a {MESH_SHARDS}-shard virtual "
+          f"mesh against {un_ms:.3f} unsharded ({sh_ms / un_ms:.3f}x; runs in turns: unsharded "
+          f"{timing['unsharded']}, sharded {timing['sharded']} ms/iter, {MESH_TIMED_ITERS} "
+          f"iterations each, a child process with no profiler session, "
+          f"{time.perf_counter() - t0:.1f} s with its set-up) on {card}")
+
+    scene = build_map(N_GAUSSIANS, RES, k_per_tile=K_PER_TILE)
+    buf, cam, cfg = scene.buf, scene.cam, scene.cfg
+    rgb0, depth0 = scene.frame(scene.c2w)
+
+    # (a) the sharded render against the unsharded one; `dropped` against
+    # the sum of the shards' own renders
+    shard_dropped = []
+    real_tiled = sharded.rasterize_tiled
+    sharded.rasterize_tiled = lambda *a, **kw: (lambda out: shard_dropped.append(int(out[2]))
+                                                or out)(real_tiled(*a, **kw))
+    try:
+        rc.reset_launch_counts()
+        with torch.no_grad():
+            got = sharded.render_sharded_tiled(buf, cam, mesh, k_per_tile=K_PER_TILE)
+        mesh_counts(rc, by_phase, "mesh render", {b1: MESH_SHARDS})
+    finally:
+        sharded.rasterize_tiled = real_tiled
+    with torch.no_grad():
+        ref = render(buf, cam, k_per_tile=K_PER_TILE)
+    mesh_counts(rc, by_phase, "mesh reference render", {b1: 1})
+    errs = {f: rel_err(torch, g, getattr(ref, f)) for f, g in zip(("rgb", "depth", "alpha"), got)}
+    if (max(errs.values()) > MESH_IMG_REL or len(shard_dropped) != MESH_SHARDS
+            or int(got[4]) != sum(shard_dropped) or not torch.equal(got[3], ref.radii)):
+        raise AssertionError(f"mesh render: errors {errs} of each field's largest, dropped "
+                             f"{int(got[4])} against the shards' {shard_dropped}")
+    print(f"mesh render (k={K_PER_TILE}): rgb, depth, alpha within {errs} of each field's largest "
+          f"value of the unsharded render; dropped {int(got[4])} = the shards' {shard_dropped} "
+          f"(unsharded {int(ref.dropped)}); B1 launched {MESH_SHARDS} times")
+    if n_cards > 1:
+        real = sharded.mesh_for_height(RES)
+        if real is not None:
+            with torch.no_grad():
+                got_r = sharded.render_sharded_tiled(buf, cam, real, k_per_tile=K_PER_TILE)
+            errs_r = {f: rel_err(torch, g.to(ref.rgb.device), getattr(ref, f))
+                      for f, g in zip(("rgb", "depth", "alpha"), got_r)}
+            rc.reset_launch_counts()
+            if max(errs_r.values()) > MESH_IMG_REL:
+                raise AssertionError(f"mesh render over {real.devices}: errors {errs_r}")
+            print(f"mesh render over the {real.px} real devices {real.devices}: within {errs_r}")
+    else:
+        print("mesh render over several real devices: not run (this machine has one card)")
+
+    # (a) the loss and its gradients against mapping_loss
+    for mode, k, ref_mode, expect in (
+            ("off", K_PER_TILE, "off", {b1: MESH_SHARDS, b2: MESH_SHARDS}),
+            ("on", K_PER_TILE, "on", {b3: MESH_SHARDS, b4: MESH_SHARDS}),
+            ("hybrid", HYBRID_K, "on", {b3: MESH_SHARDS, b4: MESH_SHARDS})):
+        cfg_m = dataclasses.replace(cfg, k_per_tile=k, exact_training=mode)
+        rc.reset_launch_counts()
+        loss_m, aux_m, g_m = step.loss_and_grads(buf, cam, rgb0, depth0, cfg_m, mesh=mesh)
+        mesh_counts(rc, by_phase, f"mesh loss {mode}", expect)
+        loss_s, aux_s, g_s = step.loss_and_grads(
+            buf, cam, rgb0, depth0, dataclasses.replace(cfg_m, exact_training=ref_mode))
+        mesh_counts(rc, by_phase, f"mesh reference loss {mode}")
+        g_err = max(rel_err(torch, a, b) for a, b in zip(g_m.tensors(), g_s.tensors()))
+        l_err = abs(float(loss_m) - float(loss_s)) / abs(float(loss_s))
+        if l_err > MESH_LOSS_RTOL or g_err > MESH_GRAD_REL or (
+                mode != "off" and int(aux_m.dropped) != 0):
+            raise AssertionError(f"mesh loss {mode} (k={k}): loss {float(loss_m)} against "
+                                 f"{float(loss_s)}, gradients {g_err:.3e} of scale, dropped "
+                                 f"{int(aux_m.dropped)}")
+        print(f"mesh loss exact_training={mode!r} (k={k}) against the unsharded {ref_mode!r}: "
+              f"loss {float(loss_m):.7f} ({l_err:.3e} relative), gradients within {g_err:.3e} "
+              f"of each field's largest, dropped {int(aux_m.dropped)} (unsharded "
+              f"{int(aux_s.dropped)}); launches {by_phase[f'mesh loss {mode}']}")
+
+    # (b) one mapping event of MESH_EVENT_ITERS iterations on the mesh
+    # against the unsharded one: the same map, keyframes and draws
+    store = KeyframeStore.empty(16, RES, RES)
+    views = []
+    for ev in range(3):
+        c2w = rot_axis(scene.c2w, "y", np.deg2rad(4.0 * ev))
+        c2w[:3, 3] += [0.05 * ev, 0.0, 0.0]
+        rgb, depth = scene.frame(c2w)
+        w2c = torch.from_numpy(np.linalg.inv(c2w).astype(np.float32)).cuda()
+        views.append((rgb, depth, w2c))
+    for ev, (rgb, depth, w2c) in enumerate(views[:2]):
+        store.committed(rgb, depth, w2c, ev)
+    real_lg = step.loss_and_grads
+    first_grads, events = {}, {}
+
+    def recording(*a, **kw):  # the first iteration's gradients of each event
+        out = real_lg(*a, **kw)
+        first_grads.setdefault(len(events), out[2])
+        return out
+
+    # both events write the same scratch frame into the same store and draw
+    # from a generator seeded alike, so they pick the same keyframes
+    for name, m in (("mesh", mesh), ("single", None)):
+        step.loss_and_grads = recording
+        try:
+            rc.reset_launch_counts()
+            gen = torch.Generator(device="cuda").manual_seed(7)
+            out = step.mapping_phase(buf, store, *views[2], 2, cam, gen, cfg, MESH_EVENT_ITERS,
+                                     mesh=m)
+            torch.cuda.synchronize()
+        finally:
+            step.loss_and_grads = real_lg
+        events[name] = out
+        per = MESH_SHARDS if m else 1
+        mesh_counts(rc, by_phase, "mesh mapping_phase" if m else "mesh reference mapping_phase",
+                    {b1: MESH_EVENT_ITERS * per, b2: MESH_EVENT_ITERS * per})
+    first_grads = [first_grads[0], first_grads[1]]
+    g_err = max(rel_err(torch, a, b) for a, b in zip(first_grads[0].tensors(),
+                                                      first_grads[1].tensors()))
+    (mbuf, _, mm), (sbuf, _, sm) = events["mesh"], events["single"]
+    names = ("loss", "psnr", "depth_l1", "rgb_l1", "ssim")
+    first = max(abs(float(mm[k][0]) - float(sm[k][0])) / abs(float(sm[k][0])) for k in names)
+    worst = max(float(((mm[k] - sm[k]).abs() / sm[k].abs()).max()) for k in names)
+    if g_err > MESH_GRAD_REL or first > MESH_LOSS_RTOL or worst > MESH_METRIC_RTOL:
+        raise AssertionError(f"mesh mapping_phase: first iteration's gradients {g_err:.3e} of "
+                             f"scale, its metrics {first:.3e}, the event's {worst:.3e}")
+    print(f"mesh mapping_phase ({MESH_EVENT_ITERS} iterations, window {int(mm['num_window'])}): "
+          f"the first iteration's gradients within {g_err:.3e} of each field's largest and its "
+          f"metrics within {first:.3e} relative of the unsharded event's; every iteration's "
+          f"metrics within {worst:.3e} (losses {float(mm['loss'][0]):.5f} -> "
+          f"{float(mm['loss'][-1]):.5f}, unsharded {float(sm['loss'][0]):.5f} -> "
+          f"{float(sm['loss'][-1]):.5f})")
+    del events, mbuf, sbuf, first_grads
+
+    # (b, profile) the sharded step under torch.profiler: device busy time
+    # and idle share; the phase's launches are read apart
+    state = [buf, AdamState.init(buf.params)]
+
+    def sharded_step():
+        state[0], state[1], _ = sharded.sharded_mapping_step(state[0], state[1], cam, rgb0, depth0,
+                                                             cfg, mesh)
+
+    rc.reset_launch_counts()
+    profile_calls(torch, sharded_step, MESH_PROFILED, sh_ms, card,
+                  f"sharded_mapping_step ({MESH_SHARDS}-shard virtual mesh)", ("device",))
+    mesh_counts(rc, by_phase, "mesh profiled", {b1: MESH_SHARDS * MESH_PROFILED,
+                                                b2: MESH_SHARDS * MESH_PROFILED})
+    del state
+
+    # (e) B1-B4 at one shard's shapes: its tile rows and its CSR stream
+    args = shard_inputs(torch, buf, cam, MESH_KERNEL_SHARD, rows)
+    with torch.no_grad():
+        s_rows, s_u0, s_v0, _ = tile_rows(*args, width=RES, height=rows, k_per_tile=K_PER_TILE)
+        data, seg_tile, seg_u0, seg_v0, dropped = csr_rows(*args, width=RES, height=rows)
+    if dropped:
+        raise AssertionError(f"mesh shard {MESH_KERNEL_SHARD}: the exact render passed the "
+                             f"entry budget by {dropped}")
+    s_rows = s_rows.contiguous()
+    where = f"shard {MESH_KERNEL_SHARD} of {MESH_SHARDS} ({rows}x{RES} px)"
+    stream_7 = f"{where} (phase 7)"
+    m_tile_rej, m_fwd_rej = dict.fromkeys(TILE_SPLIT_FAULTS, 0), dict.fromkeys(TILE_FWD_FAULTS, 0)
+    s_t, s_k, _ = s_rows.shape
+    s_errs, (s_entry, s_g_acc, s_g_lt) = kernel_checks(
+        torch, rc, s_rows, s_u0, s_v0, f"{where} tile rows T={s_t} K={s_k}", m_tile_rej, m_fwd_rej)
+    s_walked, s_live, s_live_wr = pair_counts(torch, rc, s_rows, s_u0, s_v0, s_entry)
+    seg_bytes = rc.SEG * rc.N_ATTR * 4
+    s_px_bytes = s_t * rc.PX * 4
+    s_walk_bytes = s_walked // (rc.SEG * rc.PX) * seg_bytes + 2 * s_t * 4
+    s_fwd = (s_rows, s_u0, s_v0, N_CHANNELS)
+    s_bwd = (s_rows, s_u0, s_v0, s_entry, s_g_acc, s_g_lt, N_CHANNELS)
+    s_pairs = {"walked": s_walked, "live": s_live, "live_warp_rows": s_live_wr,
+               "warp_rows": s_walked // 32}
+    entries = [
+        measure("blend_tiles_fwd", "activesplat_tpu_torch/csrc/blend_fwd.cu", FWD_REPLACES,
+                lambda: rc.blend_tiles_fwd(*s_fwd, with_entry=True),
+                lambda: rc.blend_tiles_fwd_plain(*s_fwd, with_entry=True), B1_PASSES,
+                bound(s_walk_bytes + s_px_bytes * (N_CHANNELS + 1 + s_k // rc.SEG), s_walked,
+                      s_live, live_f32_fwd(N_CHANNELS)),
+                s_errs["fwd"], stream=stream_7, phases=MESH_PHASES, tiles=s_t, k=s_k,
+                pairs=s_pairs, segments=dict(zip(("computed", "walked"), s_errs["segments"]),
+                                             all=s_t * (s_k // rc.SEG))),
+        measure("blend_tiles_bwd", "activesplat_tpu_torch/csrc/blend_bwd.cu", BWD_REPLACES,
+                lambda: rc.blend_tiles_bwd(*s_bwd), lambda: rc.blend_tiles_bwd_plain(*s_bwd),
+                B2_PASSES,
+                bound(s_walk_bytes + s_px_bytes * (s_k // rc.SEG + N_CHANNELS + 1)
+                      + s_t * s_k * rc.N_ATTR * 4, s_walked, s_live, live_f32_bwd(N_CHANNELS)),
+                s_errs["bwd"], stream=stream_7, phases=MESH_PHASES, tiles=s_t, k=s_k,
+                pairs=s_pairs)]
+    del s_fwd, s_bwd, s_entry, s_g_acc, s_g_lt, s_rows
+    stream = (data.contiguous(), seg_tile, seg_u0, seg_v0)
+    n_tiles = (RES // 16) * (rows // 16)
+    n_seg = seg_tile.shape[0]
+    m_csr_rej, m_b4_rej = dict.fromkeys(SPLIT_FAULTS, 0), dict.fromkeys(B4_SPLIT_FAULTS, 0)
+    c_errs, (c_entry, c_g_acc, c_g_lt) = csr_kernel_checks(
+        torch, rc, stream, n_tiles, f"{where} CSR stream, {n_seg} segments", m_csr_rej,
+        bwd_rejected=m_b4_rej)
+    c_seg, c_walked, c_live = csr_pair_counts(torch, rc, stream, c_entry, n_tiles)
+    visited = int(torch.unique(seg_tile[seg_tile < n_tiles]).numel())
+    c_seg_bytes = rc.CSEG * rc.N_ATTR * 4
+    stash_bytes = n_seg * rc.PX * 4
+    c_fwd = (*stream, n_tiles, N_CHANNELS)
+    c_bwd = (*stream, c_entry, c_g_acc, c_g_lt, n_tiles, N_CHANNELS)
+    entries += [
+        measure("blend_csr_fwd", "activesplat_tpu_torch/csrc/blend_csr_fwd.cu", CSR_FWD_REPLACES,
+                lambda: rc.blend_csr_fwd(*c_fwd, with_entry=True),
+                lambda: rc.blend_csr_fwd_plain(*c_fwd, with_entry=True), CSR_PASSES,
+                bound(c_seg * c_seg_bytes + 2 * n_tiles * 4 + stash_bytes
+                      + n_tiles * rc.PX * 4 * (N_CHANNELS + 1), c_walked, c_live,
+                      live_f32_fwd(N_CHANNELS)),
+                c_errs["fwd"], stream=stream_7, phases=MESH_PHASES,
+                segments={"walked": c_seg, "computed": c_errs["segments"][0], "all": n_seg}),
+        measure("blend_csr_bwd", "activesplat_tpu_torch/csrc/blend_csr_bwd.cu", CSR_BWD_REPLACES,
+                lambda: rc.blend_csr_bwd(*c_bwd), lambda: rc.blend_csr_bwd_plain(*c_bwd),
+                B4_PASSES,
+                bound(c_seg * c_seg_bytes + 2 * n_tiles * 4 + stash_bytes
+                      + visited * rc.PX * 4 * (N_CHANNELS + 1) + n_seg * c_seg_bytes,
+                      c_walked, c_live, live_f32_bwd(N_CHANNELS)),
+                c_errs["bwd"], stream=stream_7, phases=MESH_PHASES,
+                pairs={"walked": c_walked, "live": c_live})]
+    del c_fwd, c_bwd, c_entry, c_g_acc, c_g_lt, stream, data
+    print(f"planted faults rejected at {where}: B1's passes {m_fwd_rej}, B2's {m_tile_rej}, "
+          f"the CSR forward's {m_csr_rej}, B4's {m_b4_rej}")
+    for e in entries:
+        print(f"{e['name']} at {where}: kernel {e['ms']:.4f} ms {e.get('pass_ms', '')}, "
+              f"wrapper {e['wrapper_ms']:.4f} ms, twin {e['plain_ms']:.4f} ms, bound "
+              f"{e['bound_ms']:.4f} ms ({e['bound_by']}, {e['bound_ms'] / e['ms']:.3f} of it "
+              f"reached), max_abs_err {e['max_abs_err']:.3e} on {card}")
+    del scene, buf, rgb0, depth0, views, store, args
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # (c) the driver (MapperConfig(), the bin kernel route on) over
+    # MESH_FRAMES frames on the mesh and unsharded
+    world = BoxWorld.two_room(seed=0)
+    intr = driver_intrinsics(np, RES)
+    frames = driver_frames(np, world, intr, MESH_FRAMES)
+    drivers = {}
+    rt._BIN_KERNEL = True
+    try:
+        for name, m in (("mesh", mesh), ("single", None)):
+            mapper = SplaTAMMapper(MapperConfig(), RES, RES, intr, DRIVER_STEP_NUM, device="cuda",
+                                   mesh=m)
+            rc.reset_launch_counts()
+            t0 = time.perf_counter()
+            for batch in frames:
+                mapper.run(batch)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / len(frames) * 1e3
+            counts = mesh_counts(rc, by_phase, "mesh driver" if m else "mesh reference driver")
+            iters = mapper.mapping_iter_time_count
+            per = MESH_SHARDS if m else 1
+            if not (counts[b2] == per * iters > 0 and counts[b1] >= per * iters
+                    and counts["bin_slots"] >= per * iters and counts[b3] > 0):
+                raise AssertionError(f"mesh driver ({name}): launches {counts} for {iters} "
+                                     f"mapping iterations")
+            drivers[name] = (mapper, wall, counts)
+    finally:
+        rt._BIN_KERNEL = False
+    (a, a_ms, a_counts), (b, b_ms, _) = drivers["mesh"], drivers["single"]
+    worst = max(abs(a.last_metrics[k] - v) / (abs(v) + 1e-12) for k, v in b.last_metrics.items())
+    if (a.num_gaussians() != b.num_gaussians() or worst > MESH_METRIC_RTOL
+            or a._densify_mesh is None or a.mesh != mesh):
+        raise AssertionError(f"mesh driver: {a.num_gaussians()} Gaussians against "
+                             f"{b.num_gaussians()}, metrics {a.last_metrics} against "
+                             f"{b.last_metrics}")
+    print(f"mesh driver ({MESH_FRAMES} frames of two_room at {RES}x{RES}, MapperConfig(), bin "
+          f"kernel route on, {a.mapping_iter_time_count} mapping iterations): "
+          f"{a.num_gaussians()} Gaussians on both; last metrics within {worst:.3e} relative "
+          f"({a.last_metrics}); {a_ms:.3f} ms a frame on the mesh against {b_ms:.3f} unsharded; "
+          f"launches {a_counts} on {card}")
+    del drivers, a, b, mapper, frames
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # (d) the panorama queries on phase 3c's query map, views sharded
+    qbuf = build_map(QUERY_GAUSSIANS, RES).buf
+    view = query_pose(np, QUERY_VIEW)
+    nodes = np.array(QUERY_NODES)
+    rc.reset_launch_counts()
+    scores = global_invisibility(qbuf, view, nodes, scale=0.5, mesh=mesh)
+    mesh_counts(rc, by_phase, "mesh global_invisibility", {b3: 2 * 3})
+    single = global_invisibility(qbuf, view, nodes, scale=0.5)
+    mesh_counts(rc, by_phase, "mesh reference global_invisibility", {b3: 2 * 3})
+    loc = local_invisibility(qbuf, view, mesh=mesh)
+    mesh_counts(rc, by_phase, "mesh local_invisibility", {b3: 3})
+    loc_s = local_invisibility(qbuf, view)
+    mesh_counts(rc, by_phase, "mesh reference local_invisibility", {b3: 3})
+    if scores != single or loc[0] != loc_s[0] or not np.array_equal(loc[2], loc_s[2]) or (
+            (loc[1] is None) != (loc_s[1] is None)) or (
+            loc[1] is not None and not np.array_equal(loc[1], loc_s[1])):
+        raise AssertionError(f"mesh panoramas differ from the unsharded: {scores} against "
+                             f"{single}, local sums {loc[0]} and {loc_s[0]}")
+    print(f"mesh panoramas ({QUERY_GAUSSIANS} Gaussians; 6 views over {MESH_SHARDS} shards, then "
+          f"3): global_invisibility {scores} and local_invisibility (sum {loc[0]:.3f}) equal to "
+          f"the unsharded queries bitwise")
+    del qbuf
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print(f"phase 7 (the multi-device path on a virtual mesh) took "
+          f"{time.perf_counter() - t7:.1f} s")
+
+
 def driver_intrinsics(np, res: int):
     """The episode's sensor (RGBDSensor.from_fov): 90 degrees hfov, square
     pixels, cx = W/2 - 1."""
@@ -3288,6 +3766,9 @@ def main() -> int:
         return 2
     import numpy as np
 
+    if sys.argv[1:] == [MESH_TIMING_FLAG]:  # phase 7's child process
+        _build.build()
+        return mesh_timing(torch, np)
     t_start = time.perf_counter()
     # ---- phase 1: build, card ------------------------------------------ #
     card = nvidia_smi("name,power.limit")
@@ -4064,6 +4545,11 @@ def main() -> int:
     print(f"phase 6 (the Habitat path at {HABITAT_RES}x{HABITAT_RES}) took "
           f"{time.perf_counter() - t6:.1f} s")
 
+    # ---- phase 7: the multi-device path on a virtual mesh ----------------- #
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    mesh_phase(torch, np, rc, rt, card, by_phase, measure, bound)
+
     kernels = []
     for entry_k in measured:
         name = entry_k["name"]
@@ -4071,7 +4557,8 @@ def main() -> int:
         split = "stream" in entry_k and name == "blend_csr_fwd"
         kind = entry_k.get("stream", "").split()[0] if split else None
         phases = {phase: c[name] for phase, c in by_phase.items() if c[name] and (
-            phase in entry_k["phases"] if "phases" in entry_k else phase not in HABITAT_PHASES and (
+            phase in entry_k["phases"] if "phases" in entry_k else phase not in (
+                HABITAT_PHASES + MESH_PHASES + MESH_REFERENCE_PHASES) and (
                 not split or {"panorama": phase in PANORAMA_PHASES,
                               "eval": phase in EVAL_PHASES}.get(
                     kind, phase not in PANORAMA_PHASES + EVAL_PHASES)))}

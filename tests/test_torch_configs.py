@@ -110,8 +110,14 @@ def test_scene_config_by_path_lists_and_user_config(tmp_path):
 
 
 def test_mapper_config_overrides_and_mesh_refused():
+    """Overrides beat the config; a config's use_mesh is taken, equal to the
+    JAX package's MapperConfig field by field."""
     cfg = tconfigs.load_scene_config("gibson_high_resolution")
     assert tconfigs.mapper_config_from_scene(cfg).mapping_iters == 10
     assert tconfigs.mapper_config_from_scene(cfg, mapping_iters=3).mapping_iters == 3
-    with pytest.raises(NotImplementedError, match="queue A, item 12"):
-        tconfigs.mapper_config_from_scene({"mapper": {"use_mesh": True}})
+    meshed = dict(cfg, mapper=dict(cfg["mapper"], use_mesh=True))
+    for scene in ({"mapper": {"use_mesh": True}}, meshed):
+        got = tconfigs.mapper_config_from_scene(scene)
+        want = jconfigs.mapper_config_from_scene(scene)
+        assert got.use_mesh is want.use_mesh is True
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)

@@ -155,7 +155,7 @@ def test_cli_consumes_config(monkeypatch, tmp_path, capsys):
     --habitat_sim mock runs the adapter with the recorder and the live view
     on (a 48x48 env yaml with 45 degree turns, 18 steps: the spin, then the
     top-down queries of a target; the config's mapper at a smaller
-    capacity); --mesh is refused."""
+    capacity); --mesh 1 runs, unsharded on the CPU's one device."""
     captured = {}
 
     def fake_run_episode(dataset, results_dir, mapper_cfg=None, pixel_max=360, **kw):
@@ -208,10 +208,13 @@ def test_cli_consumes_config(monkeypatch, tmp_path, capsys):
     assert os.listdir(out / "topdown_map")
     assert os.path.isdir(out / "opacity") and os.path.isdir(out / "current_vis_data")
     assert read_png(str(out / "topdown_map" / "free_00000.png")).shape[0] > 0
-    with pytest.raises(SystemExit) as exc:
-        launch.main(["--mesh", "1", "--results_dir", str(tmp_path / "m")])
-    assert exc.value.code == 2
-    assert "queue A, item 12" in capsys.readouterr().err
+    # --mesh 1 on the CPU: one device, so the mapper says it renders unsharded
+    launch.main(["--config", str(cfg_path), "--habitat_sim", "mock", "--step_num", "4",
+                 "--mesh", "1", "--device", "cpu", "--results_dir", str(tmp_path / "m")])
+    text = capsys.readouterr().out
+    assert "episode finished: 4 steps" in text
+    assert "mapper: use_mesh is set but fewer than two cpu devices" in text
+    assert "rendering unsharded" in text
 
 
 # ---------------------------------------------------------------------- #

@@ -223,8 +223,8 @@ def test_manual_control_mode(tmp_path):
 def test_launch_cli_replay_and_refusals(recorded, tmp_path, monkeypatch, capsys):
     """The launcher's CLI (runtime/launch.py main) with --mode replay
     replays a recorded actions.txt on the CPU, its mapper config made small
-    for the test; the options not ported yet are refused with the queue's
-    item."""
+    for the test; replay without its actions is refused, and --mesh 1 is
+    taken (the mapper renders unsharded on the CPU's one device)."""
     results_dir, _ = recorded
     monkeypatch.setattr(launch, "MapperConfig", lambda: SMALL_CFG)
     out = str(tmp_path / "cli")
@@ -235,11 +235,15 @@ def test_launch_cli_replay_and_refusals(recorded, tmp_path, monkeypatch, capsys)
     assert "replay finished: 4 steps" in capsys.readouterr().out
     assert os.path.exists(os.path.join(out, "gaussians_data", "params.npz"))
     assert not os.path.exists(os.path.join(out, "actions.txt"))  # read, not written
-    # the options still refused: replay without its actions, and the
-    # multi-device mesh (the Habitat options are ported:
-    # tests/test_torch_habitat_episode.py)
-    for extra in (["--mode", "replay"], ["--mesh", "1"]):
-        with pytest.raises(SystemExit) as exc:
-            launch.main(base + extra)
-        assert exc.value.code == 2, extra
-    assert "queue A, item 12" in capsys.readouterr().err
+    # the option still refused: replay without its actions
+    with pytest.raises(SystemExit) as exc:
+        launch.main(base + ["--mode", "replay"])
+    assert exc.value.code == 2
+    assert "--mode replay requires --actions" in capsys.readouterr().err
+    # the multi-device mesh is taken
+    launch.main(["--results_dir", str(tmp_path / "mesh"), "--device", "cpu", "--mesh", "1",
+                 "--mode", "replay", "--actions", os.path.join(results_dir, "actions.txt"),
+                 "--scene_id", "single_room", "--step_num", "4", "--width", "32", "--height",
+                 "32", "--pixel_max", "40"])
+    text = capsys.readouterr().out
+    assert "rendering unsharded" in text and "replay finished: 4 steps" in text
