@@ -411,7 +411,8 @@ class SplaTAMMapper:
             or (frame_id + 1) % self.kf_every == 0
             or frame_id == self.step_num - 2
         ) and np.isfinite(w2c).all():
-            self.store.committed(rgb_j, depth_j, w2c_t, frame_id)
+            with stage("mapper/kf_commit"):
+                self.store.committed(rgb_j, depth_j, w2c_t, frame_id)
             self.keyframe_time_indices.append(frame_id)
 
         if self.save_checkpoints and self.results_dir and frame_id % self.checkpoint_interval == 0:
@@ -420,7 +421,8 @@ class SplaTAMMapper:
 
         if self.buf is not buf_before:
             self.map_version += 1
-            self._log_change(depth, c2w)
+            with stage("mapper/change_log"):
+                self._log_change(depth, c2w)
         shape = {
             "capacity": int(self.buf.capacity),
             "k_per_tile": int(self.cfg.k_per_tile),

@@ -32,6 +32,7 @@ from activesplat_tpu_torch.models.gaussians import (
 from activesplat_tpu_torch.ops.projection import project_gaussians
 from activesplat_tpu_torch.ops.render import render, render_projected
 from activesplat_tpu_torch.ops.ssim import psnr, ssim
+from activesplat_tpu_torch.utils.tracing import stage
 
 
 class LossAux(NamedTuple):
@@ -68,6 +69,7 @@ def mapping_loss(
                             depth_gt, cfg)
 
 
+@stage("mapper/loss")
 def loss_from_render(rgb, depth, alpha, radii, dropped, im_gt, depth_gt, cfg: MapperConfig):
     """The mapping loss of one rendered frame and its LossAux (shared by
     mapping_loss and the mesh's parallel/sharded.sharded_mapping_loss)."""
@@ -155,7 +157,8 @@ def loss_and_grads(buf: GaussianBuffer, cam, im_gt, depth_gt, cfg, mesh=None):
 
         loss, aux = sharded_mapping_loss(params, buf, cam, im_gt, depth_gt, cfg, mesh)
         aux = LossAux(*(x.to(buf.device) for x in aux))
-    grads = torch.autograd.grad(loss, params.tensors())
+    with stage("mapper/grad"):
+        grads = torch.autograd.grad(loss, params.tensors())
     return loss.detach().to(buf.device), aux, GaussianParams(*grads)
 
 
@@ -168,6 +171,7 @@ def loss_and_grads_with_tap(buf: GaussianBuffer, cam, im_gt, depth_gt, cfg):
     return loss.detach(), aux, GaussianParams(*grads), g_tap
 
 
+@stage("mapper/adam")
 def _step(buf, opt_state, grads, aux, cfg) -> Tuple[GaussianBuffer, AdamState]:
     new_params, opt_state = adam_update(
         buf.params, grads, opt_state, lr_params(cfg),
@@ -243,17 +247,18 @@ def mapping_phase(
     if mesh is not None and cfg.use_gs_densification:
         raise ValueError("the gradient-densification tap is single-device only; disable "
                          "use_gs_densification to map on a mesh")
-    store = store.with_scratch(cur_rgb, cur_depth, cur_w2c, cur_frame_id)
-    sel_ids, sel_valid = select_keyframes_overlap(
-        store, cur_depth, cur_w2c, cam.fx, cam.fy, cam.cx, cam.cy, generator,
-        num_select=cfg.mapping_window_size - 2,
-        pixels=cfg.kf_select_pixels,
-        edge=cfg.kf_select_edge,
-    )
-    window, n_valid = _build_window(store, sel_ids, sel_valid)
-    # one uniform draw per iteration, made up front on the device
-    draws = torch.rand(num_iters, generator=generator, device=window.device)
-    picks = window[(draws * n_valid.clamp(min=1)).long().clamp(max=window.shape[0] - 1)]
+    with stage("mapper/kf_window"):
+        store = store.with_scratch(cur_rgb, cur_depth, cur_w2c, cur_frame_id)
+        sel_ids, sel_valid = select_keyframes_overlap(
+            store, cur_depth, cur_w2c, cam.fx, cam.fy, cam.cx, cam.cy, generator,
+            num_select=cfg.mapping_window_size - 2,
+            pixels=cfg.kf_select_pixels,
+            edge=cfg.kf_select_edge,
+        )
+        window, n_valid = _build_window(store, sel_ids, sel_valid)
+        # one uniform draw per iteration, made up front on the device
+        draws = torch.rand(num_iters, generator=generator, device=window.device)
+        picks = window[(draws * n_valid.clamp(min=1)).long().clamp(max=window.shape[0] - 1)]
 
     opt_state = AdamState.init(buf.params)  # fresh per event (splatam/__init__.py:440)
     rows = []
@@ -438,6 +443,7 @@ def _reset_opacities(buf: GaussianBuffer) -> GaussianBuffer:
     )
 
 
+@stage("mapper/prune")
 def prune_phase(
     buf: GaussianBuffer,
     cfg: MapperConfig,

@@ -59,7 +59,8 @@ from activesplat_tpu_torch.ops.raster_cuda import (
     blend_tiles,
 )
 from activesplat_tpu_torch.ops.raster_xla import ALPHA_MAX, ALPHA_MIN
-from activesplat_tpu_torch.utils.tracing import host_value
+from activesplat_tpu_torch.utils import tracing
+from activesplat_tpu_torch.utils.tracing import host_value, stage
 
 # The bin kernel route (B6): read once at import, as the reference reads it
 # (raster_tiled.py:41-47); bin_gaussians(use_kernel=...) overrides it per
@@ -211,6 +212,7 @@ def _sort_pack(data: torch.Tensor, key: torch.Tensor, radius: torch.Tensor, vali
     return torch.stack([s_mx, s_my, s_rad, s_val], -1), order
 
 
+@stage("render/prepare")
 def _prepare(mean2d, conic, opacity, colors, valid, radius, depth):
     """The attribute table (N, 6 + C), the packed depth sort and the visible
     count b: visible Gaussians form a prefix of the sorted order (one host
@@ -239,26 +241,72 @@ def _pad_table(data):
     return torch.cat([data, pad_row], 0)  # (N+1, 6+C)
 
 
+class _GatherRows(torch.autograd.Function):
+    """table[ids] for an (N+1)-row table whose row N pads the lists. The
+    backward is autograd's own index backward, the sorted scatter-add into
+    zeros of the table's shape (the same call, so the same kernels and
+    bits: `_index_put_impl_` with unsafe=True, which skips the range check
+    that `index_put_` makes by reading the ids' min and max on the host),
+    inside a render/gather_bwd stage. While the span log records, the
+    backward attaches to that span the gathered rows, the rows equal to N
+    (a device reduction, read with the log), the table's rows, its live
+    columns and the device time between two CUDA events at its ends."""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.table_shape = table.shape
+        return table[ids]
+
+    @staticmethod
+    def backward(ctx, grad):
+        (ids,) = ctx.saved_tensors
+        n_rows, width = ctx.table_shape
+        with stage("render/gather_bwd"):
+            logged = tracing.recording()
+            if logged and grad.is_cuda:
+                events = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+                events[0].record()
+            table_grad = torch.ops.aten._index_put_impl_(
+                grad.new_zeros(ctx.table_shape), [ids], grad, True, True
+            )
+            if logged:
+                if grad.is_cuda:
+                    events[1].record()
+                    tracing.attach(device_us=events)
+                tracing.attach(rows=ids.numel(), pad_rows=(ids == n_rows - 1).sum(),
+                               table_rows=n_rows, width=width)
+        return table_grad, None
+
+
+def _gather_rows(data, ids):
+    """The rows `ids` of `data` with its padding row appended (id N), in
+    the kernels' 16 columns: a narrow gather of the live columns (its
+    backward scatter-add then moves only those), padded after."""
+    with stage("render/gather"):
+        return F.pad(_GatherRows.apply(_pad_table(data), ids), (0, N_ATTR - data.shape[1]))
+
+
 def _window_rows(packed, order, data, *, width, height, k_per_tile, slot_offset=0):
     """Bin and gather one k-window of every tile's list: (tile_data (T, K',
     16) with K' = k rounded up to a SEG multiple, tile_u0, tile_v0 (T,) int32,
     overflow (T,)). `packed` is the visible prefix of the sorted order."""
     n = data.shape[0]
     b = packed.shape[0]
-    lists = bin_gaussians(
-        packed[:, :2], packed[:, 2], packed[:, 3] > 0, width, height, k_per_tile, slot_offset
-    )
-    # sorted-order list entries -> original Gaussian ids; bin padding (b)
-    # becomes the blend padding row (n)
-    global_ids = torch.where(
-        lists.indices >= b, n, order[torch.clamp(lists.indices, max=n - 1)]
-    )
-    # the blend walks SEG-row segments: pad each list with padding rows
-    if k_per_tile % SEG:
-        global_ids = F.pad(global_ids, (0, SEG - k_per_tile % SEG), value=n)
-    # gather only live columns (the backward's scatter-add then moves only
-    # those), pad to the kernel's 16 columns after
-    tile_data = F.pad(_pad_table(data)[global_ids], (0, N_ATTR - data.shape[1]))
+    with stage("render/bin"):
+        lists = bin_gaussians(
+            packed[:, :2], packed[:, 2], packed[:, 3] > 0, width, height, k_per_tile, slot_offset
+        )
+        # sorted-order list entries -> original Gaussian ids; bin padding (b)
+        # becomes the blend padding row (n)
+        global_ids = torch.where(
+            lists.indices >= b, n, order[torch.clamp(lists.indices, max=n - 1)]
+        )
+        # the blend walks SEG-row segments: pad each list with padding rows
+        if k_per_tile % SEG:
+            global_ids = F.pad(global_ids, (0, SEG - k_per_tile % SEG), value=n)
+    tile_data = _gather_rows(data, global_ids)
 
     tiles_x = -(-width // TILE)
     tile_ids = torch.arange(global_ids.shape[0], dtype=torch.int32, device=data.device)
@@ -315,7 +363,8 @@ def _capped_tiles(data, packed, order, b, *, width, height, k_per_tile, max_pass
             packed[:b], order, data, width=width, height=height, k_per_tile=k,
             slot_offset=slot_offset,
         )
-        return (*blend(rows, u0, v0, data.shape[1] - 6), overflow)
+        with stage("render/blend"):
+            return (*blend(rows, u0, v0, data.shape[1] - 6), overflow)
 
     accum_t, logt_t, overflow = blend_pass(0)
     # Exact compositing: walk farther k-windows until every overflowing tile
@@ -392,6 +441,7 @@ class CSRLayout(NamedTuple):
     dropped: int  # memberships past the entry budget
 
 
+@stage("render/csr_layout")
 def _csr_layout(packed, order, n, tiles_x, tiles_y, harm=None) -> CSRLayout:
     """Every (Gaussian, tile) membership of the visible prefix `packed`, as
     CSR runs: each tile's members in depth order, padded with padding rows
@@ -456,20 +506,17 @@ def _csr_layout(packed, order, n, tiles_x, tiles_y, harm=None) -> CSRLayout:
 
 
 def _entry_rows(layout: CSRLayout, data):
-    """The (E, 16) entry rows of a layout. A narrow gather: its backward
-    scatter-add moves only the 6 + C live columns; padded to the kernel's 16
-    after."""
-    return F.pad(_pad_table(data)[layout.global_ids], (0, N_ATTR - data.shape[1]))
+    """The (E, 16) entry rows of a layout (_gather_rows)."""
+    return _gather_rows(data, layout.global_ids)
 
 
 def _csr_blend(layout: CSRLayout, data, t):
     """Gather the entry rows and blend them: (accum_t (T, PX, C), logt_t
     (T, PX)), zeros in tiles with no entry. Differentiable in `data` when it
     requires a gradient (B3 with the stash, B4 in the backward)."""
-    return blend_csr(
-        _entry_rows(layout, data), layout.seg_tile, layout.seg_u0, layout.seg_v0, t,
-        data.shape[1] - 6,
-    )
+    rows = _entry_rows(layout, data)
+    with stage("render/csr_blend"):
+        return blend_csr(rows, layout.seg_tile, layout.seg_u0, layout.seg_v0, t, data.shape[1] - 6)
 
 
 def csr_rows(mean2d, conic, opacity, colors, valid, radius, depth, *, width: int, height: int):
@@ -530,10 +577,11 @@ def rasterize_tiled_exact(
     data = torch.cat(
         [data, data.new_zeros((n, BAND_COL - data.shape[1])), band.to(data.dtype)[:, None]], -1
     )  # colours at 6:6+C, the band bit at BAND_COL
-    accum_t, logt_t, logt_band_t = blend_csr_dual_fwd(
-        _entry_rows(layout, data), layout.seg_tile, layout.seg_u0, layout.seg_v0,
-        tiles_x * tiles_y, c_dim,
-    )
+    rows = _entry_rows(layout, data)
+    with stage("render/csr_blend"):
+        accum_t, logt_t, logt_band_t = blend_csr_dual_fwd(
+            rows, layout.seg_tile, layout.seg_u0, layout.seg_v0, tiles_x * tiles_y, c_dim
+        )
     accum, logt = _to_images(accum_t, logt_t, width, height)
     return accum, logt, _to_images(accum_t, logt_band_t, width, height)[1], layout.dropped
 
@@ -564,8 +612,9 @@ def rasterize_tiled_hybrid(
     passed the entry budget: the result is then the k-capped render (the
     reference's fallback, taken here without a second render, since the
     capped pass is the same computation). One sort serves both halves; no
-    CSR launch when no tile is harmful. The running totals `.calls` and
-    `.harmful_tiles` on this function count calls and harmful tiles.
+    CSR launch when no tile is harmful. The running totals
+    `tracing.counter("hybrid.calls")` and `tracing.counter(
+    "hybrid.harmful_tiles")` count calls and harmful tiles.
     xla_blend=True blends the capped half in blend_tiles_xla, as the
     reference's hybrid does with its XLA backend; the CSR half is B3/B4
     either way."""
@@ -576,11 +625,12 @@ def rasterize_tiled_hybrid(
         data, packed, order, b, width=width, height=height, k_per_tile=k_per_tile,
         xla_blend=xla_blend,
     )
-    dropped = _harmful(logt_t, overflow)
-    harm = (overflow > 0) & (logt_t.detach().amax(dim=1) > LOG_EPS)
-    n_harm = host_value(harm.sum())
-    rasterize_tiled_hybrid.calls += 1
-    rasterize_tiled_hybrid.harmful_tiles += n_harm
+    with stage("render/harmful"):
+        dropped = _harmful(logt_t, overflow)
+        harm = (overflow > 0) & (logt_t.detach().amax(dim=1) > LOG_EPS)
+        n_harm = host_value(harm.sum())
+        tracing.count("hybrid.calls")
+        tracing.count("hybrid.harmful_tiles", n_harm)
     csr_overflow = 0
     if n_harm:
         layout = _csr_layout(packed[:b], order, data.shape[0], tiles_x, tiles_y, harm)
@@ -590,10 +640,6 @@ def rasterize_tiled_hybrid(
             accum_t = torch.where(harm[:, None, None], csr_accum, accum_t)
             logt_t = torch.where(harm[:, None], csr_logt, logt_t)
     return (*_to_images(accum_t, logt_t, width, height), dropped, csr_overflow)
-
-
-rasterize_tiled_hybrid.calls = 0
-rasterize_tiled_hybrid.harmful_tiles = 0
 
 
 def _tiles_to_image(accum_t, logt_t, tiles_x, tiles_y, width, height):

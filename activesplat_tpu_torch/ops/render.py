@@ -35,6 +35,7 @@ from activesplat_tpu_torch.ops.raster_tiled import (
     rasterize_tiled_hybrid,
 )
 from activesplat_tpu_torch.ops.raster_xla import depth_sort, rasterize_sorted
+from activesplat_tpu_torch.utils.tracing import stage
 
 
 class RenderOutput(NamedTuple):
@@ -151,11 +152,12 @@ def render(
     `active_override` renders a subset without reshaping buffers."""
     params = buf.params
     active = buf.active if active_override is None else (buf.active & active_override)
-    proj = project_gaussians(
-        params.means3d, params.quats, params.log_scales, active,
-        cam.w2c, cam.fx, cam.fy, cam.cx, cam.cy, cam.width, cam.height,
-        near=cam.near, far=cam.far, scale_modifier=scale_modifier,
-    )
+    with stage("render/project"):
+        proj = project_gaussians(
+            params.means3d, params.quats, params.log_scales, active,
+            cam.w2c, cam.fx, cam.fy, cam.cx, cam.cy, cam.width, cam.height,
+            near=cam.near, far=cam.far, scale_modifier=scale_modifier,
+        )
     return render_projected(
         proj, params.rgb, torch.sigmoid(params.logit_opacities), cam, bg=bg,
         chunk=chunk, k_per_tile=k_per_tile, exact=exact, grad_exact=grad_exact,

@@ -40,7 +40,7 @@ from activesplat_tpu_torch.queries.topdown import (
 from activesplat_tpu_torch.runtime.bus import Bus
 from activesplat_tpu_torch.runtime.dataloader import SyntheticDataset, twist_to_action
 from activesplat_tpu_torch.utils import GlobalState, PoseDataType, convert_to_c2w_opencv
-from activesplat_tpu_torch.utils.tracing import stage
+from activesplat_tpu_torch.utils.tracing import set_action, stage
 
 
 class MapperNode:
@@ -182,6 +182,7 @@ class MapperNode:
             return  # zero twist: no step (dataloader.py:242-263 semantics)
         with stage("simulator"):
             moved = self.dataset.apply_movement(twist)
+            set_action(self.dataset.get_step_info()[0])
             frame = self.dataset.get_frame()
         if not moved:
             self.movement_fail_times += 1

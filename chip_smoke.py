@@ -3865,9 +3865,9 @@ def main() -> int:
         mapping_phase,
     )
     from activesplat_tpu_torch.models.gaussians import GaussianBuffer
-    from activesplat_tpu_torch.ops.raster_tiled import rasterize_tiled_hybrid
     from activesplat_tpu_torch.ops.render import render
     from activesplat_tpu_torch.runtime.bench_scene import build_map
+    from activesplat_tpu_torch.utils import tracing
     from activesplat_tpu_torch.utils.transforms import rot_axis
 
     scene = build_map(N_GAUSSIANS, RES, k_per_tile=K_PER_TILE)
@@ -3901,7 +3901,6 @@ def main() -> int:
 
     store = KeyframeStore.empty(16, RES, RES)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    hybrid = rasterize_tiled_hybrid  # its .calls and .harmful_tiles count
 
     def event(ev, cfg_e, phase, capped=0, csr=0):
         """One mapping_phase event of EVENT_ITERS iterations on a view
@@ -3997,18 +3996,22 @@ def main() -> int:
     # fallback to the capped render), so B3 = B4 = 10 shows none fired
     cfg_h = dataclasses.replace(cfg, exact_training="hybrid", k_per_tile=HYBRID_K)
 
+    def hybrid_counts():
+        return tracing.counter("hybrid.calls"), tracing.counter("hybrid.harmful_tiles")
+
     def harmful_since(phase, calls, harmful):
-        per_iter = (hybrid.harmful_tiles - harmful) / (hybrid.calls - calls)
+        calls_now, harmful_now = hybrid_counts()
+        per_iter = (harmful_now - harmful) / (calls_now - calls)
         print(f"{phase}: {per_iter:.1f} harmful tiles per iteration, of {(RES // 16) ** 2}")
         if per_iter <= 0:
             raise AssertionError(f"{phase}: no harmful tile at k={HYBRID_K}")
 
     phase = "mapping_phase exact_training=hybrid"
-    calls, harmful = hybrid.calls, hybrid.harmful_tiles
+    calls, harmful = hybrid_counts()
     event(EVENTS + 1, cfg_h, phase, capped=EVENT_ITERS, csr=EVENT_ITERS)
     harmful_since(phase, calls, harmful)
     phase = "timed exact_training=hybrid"
-    calls, harmful = hybrid.calls, hybrid.harmful_tiles
+    calls, harmful = hybrid_counts()
     its_h, m = timed(cfg_h, EXACT_TIMED_ITERS, phase, capped=EXACT_TIMED_ITERS, csr=EXACT_TIMED_ITERS)
     harmful_since(phase, calls, harmful)
     print(f"mapping_iters_per_sec_hybrid_k{HYBRID_K}@{N_GAUSSIANS}g_{RES}px = {its_h:.3f} "

@@ -29,6 +29,7 @@ from activesplat_tpu_torch.models.gaussians import make_camera
 from activesplat_tpu_torch.ops import raster_cuda as rc
 from activesplat_tpu_torch.ops import raster_tiled as ttiled
 from activesplat_tpu_torch.ops import render as trender
+from activesplat_tpu_torch.utils import tracing
 from tests.test_torch_raster import INTR, H, W, scene_buffers, t, tiled_inputs
 
 NAMES = ("mean2d", "conic", "opacity", "colors")
@@ -149,13 +150,13 @@ def test_hybrid_matches_jax(k):
         ),
         d, w_img, w_lt,
     )
-    calls, harmful = ttiled.rasterize_tiled_hybrid.calls, ttiled.rasterize_tiled_hybrid.harmful_tiles
+    calls, harmful = tracing.counter("hybrid.calls"), tracing.counter("hybrid.harmful_tiles")
     got, grads = port_value_and_grads(
         lambda *x: ttiled.rasterize_tiled_hybrid(*x, *map(t, rest), width=W, height=H, k_per_tile=k),
         d, w_img, w_lt,
     )
-    n_harm = ttiled.rasterize_tiled_hybrid.harmful_tiles - harmful
-    assert ttiled.rasterize_tiled_hybrid.calls == calls + 1
+    n_harm = tracing.counter("hybrid.harmful_tiles") - harmful
+    assert tracing.counter("hybrid.calls") == calls + 1
     assert_images_close(got, ref)
     assert_grads_close(grads, grads_r)
     assert int(got[2]) == int(ref[2]) and got[3] == int(ref[3]) == 0
