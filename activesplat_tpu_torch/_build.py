@@ -21,7 +21,8 @@ from typing import Dict, Sequence
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 SOURCES = (
-    "blend_fwd", "blend_bwd", "blend_csr_fwd", "blend_csr_bwd", "blend_csr_dual", "bin_slots"
+    "blend_fwd", "blend_bwd", "blend_csr_fwd", "blend_csr_bwd", "blend_csr_dual", "bin_slots",
+    "gather_bwd",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

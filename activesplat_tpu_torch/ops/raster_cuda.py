@@ -46,9 +46,16 @@ blocks, each tile's depth-ordered member ids at list positions [off, off +
 K), one block per 128-Gaussian block writing its members into their slots.
 bin_count_plain and bin_slots_plain are their plain versions.
 
+Gather backward (ops/raster_tiled.py's row gathers, no TPU kernel: the
+JAX package leaves it to XLA): gather_rows_bwd sums each table row's
+gathered gradient rows in position order, one thread per table element,
+over the runs of a stable sort of the ids (gather_bwd_runs, plain PyTorch
+on the device); the padding row's run is never read. Its CPU path is
+autograd's own index backward, `_index_put_impl_`.
+
 Each wrapper launches its CUDA kernel (csrc/blend_fwd.cu, blend_bwd.cu,
-blend_csr_fwd.cu, blend_csr_bwd.cu, blend_csr_dual.cu, bin_slots.cu) for a
-CUDA tensor, or raises; it runs its
+blend_csr_fwd.cu, blend_csr_bwd.cu, blend_csr_dual.cu, bin_slots.cu,
+gather_bwd.cu) for a CUDA tensor, or raises; it runs its
 twin only for a tensor that lies on the CPU. The twins run the same
 algorithm in float32: the same segments, early exit and clamps, with a
 vectorised in-segment cumsum. The backward twins are the explicit analytic
@@ -599,8 +606,8 @@ def _kernel(library: str, symbol: str):
     return fn
 
 
-# the arguments of each C entry point: p pointer (or stream), i int, f float
-_ARG_TYPES = {"p": _P, "i": _I, "f": ctypes.c_float}
+# the arguments of each C entry point: p pointer (or stream), i int, l int64, f float
+_ARG_TYPES = {"p": _P, "i": _I, "l": ctypes.c_int64, "f": ctypes.c_float}
 _SIGNATURES = {
     "blend_tiles_fwd": "pppiiipppppp",
     "tile_fwd_partials": "pppiiifiipppp",
@@ -618,6 +625,7 @@ _SIGNATURES = {
     "blend_csr_dual_combine": "pppiipppp",
     "bin_count": "pppppiiippp",
     "bin_slots": "ppiiiiiipp",
+    "gather_rows_bwd": "plppiipp",
 }
 
 
@@ -1104,6 +1112,62 @@ def blend_csr_dual_fwd(entry_data, seg_tile, seg_u0, seg_v0, n_tiles, n_channels
     return out
 
 
+def gather_bwd_runs(ids, n_rows):
+    """The gather backward kernel's preparation, plain PyTorch on the ids'
+    device with no host sync: (perm (R,) int64, the positions of the
+    flattened ids in a stable sort of them as int32 keys, so each row's
+    positions in increasing order; starts (n_rows,) int32, the first sorted
+    position of each table row). Row g < n_rows - 1 gathered the rows
+    perm[starts[g]:starts[g + 1]]; row n_rows - 1 the rest that are in
+    range."""
+    keys = ids.reshape(-1).to(torch.int32)
+    sorted_keys, perm = torch.sort(keys, stable=True)
+    rows = torch.arange(n_rows, dtype=torch.int32, device=ids.device)
+    return perm, torch.searchsorted(sorted_keys, rows, out_int32=True)
+
+
+def _check_gather_bwd(grad, ids, n_rows):
+    if ids.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"ids must be int32 or int64, got {ids.dtype}")
+    if grad.dim() != ids.dim() + 1 or grad.shape[:-1] != ids.shape or grad.shape[-1] < 1:
+        raise ValueError(f"grad must be ids' shape {tuple(ids.shape)} and a width, got "
+                         f"{tuple(grad.shape)}")
+    if grad.device != ids.device:
+        raise ValueError("ids must lie on grad's device")
+    if not 1 <= n_rows < 2**31 - 1 or ids.numel() >= 2**31 or n_rows * grad.shape[-1] >= 2**31:
+        raise ValueError(f"at most 2**31 ids and table elements, got {ids.numel()} ids and "
+                         f"{n_rows} rows")
+
+
+def gather_rows_bwd(grad, ids, n_rows):
+    """The row gathers' backward: the gradient (n_rows, W) of table[ids]
+    for an (n_rows, W) table whose last row pads the lists; `grad` has ids'
+    shape and W columns. Each row below the last is the sum of its gathered
+    rows in position order from zero. On the card one launch after
+    gather_bwd_runs: the last row is zero and its run is never read (no
+    caller reads that row's gradient); float32 only. On the CPU autograd's
+    own index backward, `_index_put_impl_` with accumulate and unsafe=True
+    (no host read of the ids' range): its last row sums the padding rows.
+    `launches` counts the kernel's calls."""
+    _check_gather_bwd(grad, ids, n_rows)
+    width = grad.shape[-1]
+    if _device_kind(grad) == "cpu":
+        return torch.ops.aten._index_put_impl_(grad.new_zeros((n_rows, width)), [ids], grad,
+                                               True, True)
+    if grad.dtype != torch.float32:
+        raise ValueError(f"the gather backward kernel takes float32, got {grad.dtype}")
+    rows = grad.reshape(-1, width)  # a view for the blends' layouts: no copy
+    if rows.stride(1) != 1:
+        rows = rows.contiguous()
+    out = grad.new_empty((n_rows, width))
+    with torch.cuda.device(grad.device):
+        perm, starts = gather_bwd_runs(ids, n_rows)
+        _launch(_kernel("gather_bwd", "gather_rows_bwd"), "gather_rows_bwd", rows.data_ptr(),
+                rows.stride(0), *_cuda_args(perm, starts), n_rows, width, _cuda_args(out)[0])
+    gather_rows_bwd.launches += 1
+    return out
+
+
 blend_tiles_fwd.launches = 0
 blend_tiles_bwd.launches = 0
 blend_csr_fwd.launches = 0
@@ -1111,6 +1175,7 @@ blend_csr_bwd.launches = 0
 blend_csr_dual_fwd.launches = 0
 bin_slots.launches = 0
 bin_count.launches = 0
+gather_rows_bwd.launches = 0
 KERNELS = (
     blend_tiles_fwd, blend_tiles_bwd, blend_csr_fwd, blend_csr_bwd, blend_csr_dual_fwd, bin_slots,
     bin_count,
@@ -1118,7 +1183,7 @@ KERNELS = (
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNELS:
+    for fn in (*KERNELS, gather_rows_bwd):
         fn.launches = 0
 
 

@@ -57,6 +57,7 @@ from activesplat_tpu_torch.ops.raster_cuda import (
     blend_csr,
     blend_csr_dual_fwd,
     blend_tiles,
+    gather_rows_bwd,
 )
 from activesplat_tpu_torch.ops.raster_xla import ALPHA_MAX, ALPHA_MIN
 from activesplat_tpu_torch.utils import tracing
@@ -243,14 +244,17 @@ def _pad_table(data):
 
 class _GatherRows(torch.autograd.Function):
     """table[ids] for an (N+1)-row table whose row N pads the lists. The
-    backward is autograd's own index backward, the sorted scatter-add into
-    zeros of the table's shape (the same call, so the same kernels and
-    bits: `_index_put_impl_` with unsafe=True, which skips the range check
-    that `index_put_` makes by reading the ids' min and max on the host),
-    inside a render/gather_bwd stage. While the span log records, the
-    backward attaches to that span the gathered rows, the rows equal to N
-    (a device reduction, read with the log), the table's rows, its live
-    columns and the device time between two CUDA events at its ends."""
+    backward is gather_rows_bwd (ops/raster_cuda.py) inside a
+    render/gather_bwd stage: on the card the hand-written kernel, which
+    leaves row N zero without reading its run (the caller's torch.cat drops
+    that row's gradient); on the CPU autograd's own index backward, the
+    sorted scatter-add into zeros (`_index_put_impl_` with unsafe=True,
+    which skips the range check that `index_put_` makes by reading the ids'
+    min and max on the host). While the span log records, the backward
+    attaches to that span the gathered rows, the rows equal to N (those
+    the kernel skips; a device reduction, read with the log), the table's
+    rows, its live columns and the device time between two CUDA events at
+    its ends, the ids' sort included."""
 
     @staticmethod
     def forward(ctx, table, ids):
@@ -268,9 +272,7 @@ class _GatherRows(torch.autograd.Function):
                 events = (torch.cuda.Event(enable_timing=True),
                           torch.cuda.Event(enable_timing=True))
                 events[0].record()
-            table_grad = torch.ops.aten._index_put_impl_(
-                grad.new_zeros(ctx.table_shape), [ids], grad, True, True
-            )
+            table_grad = gather_rows_bwd(grad, ids, n_rows)
             if logged:
                 if grad.is_cuda:
                     events[1].record()

@@ -70,15 +70,24 @@ Phases, each fatal on failure:
      repeatable), and planted faults (the piece totals shifted one piece
      either way, a piece skipped by its own entry logT, the dead-pair
      margin's sign flipped) are rejected;
+     the row gathers' backward (gather_rows_bwd, csrc/gather_bwd.cu) on a
+     capped call at 512x512 (1,024 tiles x 1,024 rows, a fifth of them the
+     padding row, into a 2.1M-row table, the gradient the 11 live columns
+     of 16-wide rows) and on a CSR stream: rows below the padding row
+     bitwise equal to the library's `_index_put_impl_`, the padding row
+     zero, a second call bitwise equal to the first; the kernel's and the
+     wrapper's ms beside its bound and the library's ms;
   3. drive the mapping slice at the benchmark's size (200,000 Gaussians in
      a 262,144-slot buffer, 256x256 sensor, k_per_tile=256,
      exact_training="off"): first_frame_phase, three mapping_phase events of
      10 iterations, one warm-up mapping_iteration and 30 timed ones. The
      launch counters are set to 0 just before each of these phases and read
      just after it; each event must launch B1 and B2 10 times and the timed
-     run 30 times, and B3/B4 never. Then run 20 more iterations under
-     torch.profiler and print the device's busy time and idle share per
-     iteration and the operators that take the most device and host time.
+     run 30 times, and B3/B4 never; in every phase the gather backward
+     launches once for each blend backward (B2 and B4). Then run 20 more
+     iterations under torch.profiler and print the device's busy time and
+     idle share per iteration and the operators that take the most device
+     and host time.
      Then time the same iterations with the bin kernel route on
      (raster_tiled._BIN_KERNEL, B6 launched once per iteration) between two
      sort-route runs: sort, kernel, kernel, sort. Then check the port on
@@ -229,7 +238,8 @@ Phases, each fatal on failure:
      and local_invisibility on phase 3c's query map with the views sharded,
      equal to the unsharded queries bitwise. Every launch count asserted;
      the tolerances are MESH_*'s;
-  8. print the device line last.
+  8. print one {"gather_bwd": ...} line (phase 2's readings and the
+     launches of phase 3's phases), then the device line last.
 
 It needs one CUDA card and exits non-zero without one, or without the rest of
 the repository beside it.
@@ -327,6 +337,13 @@ BIN_SPLIT_FAULTS = ("a rectangle counted one tile wider", "padding words counted
 # kernels of one B6 route call: the count pass, then (after torch.cumsum) the slot pass
 B6_PASSES = ("bin_count_kernel", "bin_slots_kernel")
 ROUTE_TRACE_CALLS = 20
+# the row gathers' backward at 512x512: one capped call's tiles x rows, one
+# CSR call's entries, a map's Gaussians, the padding row's share of the ids
+GATHER_CAPPED = (1024, 1024)
+GATHER_CSR_ROWS = 280_000
+GATHER_TABLE_ROWS = 2_100_000
+GATHER_PAD_SHARE = 0.2
+GATHER_WIDTH = 6 + N_CHANNELS
 # the bin inputs of the main path and the driver, kept for
 # scripts/bin_route_trace.py to trace another tree's routes on them
 BIN_INPUTS = Path(__file__).resolve().parent / "build" / "bin_route_inputs.pt"
@@ -1993,6 +2010,82 @@ def b6_bound_ms(bb):
     the larger."""
     larger = max(("count", "slot"), key=lambda p: bb[p][0])
     return bb["count"][0] + bb["slot"][0], f"{larger} pass: {bb[larger][1]}"
+
+
+def gather_bwd_inputs(torch, seed: int, shape, n: int):
+    """(grad, ids) of one row gather's backward into an (n + 1)-row table:
+    random ids, GATHER_PAD_SHARE of them the padding row n, and row 7 once
+    in every list (a Gaussian in every tile: a run as long as the lists
+    are many); the gradient the live columns of 16-wide rows, as the
+    blends hand it back (strided, not copied)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    ids = torch.randint(0, n, shape, generator=g, device="cuda")
+    ids = torch.where(torch.rand(shape, generator=g, device="cuda") < GATHER_PAD_SHARE, n, ids)
+    if len(shape) == 2:
+        ids[:, 0] = 7
+    else:
+        ids[::GATHER_CAPPED[1]] = 7
+    grad = torch.randn(shape + (16,), generator=g, device="cuda")[..., :GATHER_WIDTH]
+    return grad, ids
+
+
+def gather_bwd_checks(torch, rc, card) -> dict:
+    """The row gathers' backward on the card against the library's index
+    backward, on a capped call and a CSR stream at 512x512: rows below the
+    padding row bitwise equal, the padding row zero, two calls bitwise
+    equal, the launches counted; timed (the kernel by torch.profiler, the
+    wrapper with its sort and the library's call between CUDA events) beside
+    the bound, the bytes moved over HBM_BYTES_PER_S."""
+    n = GATHER_TABLE_ROWS
+    out = {"name": "gather_rows_bwd", "file": "activesplat_tpu_torch/csrc/gather_bwd.cu",
+           "inputs": {}}
+    for tag, shape in (("capped", GATHER_CAPPED), ("csr", (GATHER_CSR_ROWS,))):
+        grad, ids = gather_bwd_inputs(torch, len(shape), shape, n)
+        if tag == "csr":
+            grad = grad.contiguous()  # the other layout the wrapper reads in place
+        before = rc.gather_rows_bwd.launches
+        got = rc.gather_rows_bwd(grad, ids, n + 1)
+        again = rc.gather_rows_bwd(grad, ids, n + 1)
+        lib = torch.ops.aten._index_put_impl_(grad.new_zeros((n + 1, GATHER_WIDTH)), [ids], grad,
+                                              True, True)
+        if rc.gather_rows_bwd.launches - before != 2:
+            raise AssertionError(f"gather_rows_bwd ({tag}): "
+                                 f"{rc.gather_rows_bwd.launches - before} launches for 2 calls")
+        if not torch.equal(got[:n], lib[:n]):
+            gap = float((got[:n] - lib[:n]).abs().max())
+            rows = int((got[:n] != lib[:n]).any(1).sum())
+            raise AssertionError(f"gather_rows_bwd ({tag}): {rows} rows below the padding row "
+                                 f"differ from _index_put_impl_, by up to {gap:.3e}")
+        if got[n].any():
+            raise AssertionError(f"gather_rows_bwd ({tag}): the padding row is not zero")
+        if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+            raise AssertionError(f"gather_rows_bwd ({tag}): two calls differ")
+        r = ids.numel()
+        pad = int((ids == n).sum())
+        longest = int(torch.bincount(ids.reshape(-1))[:n].max())
+        nbytes = r * GATHER_WIDTH * 4 + r * 8 + (n + 1) * GATHER_WIDTH * 4
+        kernel_ms = kernel_device_ms(torch, lambda: rc.gather_rows_bwd(grad, ids, n + 1),
+                                     ("gather_rows_bwd_kernel",), 20)["gather_rows_bwd_kernel"]
+        entry = {
+            "rows": r, "pad_rows": pad, "longest_run": longest, "table_rows": n + 1,
+            "ms": kernel_ms,
+            "wrapper_ms": cuda_ms(lambda: rc.gather_rows_bwd(grad, ids, n + 1), 20),
+            "runs_ms": cuda_ms(lambda: rc.gather_bwd_runs(ids, n + 1), 20),
+            "library_ms": cuda_ms(lambda: torch.ops.aten._index_put_impl_(
+                grad.new_zeros((n + 1, GATHER_WIDTH)), [ids], grad, True, True), 3),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+        }
+        print(f"gather_rows_bwd ({tag}: {r} rows, {pad} of them the padding row, longest other "
+              f"run {longest}, into {n + 1} table rows): rows below the padding row bitwise "
+              f"_index_put_impl_'s, the padding row zero, two calls bitwise equal; kernel "
+              f"{entry['ms']:.4f} ms, wrapper {entry['wrapper_ms']:.4f} ms (the ids' sort and "
+              f"runs {entry['runs_ms']:.4f}), bound {entry['bound_ms']:.4f} ms (bytes, "
+              f"{entry['bound_ms'] / entry['ms']:.3f} of it reached), library "
+              f"{entry['library_ms']:.4f} ms on {card}")
+        out["inputs"][tag] = entry
+        del grad, ids, got, again, lib
+    torch.cuda.synchronize()
+    return out
 
 
 def route_trace(torch, run, calls: int, label: str, card: str) -> dict:
@@ -3855,6 +3948,8 @@ def main() -> int:
                              f"scenes: {bin_split_rejected}")
     del scene_b
     torch.cuda.synchronize()
+    gather_entry = gather_bwd_checks(torch, rc, card)
+    gather_by_phase = {}  # phase -> the gather backward's launches
 
     # ---- phase 3: the mapping slice at the benchmark's size ------------ #
     from activesplat_tpu_torch.mapper.adam import AdamState
@@ -3882,12 +3977,18 @@ def main() -> int:
         default as often as B3), B5 `dual` times and B6's two passes `bins`
         times each."""
         counts = {fn.__name__: fn.launches for fn in rc.KERNELS}
+        gathers = rc.gather_rows_bwd.launches
         rc.reset_launch_counts()
         by_phase[phase] = counts
+        gather_by_phase[phase] = gathers
         expect = dict(zip(counts, (capped, capped, csr, csr if csr_bwd is None else csr_bwd, dual,
                                    bins, bins)))
         if counts != expect:
             raise AssertionError(f"{phase}: kernel launches {counts}, not {expect}")
+        # a gather backward feeds each blend backward its table's gradient
+        backwards = expect["blend_tiles_bwd"] + expect["blend_csr_bwd"]
+        if gathers != backwards:
+            raise AssertionError(f"{phase}: {gathers} gather backward launches, not {backwards}")
         return counts
 
     rc.reset_launch_counts()
@@ -4576,6 +4677,9 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
+    gather_entry["launches_by_phase"] = {p: c for p, c in gather_by_phase.items() if c}
+    gather_entry["launches"] = sum(gather_by_phase.values())
+    print(json.dumps({"gather_bwd": gather_entry}))
     print(json.dumps({
         "ok": True,
         "device": {
