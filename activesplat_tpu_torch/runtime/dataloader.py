@@ -132,6 +132,7 @@ class SyntheticDataset:
         max_tilt_deg: float = 30.0,
         results_dir: Optional[str] = None,
         scene_id: str = "BoxWorld",
+        planner: Optional[Dict] = None,
     ) -> None:
         self.world = world
         self.sensor = sensor
@@ -143,6 +144,9 @@ class SyntheticDataset:
         self.agent_height = agent_height
         self.max_tilt_deg = max_tilt_deg
         self.scene_id = scene_id
+        # the scene config's planner block, handed to the planner in the
+        # get_dataset_config payload (PlannerFSM reads its knobs there)
+        self.planner = dict(planner or {})
 
         if start_position is None:
             sx, _, sz = world.size
@@ -281,5 +285,6 @@ class SyntheticDataset:
             "width": self.sensor.width,
             "height": self.sensor.height,
             "intrinsics": self.sensor.intrinsics,
+            "planner": dict(self.planner),
         }
 

@@ -208,6 +208,7 @@ class HabitatDataset:
         scene_bbox: Optional[np.ndarray] = None,
         results_dir: Optional[str] = None,
         sim_factory: Optional[Callable[[dict], object]] = None,
+        planner: Optional[Dict] = None,
     ) -> None:
         self.env_config_path = env_config_path
         self.spec = HabitatEnvSpec.from_yaml(env_config_path)
@@ -229,6 +230,9 @@ class HabitatDataset:
         self.forward_step = self.spec.forward_step_size
         self.agent_radius = self.spec.agent_radius
         self.agent_height = self.spec.agent_height
+        # the scene config's planner block, handed to the planner in the
+        # get_dataset_config payload (PlannerFSM reads its knobs there)
+        self.planner = dict(planner or {})
 
         self._sim = None
         self._sim_factory = sim_factory
@@ -416,6 +420,7 @@ class HabitatDataset:
             "width": s.width,
             "height": s.height,
             "intrinsics": s.intrinsics,
+            "planner": dict(self.planner),
         }
 
 
@@ -477,4 +482,5 @@ def get_dataset(
         scene_bbox=bbox.T if bbox.shape == (2, 3) else bbox,
         results_dir=results_dir,
         sim_factory=sim_factory,
+        planner=config.get("planner"),
     )

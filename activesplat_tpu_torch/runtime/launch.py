@@ -21,10 +21,14 @@ topdown_free_map.png, voronoi_graph.png, planner_log.jsonl}, with
     python -m activesplat_tpu_torch.runtime.launch --mode manual --results_dir DIR3
 
 CLI flags the user passes beat the scene config's values, which beat the
-defaults. --mode replay drives a recorded actions.txt through the mapper
-with no planner; --mode manual maps while keys read from stdin drive the
-agent. --habitat_sim real needs the habitat-sim and habitat-lab wheels.
---mesh 1 shards the mapper's renders over the visible devices of its type
+defaults. The scene config's `planner` block (step_num_as_visited,
+step_num_as_arrived, local_view_limit, radius_num_as_rotated,
+max_pitch_angle, obstacle_approx_precision) rides on the dataset into the
+get_dataset_config payload, and the planner takes its knobs from there.
+--mode replay drives a recorded actions.txt through the mapper with no
+planner; --mode manual maps while keys read from stdin drive the agent.
+--habitat_sim real needs the habitat-sim and habitat-lab wheels. --mesh 1
+shards the mapper's renders over the visible devices of its type
 (MapperConfig.use_mesh, parallel/sharded.py); with fewer than two that
 split the height into whole 16 px tile rows, one card for example, the
 mapper says so and renders unsharded.
@@ -83,6 +87,7 @@ def make_synthetic_dataset(
     turn_angle_deg: float = 10.0,
     tilt_angle_deg: float = 15.0,
     results_dir: Optional[str] = None,
+    planner: Optional[dict] = None,
 ) -> SyntheticDataset:
     maker = {"two_room": BoxWorld.two_room, "single_room": BoxWorld.single_room}[
         scene_id
@@ -108,6 +113,7 @@ def make_synthetic_dataset(
         tilt_angle_deg=tilt_angle_deg,
         results_dir=results_dir,
         scene_id=f"{scene_id}-{seed}",
+        planner=planner,
     )
 
 
@@ -254,7 +260,9 @@ def build_episode_from_config(
 
     `overrides` (CLI flags the user passed explicitly) win over config
     values; config values win over defaults. Returns dict(dataset,
-    mapper_cfg, pixel_max, single_floor_expansion, agent_foot_adjust)."""
+    mapper_cfg, pixel_max, single_floor_expansion, agent_foot_adjust). The
+    dataset keeps the config's `planner` block and hands it to the planner
+    in its get_dataset_config payload, where PlannerFSM reads its knobs."""
     scene_cfg = scene_cfg or {}
     overrides = {k: v for k, v in (overrides or {}).items() if v is not None}
     fmt = scene_cfg.get("dataset", {}).get("format", "synthetic")
@@ -280,7 +288,8 @@ def build_episode_from_config(
                 kw[key] = overrides[key]
         if scene_id:
             kw["scene_id"] = scene_id
-        dataset = make_synthetic_dataset(results_dir=results_dir, **kw)
+        dataset = make_synthetic_dataset(results_dir=results_dir,
+                                         planner=scene_cfg.get("planner"), **kw)
 
     mapper = scene_cfg.get("mapper", {})
     single_floor = mapper.get("single_floor", {}).get("expansion", {})

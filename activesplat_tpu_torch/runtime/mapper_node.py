@@ -32,6 +32,7 @@ from activesplat_tpu_torch.mapper.config import MapperConfig
 from activesplat_tpu_torch.mapper.geometry import backproject
 from activesplat_tpu_torch.mapper.splatam import SplaTAMMapper
 from activesplat_tpu_torch.planner import draw
+from activesplat_tpu_torch.queries.panorama import PANO_VIEWS
 from activesplat_tpu_torch.queries.topdown import (
     IncrementalTopdown,
     TopdownConfig,
@@ -40,7 +41,7 @@ from activesplat_tpu_torch.queries.topdown import (
 from activesplat_tpu_torch.runtime.bus import Bus
 from activesplat_tpu_torch.runtime.dataloader import SyntheticDataset, twist_to_action
 from activesplat_tpu_torch.utils import GlobalState, PoseDataType, convert_to_c2w_opencv
-from activesplat_tpu_torch.utils.tracing import set_action, stage
+from activesplat_tpu_torch.utils.tracing import attach, set_action, stage
 
 
 class MapperNode:
@@ -401,6 +402,7 @@ class MapperNode:
             }
         with stage("queries/panorama_local"):
             total, best_pose, invis = self.mapper.get_local_invisibility(view_c2w)
+            attach(views=PANO_VIEWS)
         if self.live_view is not None:
             self.live_view.update_panorama(invis)
         if self.recorder is not None:
@@ -463,6 +465,7 @@ class MapperNode:
                 scores = self.mapper.get_global_invisibility(
                     view_c2w, positions[[i for i, _ in need]]
                 )
+                attach(views=PANO_VIEWS * len(need))
             for (i, key), (inv, vol, _reach) in zip(need, scores):
                 results[i] = (inv, vol)
                 self._pano_cache[key] = {"version": ver, "inv": inv, "vol": vol}

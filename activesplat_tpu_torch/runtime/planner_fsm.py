@@ -49,7 +49,7 @@ from activesplat_tpu_torch.queries.topdown import (
 )
 from activesplat_tpu_torch.runtime.bus import Bus
 from activesplat_tpu_torch.utils import GlobalState
-from activesplat_tpu_torch.utils.tracing import stage
+from activesplat_tpu_torch.utils.tracing import attach, count, stage
 
 # constants-as-flags (reference: scripts/nodes/__init__.py:13-18)
 USE_RANDOM_SELECTION = False
@@ -67,6 +67,43 @@ WEIGHTS_INIT = {
     "FAIL": -60,
 }
 SUBREGION_MAX_SCORE_THRESHOLD = 250  # planner_node.py:281
+
+# the knobs of a scene config's `planner` block, with the FSM's defaults
+# (the Gibson configs' values); PlannerFSM reads the block in its
+# get_dataset_config payload (planner_knobs)
+PLANNER_DEFAULTS = {
+    "step_num_as_visited": 10.0,
+    "step_num_as_arrived": 1.5,
+    "local_view_limit": 5,
+    "radius_num_as_rotated": 3.0,
+    "max_pitch_angle": 45.0,
+}
+# `obstacle_approx_precision` is 7.5 in every upstream config, in a unit
+# this package does not establish; the contour approximation's 0.225 m
+# stands for it, and another value is refused rather than converted
+UPSTREAM_APPROX_PRECISION = 7.5
+APPROX_PRECISION_M = 0.225
+
+
+def planner_knobs(block: Optional[Dict], **passed) -> Dict:
+    """The FSM's knobs: each one `passed` as other than None, else the
+    scene config's planner block's, else PLANNER_DEFAULTS' (and
+    `obstacle_approx_precision_m`, 0.225 m). Raises ValueError naming the
+    key when the block's obstacle_approx_precision is read and is not
+    7.5."""
+    block = block or {}
+    if passed.get("obstacle_approx_precision_m") is None:
+        precision = block.get("obstacle_approx_precision", UPSTREAM_APPROX_PRECISION)
+        if float(precision) != UPSTREAM_APPROX_PRECISION:
+            raise ValueError(
+                f"planner block: obstacle_approx_precision {precision!r} has no known "
+                f"meaning here; only {UPSTREAM_APPROX_PRECISION} (read as "
+                f"{APPROX_PRECISION_M} m) is taken")
+    knobs = {key: type(default)(block.get(key, default))
+             for key, default in PLANNER_DEFAULTS.items()}
+    knobs["obstacle_approx_precision_m"] = APPROX_PRECISION_M
+    knobs.update({key: value for key, value in passed.items() if value is not None})
+    return knobs
 
 
 class PlannerState(Enum):
@@ -93,13 +130,13 @@ class PlannerFSM:
     def __init__(
         self,
         bus: Bus,
-        step_num_as_visited: float = 10,
-        step_num_as_arrived: float = 1.5,
+        step_num_as_visited: Optional[float] = None,
+        step_num_as_arrived: Optional[float] = None,
         step_num_as_too_far: float = 200,
-        obstacle_approx_precision_m: float = 0.225,
-        local_view_limit: int = 5,
-        radius_num_as_rotated: float = 3.0,
-        max_pitch_angle: float = 45.0,
+        obstacle_approx_precision_m: Optional[float] = None,
+        local_view_limit: Optional[int] = None,
+        radius_num_as_rotated: Optional[float] = None,
+        max_pitch_angle: Optional[float] = None,
         seed: int = 1,
         save_runtime_data: bool = False,
         manual_target_provider=None,
@@ -112,6 +149,15 @@ class PlannerFSM:
 
         ds = bus.call("get_dataset_config")
         td = bus.call("get_topdown_config")
+        knobs = planner_knobs(
+            ds.get("planner"),
+            step_num_as_visited=step_num_as_visited,
+            step_num_as_arrived=step_num_as_arrived,
+            obstacle_approx_precision_m=obstacle_approx_precision_m,
+            local_view_limit=local_view_limit,
+            radius_num_as_rotated=radius_num_as_rotated,
+            max_pitch_angle=max_pitch_angle,
+        )
         self.results_dir = ds["results_dir"]
         self.turn_angle = float(ds["agent_turn_angle"])
         self.tilt_angle = float(ds["agent_tilt_angle"])
@@ -128,13 +174,13 @@ class PlannerFSM:
         mpp = self.topdown_cfg.meter_per_pixel
         self.agent_radius_px = float(ds["agent_radius"]) / mpp
         self.step_px = float(ds["agent_forward_step_size"]) / mpp
-        self.px_as_visited = self.step_px * step_num_as_visited
-        self.px_as_arrived = self.step_px * step_num_as_arrived
+        self.px_as_visited = self.step_px * knobs["step_num_as_visited"]
+        self.px_as_arrived = self.step_px * knobs["step_num_as_arrived"]
         self.max_steps_to_target = step_num_as_too_far
-        self.approx_precision_px = obstacle_approx_precision_m / mpp
-        self.local_view_limit = local_view_limit
-        self.radius_num_as_rotated = radius_num_as_rotated
-        self.max_pitch_angle = max_pitch_angle
+        self.approx_precision_px = knobs["obstacle_approx_precision_m"] / mpp
+        self.local_view_limit = knobs["local_view_limit"]
+        self.radius_num_as_rotated = knobs["radius_num_as_rotated"]
+        self.max_pitch_angle = knobs["max_pitch_angle"]
         self.camera_height = float(np.asarray(ds["rgbd_position"])[1])
 
         self.weights = dict(WEIGHTS_INIT) if not USE_RANDOM_SELECTION else None
@@ -373,6 +419,8 @@ class PlannerFSM:
                     self.vg.vertices,
                     self.topdown_cfg.meter_per_pixel,
                 )
+                attach(subregions=len(set(self.subregions.values())),
+                       nodes=len(self.vg.nodes_index))
             with stage("planner/scores"):
                 self._score_nodes()
         else:
@@ -569,7 +617,11 @@ class PlannerFSM:
             PlannerState.ESCAPE: self._tick_escape,
         }[self.state]
         with stage("planner/tick"):  # includes the actions the tick issues
-            handler()
+            if was_select:
+                with stage("planner/select_target"):
+                    handler()
+            else:
+                handler()
         self._tick_count += 1
         if self.state is not prev_state:
             self._log(
@@ -731,6 +783,7 @@ class PlannerFSM:
             )
             if churn:
                 self.scan_churn_breaks += 1
+            switch = False
             if use_local:
                 sel_index = nodes_index[in_cur]
                 sel_score = cur_scores[in_cur]
@@ -755,11 +808,16 @@ class PlannerFSM:
                 if best_subregion is None:
                     sel_index, sel_score = nodes_index, nodes_score
                 else:
+                    switch = True
                     member = np.array(
                         [self.subregions.get(int(i)) == best_subregion for i in nodes_index]
                     )
                     sel_index = nodes_index[member]
                     sel_score = nodes_score[member]
+            # the plan keeps the current subregion, or leaves it for the
+            # best-scoring other one (neither when there is no other)
+            count("stay", int(use_local))
+            count("switch", int(switch))
         else:
             sel_index, sel_score = nodes_index, nodes_score
 
@@ -853,6 +911,7 @@ class PlannerFSM:
 
         # arrival
         if np.linalg.norm(px - self.navigation_path[-1]) < self.px_as_arrived:
+            count("arrived")
             if USE_ROTATION_SELECTION and not self._is_rotation_observed(px):
                 self.continue_global_navigation = False
                 self._begin_local_refine()
@@ -957,6 +1016,9 @@ class PlannerFSM:
         self.saved_mapper_schedule = self.bus.call("set_mapper", kf_every=2, map_every=2)
 
     def _end_local_refine(self) -> None:
+        # the views this refine consumed: at most local_view_limit, or 4
+        # while a global navigation continues
+        attach(views=self.local_view_count - 1)
         if self.saved_mapper_schedule is not None:
             self.bus.call(
                 "set_mapper",

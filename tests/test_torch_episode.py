@@ -25,6 +25,18 @@ target; at the end the explored free-map area and the Gaussian count within
 side; the room is for float rounding, which may flip a few free-map pixels
 or a densified pixel).
 
+The second parity input: two_room seed 0 under mp3d_large's planner block
+(step_num_as_visited 15, local_view_limit 4), 40 steps, pixel_max 64. The
+port builds its episode from a synthetic scene config that carries the
+block (launch.build_episode_from_config -> run_episode), so the knobs reach
+its PlannerFSM through the dataset's get_dataset_config payload; the JAX
+package's launcher drops the block, so its side is wired by hand, its
+PlannerFSM built with the same knobs passed explicitly. Both stop after the
+tick that picks the first target, where step_num_as_visited sets which
+nodes score as unarrived: Gibson's block (10) picks another node there.
+The knobs, the actions, the first target's tick, node and pixel position
+and the states equal.
+
 It also mirrors the 4 tests of tests/test_exploration.py on the port's
 episode at that file's configuration (48x48, 30 degree turns, 60 steps) and
 the 4 of tests/test_pano_cache.py on the port's mapper node."""
@@ -41,7 +53,11 @@ import torch
 from activesplat_tpu.mapper.config import MapperConfig as JaxMapperConfig
 from activesplat_tpu.runtime import dataloader as jdl
 from activesplat_tpu.runtime import launch as jlaunch
+from activesplat_tpu.runtime.bus import Bus as JaxBus
+from activesplat_tpu.runtime.mapper_node import MapperNode as JaxMapperNode
+from activesplat_tpu.runtime.planner_fsm import PlannerFSM as JaxPlannerFSM
 from activesplat_tpu.runtime.synthetic import BoxWorld as JaxBoxWorld
+from activesplat_tpu_torch.configs import load_scene_config
 from activesplat_tpu_torch.io.actions import read_actions
 from activesplat_tpu_torch.mapper.config import MapperConfig
 from activesplat_tpu_torch.runtime import dataloader as tdl
@@ -52,7 +68,7 @@ from activesplat_tpu_torch.runtime.dataloader import (
     SyntheticDataset,
     action_to_twist,
 )
-from activesplat_tpu_torch.runtime.launch import run_episode
+from activesplat_tpu_torch.runtime.launch import build_episode_from_config, run_episode
 from activesplat_tpu_torch.runtime.mapper_node import MapperNode
 from activesplat_tpu_torch.runtime.planner_fsm import PlannerFSM
 from activesplat_tpu_torch.runtime.synthetic import BoxWorld
@@ -69,6 +85,17 @@ EPISODE = dict(pixel_max=56, max_ticks=300, pano_scale=0.4)
 PARITY_TICKS = 4
 AREA_RTOL = 0.02
 GAUSSIAN_RTOL = 0.02
+# the second parity input: mp3d_large's planner block on two_room seed 0
+MP3D_STEPS, MP3D_TICKS, MP3D_PIXEL_MAX = 40, 2, 64
+MP3D_SCENE = {"dataset": {"format": "synthetic", "scene_id": "two_room", "seed": 0,
+                          "step_num": MP3D_STEPS, "far": 10},
+              "env": {"width": RES, "height": RES, "hfov": 90, "turn_angle": TURN,
+                      "tilt_angle": 15},
+              "planner": load_scene_config("mp3d_large")["planner"]}
+# mp3d_large's knobs as the JAX package's PlannerFSM takes them
+MP3D_JAX_KNOBS = dict(step_num_as_visited=15, step_num_as_arrived=1.5, local_view_limit=4,
+                      radius_num_as_rotated=3.0, max_pitch_angle=45.0,
+                      obstacle_approx_precision_m=0.225)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -127,9 +154,35 @@ def parity(tmp_path_factory):
                 node, planner = run_episode(ds, results_dir, mapper_cfg=MapperConfig(**CFG),
                                             device="cpu", **{**EPISODE, "max_ticks": PARITY_TICKS})
             out[side] = (results_dir, node, planner, ds)
+        out["mp3d_large"] = mp3d_large_pair(tmp_path_factory)
     finally:
         mp.undo()
         jax.clear_caches()
+    return out
+
+
+def mp3d_large_pair(tmp_path_factory):
+    """The second parity input, on each side: (results dir, planner)."""
+    episode = dict(pixel_max=MP3D_PIXEL_MAX, pano_scale=EPISODE["pano_scale"])
+    out = {}
+    np.random.seed(0)
+    jdir = str(tmp_path_factory.mktemp("mp3d_large_jax"))
+    ds = jlaunch.make_synthetic_dataset("two_room", 0, MP3D_STEPS, RES, RES, turn_angle_deg=TURN,
+                                        results_dir=jdir)
+    bus = JaxBus()
+    node = JaxMapperNode(bus, ds, JaxMapperConfig(**CFG), jdir, **episode)
+    planner = JaxPlannerFSM(bus, **MP3D_JAX_KNOBS)
+    planner.run(max_ticks=MP3D_TICKS)
+    node.finish()
+    ds.close()
+    out["jax"] = (jdir, planner)
+
+    np.random.seed(0)
+    tdir = str(tmp_path_factory.mktemp("mp3d_large_port"))
+    ep = build_episode_from_config(MP3D_SCENE, tdir)
+    _, planner = run_episode(ep["dataset"], tdir, mapper_cfg=MapperConfig(**CFG),
+                             max_ticks=MP3D_TICKS, device="cpu", **episode)
+    out["port"] = (tdir, planner)
     return out
 
 
@@ -198,6 +251,29 @@ def test_episode_end_within_tolerance(parity):
     assert abs(ta - ja) <= AREA_RTOL * ja, (ta, ja)
     jg, tg = jnode.mapper.num_gaussians(), tnode.mapper.num_gaussians()
     assert abs(tg - jg) <= GAUSSIAN_RTOL * jg, (tg, jg)
+
+
+def test_mp3d_large_knobs_reach_both_planners(parity):
+    (_, jplan), (_, tplan) = parity["mp3d_large"]["jax"], parity["mp3d_large"]["port"]
+    assert tplan.px_as_visited == pytest.approx(15 * tplan.step_px)
+    assert tplan.local_view_limit == 4
+    for name in ("px_as_visited", "px_as_arrived", "local_view_limit", "radius_num_as_rotated",
+                 "max_pitch_angle", "approx_precision_px"):
+        assert getattr(tplan, name) == getattr(jplan, name), name
+
+
+def test_mp3d_large_knobs_match_reference_to_first_target(parity):
+    (jdir, jplan), (tdir, tplan) = parity["mp3d_large"]["jax"], parity["mp3d_large"]["port"]
+    ja = read_actions(os.path.join(jdir, "actions.txt"))
+    ta = read_actions(os.path.join(tdir, "actions.txt"))
+    assert ta == ja and len(ta) >= 16
+    jt = next(e for e in jplan.decision_log if e["event"] == "target")
+    tt = next(e for e in tplan.decision_log if e["event"] == "target")
+    assert (tt["tick"], tt["node"], tt["node_px"]) == (jt["tick"], jt["node"], jt["node_px"])
+    states = [(e["tick"], e["frm"], e["to"]) for e in tplan.decision_log if e["event"] == "state"]
+    assert states == [(e["tick"], e["frm"], e["to"]) for e in jplan.decision_log
+                      if e["event"] == "state"]
+    assert "NAVIGATE" in {to for _, _, to in states}
 
 
 def test_episode_consumes_budget(episode):

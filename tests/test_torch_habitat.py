@@ -329,7 +329,8 @@ def test_adapter_frames_bitwise_on_both_mocks(tmp_path, monkeypatch):
     assert len(PARITY_ACTIONS) == 40
     both = both_datasets(tmp_path, env_yaml)
     (jds, jcfg), (tds, tcfg) = both["jax"], both["port"]
-    assert tcfg.keys() == jcfg.keys()
+    # the port's payload also carries the scene config's planner block (none here)
+    assert tcfg.keys() == jcfg.keys() | {"planner"} and tcfg["planner"] == {}
     for key in jcfg:  # each side writes into its own results_dir
         if key != "results_dir":
             np.testing.assert_array_equal(np.asarray(tcfg[key]), np.asarray(jcfg[key]),
