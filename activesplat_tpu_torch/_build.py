@@ -1,11 +1,18 @@
-"""Build the CUDA sources under csrc/ into shared libraries, at first use.
+"""Build the sources under csrc/ into shared libraries, at first use.
 
-Each `csrc/<name>.cu` becomes `build/lib<name>-<hash>.so` at the checkout's
-root, keyed by a hash of the source and the compiler flags, so a changed
-source is rebuilt and an unchanged one is loaded as it is. The libraries have
-a plain C interface and are loaded with ctypes: no PyTorch headers, so each
-builds in seconds. All missing sources are compiled at once, one nvcc process
-each.
+Each CUDA source `csrc/<name>.cu` becomes `build/lib<name>-<hash>.so` at the
+checkout's root, keyed by a hash of the source and the compiler flags, so a
+changed source is rebuilt and an unchanged one is loaded as it is. The
+libraries have a plain C interface and are loaded with ctypes: no PyTorch
+headers, so each builds in seconds. All missing sources are compiled at once,
+one nvcc process each.
+
+The host C++ sources (the raycaster, the change log's bound pass) build the
+same way with the host compiler (`build_host`), g++ unless CXX names another.
+Their hash also covers what `-march=native` means to the compiler on this
+host (`<cxx> -march=native -Q --help=target`), so a library built on one
+machine is never loaded on another with a different instruction set. A
+build that fails raises with the compiler's message.
 """
 
 from __future__ import annotations
@@ -28,6 +35,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
+
+CXX_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -95,3 +104,42 @@ def load(name: str) -> ctypes.CDLL:
         for n, path in paths.items():
             _loaded.setdefault(n, ctypes.CDLL(str(path)))
     return _loaded[name]
+
+
+def _find_cxx(what: str) -> str:
+    name = os.environ.get("CXX", "g++")
+    path = shutil.which(name)
+    if path is None:
+        raise RuntimeError(f"{what} needs a C++ compiler: {name!r} was not found (set CXX to one)")
+    return path
+
+
+def _host_library_path(source: Path, build_dir: Path, cxx: str) -> Path:
+    target = subprocess.run([cxx, "-march=native", "-Q", "--help=target"],
+                            capture_output=True, text=True)
+    if target.returncode != 0:
+        raise RuntimeError(f"{cxx} -march=native -Q --help=target failed:\n{target.stderr}")
+    digest = hashlib.sha256()
+    digest.update(source.read_bytes())
+    digest.update(" ".join(CXX_FLAGS).encode())
+    digest.update(target.stdout.encode())
+    return build_dir / f"lib{source.stem}-{digest.hexdigest()[:16]}.so"
+
+
+def build_host(source: Path, build_dir: Path, what: str) -> Path:
+    """The host library of `source` in `build_dir`, compiling it first if it
+    is missing; `what` names it in errors."""
+    cxx = _find_cxx(what)
+    path = _host_library_path(source, build_dir, cxx)
+    if path.exists():
+        return path
+    build_dir.mkdir(parents=True, exist_ok=True)
+    tmp = build_dir / f"{path.name}.{os.getpid()}.tmp"
+    proc = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(source)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"building {what} failed ({cxx} {' '.join(CXX_FLAGS)} "
+                           f"{source.name}):\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, path)  # atomic: concurrent builders agree
+    return path

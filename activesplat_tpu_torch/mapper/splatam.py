@@ -43,6 +43,7 @@ from activesplat_tpu_torch.io.params_io import (
 )
 from activesplat_tpu_torch.io.png import write_png
 from activesplat_tpu_torch.mapper import MapperState, MapperType
+from activesplat_tpu_torch.mapper.cloud_box import cloud_box
 from activesplat_tpu_torch.mapper.config import MapperConfig
 from activesplat_tpu_torch.mapper.keyframes import KeyframeStore
 from activesplat_tpu_torch.mapper.step import (
@@ -59,7 +60,7 @@ from activesplat_tpu_torch.parallel.sharded import RenderMesh, mesh_for_height, 
 from activesplat_tpu_torch.queries.clusters import _dbscan_exact, resize_linear_u8
 from activesplat_tpu_torch.queries.panorama import global_invisibility, local_invisibility
 from activesplat_tpu_torch.utils import OPENCV_TO_OPENGL
-from activesplat_tpu_torch.utils.tracing import fetch, format_stage_report, host_value, stage
+from activesplat_tpu_torch.utils.tracing import attach, fetch, format_stage_report, host_value, stage
 from activesplat_tpu_torch.utils.transforms import mat_to_q_pos, rot_axis
 
 @torch.no_grad()
@@ -436,18 +437,11 @@ class SplaTAMMapper:
         self.mapping_frame_time_count += 1
 
     def _log_change(self, depth: np.ndarray, c2w: np.ndarray) -> None:
-        """Record the current frame's cloud AABB against the new map_version."""
-        fx, fy = self.intrinsics[0, 0], self.intrinsics[1, 1]
-        cx, cy = self.intrinsics[0, 2], self.intrinsics[1, 2]
-        v, u = np.nonzero(depth > 0)
-        if len(v) == 0:
-            p = c2w[:3, 3][None]
-        else:
-            z = depth[v, u].astype(np.float64)
-            x = (u - cx) / fx * z
-            y = (v - cy) / fy * z
-            p = np.stack([x, y, z], -1) @ c2w[:3, :3].T + c2w[:3, 3]
-        self._change_log.append((self.map_version, np.stack([p.min(0), p.max(0)])))
+        """Record the current frame's cloud AABB against the new map_version;
+        the span gets the valid pixels and the rows numpy back-projected."""
+        box, pixels, rows = cloud_box(depth, self.intrinsics, c2w)
+        attach(pixels=pixels, rows=rows)
+        self._change_log.append((self.map_version, box))
         if len(self._change_log) > self._change_log_cap:
             drop = len(self._change_log) - self._change_log_cap
             self._change_log_floor = self._change_log[drop - 1][0]

@@ -2,11 +2,9 @@
 activesplat_tpu/runtime/native_raycast.py), built from the port's own
 csrc/raycast.cpp at first use.
 
-The library goes to `build/libraycast-<hash>.so` at the checkout's root, as
-`_build.py` names the CUDA libraries: the hash covers the source, the
-compiler flags and what `-march=native` means to the compiler on this host
-(`<cxx> -march=native -Q --help=target`), so a library built on one machine
-is never loaded on another with a different instruction set. It is written
+The library goes to `build/libraycast-<hash>.so` at the checkout's root,
+built by `_build.build_host`: the hash covers the source, the compiler flags
+and what `-march=native` means to the compiler on this host. It is written
 to a temporary file and moved into place, so processes that build at once
 agree.
 
@@ -19,59 +17,22 @@ to name another compiler than g++.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 from typing import Optional, Tuple
 
 import numpy as np
 
+from activesplat_tpu_torch import _build
+
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "raycast.cpp"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build"
-CXX_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC")
 
 _lib: Optional[ctypes.CDLL] = None
 
 
-def find_cxx() -> str:
-    name = os.environ.get("CXX", "g++")
-    path = shutil.which(name)
-    if path is None:
-        raise RuntimeError(f"the native raycaster needs a C++ compiler: {name!r} was not found "
-                           f"(set CXX to one, or ACTIVESPLAT_NATIVE=0 for the numpy raycaster)")
-    return path
-
-
-def library_path(cxx: str) -> Path:
-    target = subprocess.run([cxx, "-march=native", "-Q", "--help=target"],
-                            capture_output=True, text=True)
-    if target.returncode != 0:
-        raise RuntimeError(f"{cxx} -march=native -Q --help=target failed:\n{target.stderr}")
-    digest = hashlib.sha256()
-    digest.update(SOURCE.read_bytes())
-    digest.update(" ".join(CXX_FLAGS).encode())
-    digest.update(target.stdout.encode())
-    return BUILD_DIR / f"libraycast-{digest.hexdigest()[:16]}.so"
-
-
 def build() -> Path:
     """The library's path, compiling it first if it is missing."""
-    cxx = find_cxx()
-    path = library_path(cxx)
-    if path.exists():
-        return path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"{path.name}.{os.getpid()}.tmp"
-    proc = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"building the native raycaster failed ({cxx} {' '.join(CXX_FLAGS)} "
-                           f"{SOURCE.name}):\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, path)  # atomic: concurrent builders agree
-    return path
+    return _build.build_host(SOURCE, BUILD_DIR, "the native raycaster")
 
 
 def get_lib() -> ctypes.CDLL:
