@@ -100,7 +100,7 @@ __global__ void __launch_bounds__(PX, 4)
 tile_bwd_walk_kernel(const float* __restrict__ rows, const int* __restrict__ u0,
                      const int* __restrict__ v0, const float* __restrict__ entry,
                      const float* __restrict__ g_accum, const float* __restrict__ g_logt,
-                     const float* __restrict__ suffix, int n_seg, int row_skip,
+                     const float* __restrict__ suffix, int n_seg,
                      float* __restrict__ d_rows) {
   __shared__ __align__(16) float seg[SEG * N_ATTR];
   __shared__ float partial[N_WARPS * SEG * N_COLS];  // (warp, row, column) warp sums
@@ -135,7 +135,7 @@ tile_bwd_walk_kernel(const float* __restrict__ rows, const int* __restrict__ u0,
   for (int c = 0; c < C; ++c) g[c] = g_accum[pix * C + c];
   const float glt = g_logt[pix];
 
-  walk_rows<C>(seg, partial, px, py, g, glt, logt_in, b_in, total, row_skip, warp, lane);
+  walk_rows<C>(seg, partial, px, py, g, glt, logt_in, b_in, total, warp, lane);
   __syncthreads();
   write_rows<C>(partial, d_rows + first_row * N_ATTR, p);
 }
@@ -162,7 +162,7 @@ extern "C" int tile_bwd_suffix(const void* rows, const void* u0, const void* v0,
 extern "C" int tile_bwd_walk(const void* rows, const void* u0, const void* v0,
                              const void* entry, const void* g_accum, const void* g_logt,
                              const void* suffix, int n_tiles, int k, int n_channels,
-                             int row_skip, void* d_rows, void* stream) {
+                             void* d_rows, void* stream) {
   const int n_seg = k / SEG;
   return with_channels(n_channels, [&](auto c) {
     constexpr int C = decltype(c)::value;
@@ -171,7 +171,7 @@ extern "C" int tile_bwd_walk(const void* rows, const void* u0, const void* v0,
           static_cast<const float*>(rows), static_cast<const int*>(u0),
           static_cast<const int*>(v0), static_cast<const float*>(entry),
           static_cast<const float*>(g_accum), static_cast<const float*>(g_logt),
-          static_cast<const float*>(suffix), n_seg, row_skip, static_cast<float*>(d_rows));
+          static_cast<const float*>(suffix), n_seg, static_cast<float*>(d_rows));
     return static_cast<int>(cudaGetLastError());
   });
 }

@@ -206,13 +206,12 @@ __device__ __forceinline__ float piece_total(const float* seg, float px, float p
 // The staged piece's gradients at pixel (px, py), entering at logt_in with
 // the carry b_in of the rows behind the piece and the piece's own total
 // (piece_total's, scaled to logt_in): each row's warp sums go into
-// partial[(warp, row, column)]. With row_skip, a warp-row that the reach
-// mask rules out, or that holds no live pair, skips the exchange.
+// partial[(warp, row, column)]. A warp-row that the reach mask rules out,
+// or that holds no live pair, skips the exchange.
 template <int C>
 __device__ __forceinline__ void walk_rows(const float* seg, float* partial, float px, float py,
                                           const float (&g)[C], float glt, float logt_in,
-                                          float b_in, float total, int row_skip, int warp,
-                                          int lane) {
+                                          float b_in, float total, int warp, int lane) {
   static_assert(6 + C <= N_COLS, "the butterfly carries 16 columns");
   float run = 0.0f;   // exclusive in-piece log prefix, as piece_total carries it
   float incl = 0.0f;  // inclusive in-piece sum of w_j s_j
@@ -220,7 +219,7 @@ __device__ __forceinline__ void walk_rows(const float* seg, float* partial, floa
   for (int j = 0; j < SEG; ++j) {
     const float* r = seg + j * N_ATTR;
     bool maybe = in_reach(r, warp);
-    if (row_skip && !maybe) {  // the whole warp is dead for this row
+    if (!maybe) {  // the whole warp is dead for this row
       if (lane % 2 == 0) partial[(warp * SEG + j) * N_COLS + lane / 2] = 0.0f;
       continue;
     }
@@ -264,7 +263,7 @@ __device__ __forceinline__ void walk_rows(const float* seg, float* partial, floa
       }
     }
     float sum = 0.0f;
-    if (!row_skip || __any_sync(FULL, live)) sum = warp_column_sum(v, lane);
+    if (__any_sync(FULL, live)) sum = warp_column_sum(v, lane);
     if (lane % 2 == 0) partial[(warp * SEG + j) * N_COLS + lane / 2] = sum;
   }
 }

@@ -140,7 +140,7 @@ csr_bwd_walk_kernel(const float* __restrict__ rows, const int* __restrict__ seg_
                     const int* __restrict__ seg_u0, const int* __restrict__ seg_v0,
                     const float* __restrict__ entry, const float* __restrict__ g_accum,
                     const float* __restrict__ g_logt, const float2* __restrict__ pieces,
-                    int n_seg, int n_tiles, int row_skip, float* __restrict__ d_rows) {
+                    int n_seg, int n_tiles, float* __restrict__ d_rows) {
   __shared__ __align__(16) float seg[SEG * N_ATTR];
   __shared__ float partial[N_WARPS * SEG * N_COLS];  // (warp, row, column) warp sums
 
@@ -196,7 +196,7 @@ csr_bwd_walk_kernel(const float* __restrict__ rows, const int* __restrict__ seg_
   for (int c = 0; c < C; ++c) g[c] = g_accum[pix * C + c];
   const float glt = g_logt[pix];
 
-  walk_rows<C>(seg, partial, px, py, g, glt, e_q, b, total_q, row_skip, warp, lane);
+  walk_rows<C>(seg, partial, px, py, g, glt, e_q, b, total_q, warp, lane);
   __syncthreads();
   write_rows<C>(partial, d_rows + first_row * N_ATTR, p);
 }
@@ -222,7 +222,7 @@ extern "C" int csr_bwd_pieces(const void* rows, const void* seg_tile, const void
 extern "C" int csr_bwd_walk(const void* rows, const void* seg_tile, const void* seg_u0,
                             const void* seg_v0, const void* entry, const void* g_accum,
                             const void* g_logt, const void* pieces, int n_seg, int n_tiles,
-                            int n_channels, int row_skip, void* d_rows, void* stream) {
+                            int n_channels, void* d_rows, void* stream) {
   return with_channels(n_channels, [&](auto c) {
     constexpr int C = decltype(c)::value;
     if (n_seg > 0)
@@ -231,7 +231,7 @@ extern "C" int csr_bwd_walk(const void* rows, const void* seg_tile, const void* 
           static_cast<const int*>(seg_u0), static_cast<const int*>(seg_v0),
           static_cast<const float*>(entry), static_cast<const float*>(g_accum),
           static_cast<const float*>(g_logt), static_cast<const float2*>(pieces), n_seg, n_tiles,
-          row_skip, static_cast<float*>(d_rows));
+          static_cast<float*>(d_rows));
     return static_cast<int>(cudaGetLastError());
   });
 }

@@ -95,7 +95,7 @@ template <int C, bool AUDIT>
 __global__ void __launch_bounds__(PX)
 tile_fwd_partials_kernel(const float* __restrict__ rows, const int* __restrict__ u0,
                          const int* __restrict__ v0, int n_tiles, int n_seg, float margin,
-                         unsigned reach_and, unsigned reach_or, int* __restrict__ skip_from,
+                         unsigned reach_and, int* __restrict__ skip_from,
                          float* __restrict__ part, int* __restrict__ audit) {
   __shared__ __align__(16) float seg[SEG * N_ATTR];
   __shared__ unsigned votes;  // VOTE_DONE for each warp that is done, plus 1 if it saturated
@@ -120,7 +120,7 @@ tile_fwd_partials_kernel(const float* __restrict__ rows, const int* __restrict__
 #pragma unroll 2
   for (int j = 0; j < SEG; ++j) {
     const float* r = seg + j * N_ATTR;
-    const bool reached = ((__float_as_uint(r[REACH_COL]) & reach_and) | reach_or) & warp_bit;
+    const bool reached = __float_as_uint(r[REACH_COL]) & reach_and & warp_bit;
     if (!AUDIT && !reached) continue;  // the whole warp is dead for this row
     float dx, dy;
     const float power = pair_power(r, px, py, dx, dy);
@@ -162,7 +162,7 @@ tile_fwd_combine_kernel(const float* __restrict__ part, int n_seg, float* __rest
 
 // Pass 1 after resetting the tile's exit words (bytes 0x7f: a large index).
 int partials(const float* rows, const int* u0, const int* v0, int n_tiles, int k, int n_channels,
-             float margin, unsigned reach_and, unsigned reach_or, int* skip_from, float* part,
+             float margin, unsigned reach_and, int* skip_from, float* part,
              int* audit, cudaStream_t stream) {
   const int n_seg = k / SEG;
   if (n_tiles == 0 || n_seg == 0) return static_cast<int>(cudaGetLastError());
@@ -173,7 +173,7 @@ int partials(const float* rows, const int* u0, const int* v0, int n_tiles, int k
     const auto kernel = audit == nullptr ? tile_fwd_partials_kernel<C, false>
                                          : tile_fwd_partials_kernel<C, true>;
     kernel<<<n_tiles * n_seg, PX, 0, stream>>>(rows, u0, v0, n_tiles, n_seg, margin, reach_and,
-                                               reach_or, skip_from, part, audit);
+                                               skip_from, part, audit);
     return static_cast<int>(cudaGetLastError());
   });
 }
@@ -199,7 +199,7 @@ extern "C" int blend_tiles_fwd(const void* rows, const void* u0, const void* v0,
   const auto st = static_cast<cudaStream_t>(stream);
   const int err = partials(static_cast<const float*>(rows), static_cast<const int*>(u0),
                            static_cast<const int*>(v0), n_tiles, k, n_channels, DEAD_MARGIN,
-                           ALL_WARPS, 0u, static_cast<int*>(skip_from), static_cast<float*>(part),
+                           ALL_WARPS, static_cast<int*>(skip_from), static_cast<float*>(part),
                            nullptr, st);
   if (err != 0) return err;
   return combine(static_cast<const float*>(part), n_tiles, k, n_channels,
@@ -207,19 +207,17 @@ extern "C" int blend_tiles_fwd(const void* rows, const void* u0, const void* v0,
                  static_cast<float*>(entry), st);
 }
 
-// Pass 1 alone. Each row's warp mask is taken as (mask & reach_and) |
-// reach_or: ALL_WARPS and 0 as the kernel runs; reach_or = ALL_WARPS walks
-// every warp-row and reach_and = 0 none (for timing); a bit cleared from
-// reach_and drops that warp (a planted fault the audit must catch). `audit`
-// may be null.
+// Pass 1 alone. Each row's warp mask is taken as mask & reach_and:
+// ALL_WARPS as the kernel runs; a bit cleared from reach_and drops that warp
+// (a planted fault the audit must catch). `audit` may be null.
 extern "C" int tile_fwd_partials(const void* rows, const void* u0, const void* v0, int n_tiles,
-                                 int k, int n_channels, float margin, int reach_and, int reach_or,
+                                 int k, int n_channels, float margin, int reach_and,
                                  void* skip_from, void* part, void* audit, void* stream) {
   return partials(static_cast<const float*>(rows), static_cast<const int*>(u0),
                   static_cast<const int*>(v0), n_tiles, k, n_channels, margin,
-                  static_cast<unsigned>(reach_and), static_cast<unsigned>(reach_or),
-                  static_cast<int*>(skip_from), static_cast<float*>(part),
-                  static_cast<int*>(audit), static_cast<cudaStream_t>(stream));
+                  static_cast<unsigned>(reach_and), static_cast<int*>(skip_from),
+                  static_cast<float*>(part), static_cast<int*>(audit),
+                  static_cast<cudaStream_t>(stream));
 }
 
 // Pass 2 alone; `entry` may be null.

@@ -610,16 +610,16 @@ def _kernel(library: str, symbol: str):
 _ARG_TYPES = {"p": _P, "i": _I, "l": ctypes.c_int64, "f": ctypes.c_float}
 _SIGNATURES = {
     "blend_tiles_fwd": "pppiiipppppp",
-    "tile_fwd_partials": "pppiiifiipppp",
+    "tile_fwd_partials": "pppiiifipppp",
     "tile_fwd_combine": "piiipppp",
     "tile_fwd_occupancy": "ip",
     "tile_bwd_suffix": "pppppiiifppp",
-    "tile_bwd_walk": "pppppppiiiipp",
+    "tile_bwd_walk": "pppppppiiipp",
     "tile_bwd_occupancy": "ip",
     "blend_csr_fwd_partials": "ppppiiifpppp",
     "blend_csr_fwd_combine": "pppiipppp",
     "csr_bwd_pieces": "ppppppiiifppp",
-    "csr_bwd_walk": "ppppppppiiiipp",
+    "csr_bwd_walk": "ppppppppiiipp",
     "csr_bwd_occupancy": "ip",
     "blend_csr_dual_partials": "ppppiiifpppp",
     "blend_csr_dual_combine": "pppiipppp",
@@ -663,17 +663,15 @@ def _check_partials(partials, n_channels):
 
 
 def tile_fwd_partials_cuda(tile_data, tile_u0, tile_v0, n_channels=5, margin=DEAD_MARGIN,
-                           out=None, audit=None, reach=True, drop_warps=0):
+                           out=None, audit=None, drop_warps=0):
     """Pass 1 of B1 on the card: tile_fwd_partials_plain's partials (T,
     K/SEG, PX, C + 1) for every segment that the kernel does not skip; the
     skipped segments (after one that saturates its tile by itself) keep what
     `out` held (default: torch.empty). `margin` is the dead-pair test's;
     `audit`, an int32 (1,) tensor, counts the pairs that test or the warp
-    reach mask kills although the full formula keeps them. `reach=False`
-    walks every warp-row (the same result; for timing); `drop_warps`, a bit
-    per warp, clears warps from every row's reach mask: one bit is a planted
-    fault for the audit, ALL_WARPS walks no row (the pass's staging and
-    stores alone, for timing). The wrapper's pass; the smoke checks it."""
+    reach mask kills although the full formula keeps them. `drop_warps`, a
+    bit per warp, clears warps from every row's reach mask: a planted fault
+    for the audit. The wrapper's pass; the smoke checks it."""
     _check_rows(tile_data, tile_u0, tile_v0, n_channels)
     t, k, _ = tile_data.shape
     if out is None:
@@ -685,7 +683,7 @@ def tile_fwd_partials_cuda(tile_data, tile_u0, tile_v0, n_channels=5, margin=DEA
     with torch.cuda.device(tile_data.device):
         ptrs = _cuda_args(tile_data, tile_u0, tile_v0, skip_from, out)
         _launch(_kernel("blend_fwd", "tile_fwd_partials"), "tile_fwd_partials", *ptrs[:3], t, k,
-                n_channels, margin, ALL_WARPS & ~drop_warps, 0 if reach else ALL_WARPS, *ptrs[3:],
+                n_channels, margin, ALL_WARPS & ~drop_warps, *ptrs[3:],
                 None if audit is None else _cuda_args(audit)[0])
     return out
 
@@ -759,11 +757,9 @@ def tile_bwd_suffix_cuda(tile_data, tile_u0, tile_v0, entry, g_accum, n_channels
 
 
 def tile_bwd_walk_cuda(tile_data, tile_u0, tile_v0, entry, g_accum, g_logt, suffix,
-                       n_channels=5, row_skip=True):
+                       n_channels=5):
     """Pass 2 of B2 on the card: tile_bwd_walk_plain's gradient rows from
-    the totals `suffix`. `row_skip=False` runs the pixel sum on warp-rows
-    with no live pair too (the same result; for timing). The wrapper's
-    pass; the smoke checks it."""
+    the totals `suffix`. The wrapper's pass; the smoke checks it."""
     _check_bwd(tile_data, tile_u0, tile_v0, n_channels, entry=entry, g_accum=g_accum,
                g_logt=g_logt, suffix=suffix)
     t, k, _ = tile_data.shape
@@ -771,7 +767,7 @@ def tile_bwd_walk_cuda(tile_data, tile_u0, tile_v0, entry, g_accum, g_logt, suff
     with torch.cuda.device(tile_data.device):
         ptrs = _cuda_args(tile_data, tile_u0, tile_v0, entry, g_accum, g_logt, suffix, d_rows)
         _launch(_kernel("blend_bwd", "tile_bwd_walk"), "tile_bwd_walk", *ptrs[:7], t, k,
-                n_channels, int(row_skip), ptrs[7])
+                n_channels, ptrs[7])
     return d_rows
 
 
@@ -922,11 +918,9 @@ def csr_bwd_pieces_cuda(entry_data, seg_tile, seg_u0, seg_v0, entry, g_accum, n_
 
 
 def csr_bwd_walk_cuda(entry_data, seg_tile, seg_u0, seg_v0, entry, g_accum, g_logt, pieces,
-                      n_tiles, n_channels=5, row_skip=True):
+                      n_tiles, n_channels=5):
     """Pass 2 of B4 on the card: csr_bwd_walk_plain's gradient rows from the
-    piece totals `pieces`. `row_skip=False` runs the pixel sum on warp-rows
-    with no live pair too (the same result; for timing). The wrapper's
-    pass; the smoke checks it."""
+    piece totals `pieces`. The wrapper's pass; the smoke checks it."""
     _check_csr_bwd(entry_data, seg_tile, seg_u0, seg_v0, n_tiles, n_channels, entry=entry,
                    g_accum=g_accum, g_logt=g_logt, pieces=pieces)
     n_seg = entry_data.shape[0] // CSEG
@@ -935,7 +929,7 @@ def csr_bwd_walk_cuda(entry_data, seg_tile, seg_u0, seg_v0, entry, g_accum, g_lo
         ptrs = _cuda_args(entry_data, seg_tile, seg_u0, seg_v0, entry, g_accum, g_logt, pieces,
                           d_data)
         _launch(_kernel("blend_csr_bwd", "csr_bwd_walk"), "csr_bwd_walk", *ptrs[:8], n_seg,
-                n_tiles, n_channels, int(row_skip), ptrs[8])
+                n_tiles, n_channels, ptrs[8])
     return d_data
 
 

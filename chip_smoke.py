@@ -1,37 +1,38 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+"""Smoke run of the PyTorch/CUDA port's kernels on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
-Phases, each fatal on failure:
+It checks on the card what neither the benchmark's cells nor the CPU tests
+check: each hand-written kernel against its plain PyTorch twin, and the port
+on the card against the port on the CPU. Phases, each fatal on failure:
   1. build the CUDA kernels from activesplat_tpu_torch/csrc; print the card
      and B1's, B2's and B4's two kernels' registers, shared memory and
      resident blocks;
   2. hold each blend kernel against its plain PyTorch twin: the tile blend
-     (B1, B2) on random tile rows (T=256, K=256 and the driver's K=1,024,
-     C=5, with empty, saturating and padded tiles), the CSR blend (B3, B4)
-     on a random CSR stream (tiles
-     with no, one and many segments, saturating tiles, padding segments),
-     and check that the comparisons reject planted faults; the dual CSR
-     blend (B5) on a random CSR stream with band bits (bands all set, none
-     and sparse, tiles whose full composite saturates a segment before the
-     band), with its two bitwise identities to B3; the bin kernel route
-     (B6: the count pass, torch.cumsum, the slot pass) on the passes that
-     bin_gaussians' kernel route hands its wrappers (the two scenes of
-     tests/test_raster_tiled.py:324-332 at k=128 and 256, and a scene of
-     4,090 blocks of 128 splats, near the route's gate, each at slot
-     offsets 0, 128 and 256): each pass bitwise against its plain version
-     (bin_split_checks: the count pass's words and counts, the slot pass fed
-     their cumsum against bin_slots_plain and against a torch model of its
-     algorithm, both passes repeated), the route's lists bitwise against
-     the sort route's, and planted faults rejected (of the output: the slot
-     off by one, the members before a slot counted from its own block, the
-     sentinel replaced by the window's last member; of the passes: a
-     rectangle counted one tile wider, padding words counted as members,
-     members ranked from the last lane down, the window test dropping the
-     block where the window starts);
+     (B1, B2) on random tile rows (T=256, K=256 and K=1,024, C=5, with
+     empty, saturating and padded tiles), the CSR blend (B3, B4) on a random
+     CSR stream (tiles with no, one and many segments, saturating tiles,
+     padding segments), and check that the comparisons reject planted
+     faults; the dual CSR blend (B5) on a random CSR stream with band bits
+     (bands all set, none and sparse, tiles whose full composite saturates
+     a segment before the band), with its two bitwise identities to B3; the
+     bin kernel route (B6: the count pass, torch.cumsum, the slot pass) on
+     the passes that bin_gaussians' kernel route hands its wrappers (the two
+     scenes of tests/test_raster_tiled.py:324-332 at k=128 and 256, and a
+     scene of 4,090 blocks of 128 splats, near the route's gate, each at
+     slot offsets 0, 128 and 256): each pass bitwise against its plain
+     version (bin_split_checks: the count pass's words and counts, the slot
+     pass fed their cumsum against bin_slots_plain and against a torch model
+     of its algorithm, both passes repeated), the route's lists bitwise
+     against the sort route's, and planted faults rejected (of the output:
+     the slot off by one, the members before a slot counted from its own
+     block, the sentinel replaced by the window's last member; of the
+     passes: a rectangle counted one tile wider, padding words counted as
+     members, members ranked from the last lane down, the window test
+     dropping the block where the window starts);
      B3 and B5 run as two passes (each segment alone, then a per-tile
-     combine): on every CSR stream checked here and below, each pass is
+     combine): on every CSR stream checked here and in phase 3, each pass is
      held against its plain version (split_checks: pass 1 into a NaN-filled
      scratch with the dead-pair audit, which must count 0 live pairs
      killed; the combine fed the kernel's own partials gives the plain
@@ -41,8 +42,8 @@ Phases, each fatal on failure:
      sign flipped) are rejected;
      B1 runs as two passes from one C call (each tile segment composited
      alone from transmittance 1, blocks in rank-major order, then the
-     per-tile combine): on every set of tile rows checked here and in 4a,
-     each pass is held against its plain version (tile_fwd_split_checks:
+     per-tile combine): on every set of tile rows checked here and in phase
+     3, each pass is held against its plain version (tile_fwd_split_checks:
      pass 1 into a NaN-filled scratch with the dead-pair and reach-mask
      audit, 0 live pairs killed, every walked segment computed; the combine
      fed the kernel's partials gives the plain combine's logT and stash
@@ -52,7 +53,7 @@ Phases, each fatal on failure:
      segments, the dead-pair margin's sign flipped) are rejected;
      B2 runs as two passes (each segment's suffix total, then the walk from
      the fold of the later totals): on every set of tile rows checked here
-     and in 4a, each pass is held against its plain version
+     and in phase 3, each pass is held against its plain version
      (tile_bwd_split_checks: pass 1 into a NaN-filled scratch with the
      dead-pair audit, 0 live pairs killed, exact zeros for skipped segments;
      pass 2 fed the kernel's totals against the plain walk fed the same; the
@@ -61,15 +62,15 @@ Phases, each fatal on failure:
      flipped) are rejected;
      B4 runs as two passes over the four 64-row pieces of each 256-row
      segment (each piece's log step and total from transmittance 1, then the
-     walk from the fold of the tile's later totals): on the random CSR
-     stream and the main path's training stream each pass is held against
-     its plain version (csr_bwd_split_checks: pass 1 into a NaN-filled
-     scratch with the audit, 0 live pairs killed, exact zeros on skipped and
-     padding segments; the walk fed the kernel's piece totals against the
-     plain walk fed the same; the wrapper equal to its passes bitwise and
-     repeatable), and planted faults (the piece totals shifted one piece
-     either way, a piece skipped by its own entry logT, the dead-pair
-     margin's sign flipped) are rejected;
+     walk from the fold of the tile's later totals): on every CSR stream it
+     is checked on, each pass is held against its plain version
+     (csr_bwd_split_checks: pass 1 into a NaN-filled scratch with the audit,
+     0 live pairs killed, exact zeros on skipped and padding segments; the
+     walk fed the kernel's piece totals against the plain walk fed the same;
+     the wrapper equal to its passes bitwise and repeatable), and planted
+     faults (the piece totals shifted one piece either way, a piece skipped
+     by its own entry logT, the dead-pair margin's sign flipped) are
+     rejected;
      the row gathers' backward (gather_rows_bwd, csrc/gather_bwd.cu) on a
      capped call at 512x512 (1,024 tiles x 1,024 rows, a fifth of them the
      padding row, into a 2.1M-row table, the gradient the 11 live columns
@@ -77,169 +78,65 @@ Phases, each fatal on failure:
      bitwise equal to the library's `_index_put_impl_`, the padding row
      zero, a second call bitwise equal to the first; the kernel's and the
      wrapper's ms beside its bound and the library's ms;
-  3. drive the mapping slice at the benchmark's size (200,000 Gaussians in
-     a 262,144-slot buffer, 256x256 sensor, k_per_tile=256,
-     exact_training="off"): first_frame_phase, three mapping_phase events of
-     10 iterations, one warm-up mapping_iteration and 30 timed ones. The
-     launch counters are set to 0 just before each of these phases and read
-     just after it; each event must launch B1 and B2 10 times and the timed
-     run 30 times, and B3/B4 never; in every phase the gather backward
-     launches once for each blend backward (B2 and B4). Then run 20 more
-     iterations under torch.profiler and print the device's busy time and
-     idle share per iteration and the operators that take the most device
-     and host time.
-     Then time the same iterations with the bin kernel route on
-     (raster_tiled._BIN_KERNEL, B6 launched once per iteration) between two
-     sort-route runs: sort, kernel, kernel, sort. Then check the port on
-     the card against the port on the CPU on a small scene;
-  3b. on the same map, exact_training="on" (k=256) and "hybrid" (k=64): one
-     mapping_phase event of 10 iterations and 10 timed iterations each, the
-     counters read after each ("on": B3 = B4 = 10 and B1 = B2 = 0, which
-     shows the entry-budget fallback did not fire; "hybrid": all four 10,
-     with harmful tiles in every iteration), each followed by 10 profiled
-     iterations; one render(exact=True), which must launch B3 once without
-     the stash and give the "on" render's image; the small scene on both
-     devices with "on" and "hybrid";
-  4a. on the mapping path's own rows (B1/B2: the tile rows of a k-capped
-     render; B3/B4: the CSR stream of an exact render, first held against
-     the twins as in phase 2; B1 and B2 also on phase 2's K=1,024 rows,
-     the walks of B2 and B4 again with the warp-row skip off and B1's pass
-     1 with the reach mask off) time each kernel (its own device time from
-     torch.profiler, and its wrapper per call between CUDA events), its
-     twin, and work out its bound; B6 on the bin of the map's k-capped
-     render (its visible prefix, k=256, offsets 0 and 256), held against
-     its plain versions and the sort route as in phase 2, each pass timed,
-     its bound (each pass's, and the slot-search formula beside it), and a trace of
-     both routes (each device operation's launches and ms, the host's
-     operators, the host ms a call);
-  3d. the per-frame mapper driver with the bin kernel route on:
-     SplaTAMMapper with MapperConfig() fed 40 frames of BoxWorld.two_room(0)
-     at 256x256 and 90 degrees hfov along turns and short moves from the
-     hermetic episode's start; its per-frame wall time, Gaussian count,
-     metrics, shape history, stage report with host syncs, launches (B1,
-     B2, B3 and B6 each launched) and a profile of one more mapping frame
-     (B1's and B2's device ms a call read from it, and B4's where it
-     launches); B6 on that frame's last bin (k=1,024): its passes checked,
-     timed and bounded, both routes traced, as on the main path; the main
-     path's and this bin's inputs are saved in build/ for
-     scripts/bin_route_trace.py;
-     then post_processing and a save_checkpoint / load_map round trip in a
-     temporary directory, the loaded map equal to the saved one; then the
-     driver on the card against the driver on the CPU over five 64x64
-     frames;
-  3c. free the 200k map, build bench.py's query map (1,000,000 Gaussians)
-     and drive the planner's queries at bench_queries' size: render_topdown
-     (B5 once; 5 timed calls), the dual maps against the pair of exact
-     renders, IncrementalTopdown through five refreshes (first, unchanged,
-     a moved ball as a window equal to a fresh render, a global move,
-     grown capacity), global_invisibility with two nodes at scale 0.5 (B3
-     six times; 5 timed calls) and local_invisibility at scale 1.0 (B3
-     three times), each phase's launches asserted; the peak device memory;
-     the small scene on both devices;
-  4b. B5 on the top-down query's own CSR stream, checked and timed as in
-     4a, and its pass 1 timed again with the dead-pair test off (the same
-     for B3's panorama entry in 4c);
-  4c. B3 held against its twin (forward, as in phase 2) on the CSR streams
-     of the six views of one global_invisibility call, each view timed, the
-     view with the most walked pairs measured as B3's panorama entry; print
-     one {"kernels": [...]} line (B3 twice: the training and the panorama
-     stream, each with the launches of its own phases), after phase 5;
-  5. the exploration episode through the port's run_episode at the
-     hermetic episode's configuration (two_room seed 0, 256x256,
-     MapperConfig(), the bin kernel route on), cut to 300 steps: the mean
-     wall per action and the first one's with the set-up, the stage
-     report, each kernel's launches (and whether the mapper switched to
-     hybrid), device busy time and idle share over the last 10 profiled
-     actions, the outcome (steps, ticks, targets planned, the navigations
-     the FSM ended and the targets reached, each target's closest approach,
-     Gaussians, explored area); fatal: the budget consumed, actions.txt one
-     valid action a step, params.npz, topdown_free_map.png,
-     visited_map.png and planner_log.jsonl written, no NaN parameter, a
-     target planned and a navigation ended; then the small card-against-CPU
-     episode (tests/test_torch_episode.py's parity run, the mapping picks
-     made deterministic on both devices): fatal unless its first target is
-     reached (within px_as_arrived), the actions are equal through that
-     arrival, and the explored area and Gaussian count are within 2%;
-     print one {"kernels": [...]} line, each kernel's launches summed over
-     the main path's phases, the episode and the judges;
-  5b. the judges over phase 5's outputs (eval/, runtime/launch.run_replay):
-     the coverage judge (eval_actions: 200,000 GT samples, 5 cm, the
-     episode's actions.txt replayed in a fresh dataset; fatal unless its
-     numbers are finite, 0 < completeness_ratio <= 1 and the path length is
-     the forward steps times the step); the map-quality judge
-     (eval_map_quality, the exact render at k=1,024 of every 10th dumped
-     frame: B3 once a scored frame, B1 and B2 never; ms a scored frame, then
-     a profile with the device's busy time and idle share); the NVS judge
-     (eval_nvs_from_dump, hold-out every 5th frame: B3 once a frame); a
-     replay of the episode's first 60 actions through run_replay (every
-     action consumed, params.npz written, no NaN parameter); LPIPS(alex) on
-     seeded weights on the card and the CPU (rel 1e-4) with its ms a
-     256x256 pair; the small episode's map scored on both devices (LPIPS
-     through its env gate; within 1e-5 relative, 1e-6 absolute) and
-     fit_offline on its dump on both devices (mapping picks deterministic;
-     the first mapping event's gradients with no sign differing among the
-     significant ones, 99% within 1e-3; metrics within 1e-3, Gaussians
-     within 0.2%; FIT_RTOL says why); B3 held against its twin
-     on the CSR stream of one scored frame (forward, as in 4c), timed and
-     bounded, with the judges' launches as B3's "eval render" entry;
-  6. the Habitat path at 512x512: the launcher's CLI (runtime/launch.main)
-     with --config gibson_high_resolution --habitat_sim mock
-     --save_runtime_data 1 --live_view_port 0 on the card, the bin kernel
-     route on, the config's 1,000 steps cut to 150 (every other knob the
-     config's: 512x512, mapping_iters 10, map_every 5, pixel_max 360): the
-     mean wall per action, the stage report, each kernel's launches and the
-     B3 launches of the recorder's and live view's view renders and of the
-     orbit overlay apart, device busy time and idle share over the last 10
-     profiled actions, the Gaussians, explored area, targets planned and
-     reached; fatal: the sensor 512x512 with cx = cy = 255, the budget
-     consumed with one valid action a step in actions.txt, params.npz
-     finite, the recorder's topdown_map/, opacity/ and current_vis_data/
-     filled and its first 2x3 panel 1,024x1,536, no gt_mesh.json, the live
-     view's page, view, top-down map and metrics fetched over HTTP while the
-     episode runs (metrics step positive), each kernel launched (B4 exactly
-     when the mapper went hybrid); the coverage judge through the adapter
-     on the episode's actions.txt (a fresh Eval dataset on the mock, 200,000
-     GT samples, 5 cm; fatal unless finite and 0 < completeness_ratio <= 1);
-     each kernel held against its twin, timed and bounded as in phase 4 on
-     this phase's inputs (B1/B2 on the last training render's tile rows over
-     1,024 tiles, B3 on the last exact render's CSR stream of the frame, B4
-     on the training stream if the mapper went hybrid, B5 on the last
-     top-down query's stream, B6 on the last 512x512 bin), each entry
-     counting the launches of this phase only; the small mock-Habitat
-     episode on the card against the CPU (tests/test_torch_habitat_episode.py's
-     parity run, deterministic picks: every action and the Gaussian count
-     equal, the area within 2%); one 512x512 frame of the native raycaster
-     against the numpy one on the host (within 1e-4, both timed);
-  7. the multi-device path (parallel/sharded.py) on a virtual mesh that
-     names the card MESH_SHARDS=4 times (torch.cuda.device_count() printed;
-     over several cards the sharded render is also held against the
-     unsharded one on the real devices, a branch that says so where it does
-     not run): the ms per mapping iteration on phase 3's map, unsharded
-     (mapping_iteration) and sharded (sharded_mapping_step), 20 iterations a
-     run in turns (unsharded, sharded, sharded, unsharded), timed in a child
-     process (chip_smoke.py --mesh-timing) that runs no profiler session;
-     then on phase 3's map at 256x256 (64 rows a shard): render_sharded_tiled
+  3. each kernel on the main path's own inputs, held against its twin as in
+     phase 2, timed and bounded (`measure`, `bound`). At 256x256 on
+     runtime/bench_scene.py's maps: B1 and B2 on the tile rows of a k-capped
+     render of the 200,000-Gaussian map (k=256), B3 and B4 on the CSR stream
+     of its exact render, B6 on the render's bin (its visible prefix, k=256,
+     slot offsets 0 and 256); B5 on the CSR stream of render_topdown and B3
+     on the panorama view with the most walked pairs of one
+     global_invisibility call (two nodes at scale 0.5), both on the
+     1,000,000-Gaussian query map. One render(exact=True) of the 200,000
+     map must launch B3 once without the stash and give the image of the
+     exact_training="on" render's forward;
+  4. the multi-device path (parallel/sharded.py) on a virtual mesh that
+     names the card MESH_SHARDS=4 times (64 rows a shard at 256x256; over
+     several cards the sharded render is also held against the unsharded
+     one on the real devices, a branch that says so where it does not run),
+     against the unsharded path on phase 3's maps: render_sharded_tiled
      against render (B1 four times; `dropped` the sum of the shards' own),
      sharded_mapping_loss's value and gradients against mapping_loss for
      "off" (k=256: B1 and B2 four times), "on" (k=256: B3 and B4 four times)
-     and "hybrid" at k=64 (the mesh trains it as "on": B3 and B4 four times,
-     against the unsharded "on"); one mapping_phase event of 10 iterations
-     with mesh= against the unsharded event (the same store and draws; B1
-     and B2 40 times against 10): the first iteration's gradients and
-     metrics tight, every iteration's metrics within MESH_METRIC_RTOL; 10
-     sharded steps under torch.profiler (device busy time and idle share);
-     B1 and B2 on one shard's tile rows and B3 and B4 on its CSR stream,
-     each held against its twin with its two passes against their plain
-     versions and planted faults rejected, timed and bounded, each entry
-     counting this phase's sharded launches only (MESH_PHASES); the driver
-     (SplaTAMMapper, MapperConfig(), the bin kernel route on) over 10
-     frames with the mesh against the unsharded driver: the Gaussian count
-     equal, the last metrics within MESH_METRIC_RTOL; global_invisibility
-     and local_invisibility on phase 3c's query map with the views sharded,
-     equal to the unsharded queries bitwise. Every launch count asserted;
-     the tolerances are MESH_*'s;
-  8. print one {"gather_bwd": ...} line (phase 2's readings and the
-     launches of phase 3's phases), then the device line last.
+     and "hybrid" at k=64 (the mesh trains it as "on"; unsharded, its
+     harmful tiles run all four blends once); one mapping_phase
+     event of 10 iterations with mesh= against the unsharded event (the
+     same store and draws; B1 and B2 40 times against 10): the first
+     iteration's gradients and metrics tight, every iteration's metrics
+     within MESH_METRIC_RTOL; the driver (SplaTAMMapper, MapperConfig())
+     over MESH_FRAMES frames with the mesh against the unsharded driver: the
+     Gaussian count equal, the last metrics within MESH_METRIC_RTOL;
+     global_invisibility and local_invisibility on the query map with the
+     views sharded, equal to the unsharded queries bitwise. Every launch
+     count asserted, with one gather backward for each blend backward;
+  5. each kernel at 512x512 (1,024 tiles, k=1,024), as in phase 3, on a map
+     that the mapper driver builds from MAP_FRAMES frames of
+     gibson_high_resolution's configuration in BoxWorld.single_room(87): B1
+     and B2 on the rows of a k-capped render, B3 and B4 on the stream of an
+     exact render, B5 on render_topdown's stream, B6 on the render's bin.
+     The two renders' bins (256x256 and 512x512) are saved in build/ for
+     scripts/bin_route_trace.py;
+  6. the port on the card against the port on the CPU on small inputs:
+     mapping_loss and its gradients on a small scene with exact_training
+     "off", "on" and "hybrid" (small_scene_check); render_topdown and
+     render_panorama (small_query_check); the mapper driver over five 64x64
+     frames (small_driver_check); tests/test_torch_episode.py's parity
+     episode, fatal unless the CPU run reaches its first target and the
+     card's actions equal the CPU's through that arrival
+     (small_episode_check); the judges over that episode's dump and
+     fit_offline (small_judges_check); LPIPS(alex) on seeded weights
+     (lpips_check); the Habitat adapter's mock episode
+     (habitat_small_check); and one 512x512 frame of the native raycaster
+     against the numpy one on the host (native_raycast_check);
+  7. print each kernel's line and one {"kernels": [...]} line (B3 twice at
+     256x256: the training stream and the panorama view), one
+     {"gather_bwd": ...} line, then the device line last.
+
+A kernel's "ms" is its own device time (torch.profiler, kernel_device_ms;
+B1-B6: both passes summed, each in "pass_ms"), "wrapper_ms" the wrapper's
+time per call of 100 back-to-back calls between CUDA events (which holds
+the wrapper's helper kernels and, where the host is slower than the device,
+its Python), "plain_ms" the twin's, "bound_ms" the least time the card could
+take on these inputs (`bound`, `bin_bound`).
 
 It needs one CUDA card and exits non-zero without one, or without the rest of
 the repository beside it.
@@ -258,12 +155,6 @@ N_GAUSSIANS = 200_000
 RES = 256
 K_PER_TILE = 256
 N_CHANNELS = 5
-EVENTS = 3
-EVENT_ITERS = 10
-TIMED_ITERS = 30
-PROFILE_ITERS = 20
-EXACT_TIMED_ITERS = 10  # timed iterations of exact_training "on" and "hybrid"
-PROFILE_EXACT_ITERS = 10
 HYBRID_K = 64  # a k at which the map has harmful tiles in every iteration
 
 # H100 SXM peaks (NVIDIA data sheet and Hopper white paper): HBM3 bandwidth,
@@ -336,7 +227,6 @@ BIN_SPLIT_FAULTS = ("a rectangle counted one tile wider", "padding words counted
                     "place of hi > off)")
 # kernels of one B6 route call: the count pass, then (after torch.cumsum) the slot pass
 B6_PASSES = ("bin_count_kernel", "bin_slots_kernel")
-ROUTE_TRACE_CALLS = 20
 # the row gathers' backward at 512x512: one capped call's tiles x rows, one
 # CSR call's entries, a map's Gaussians, the padding row's share of the ids
 GATHER_CAPPED = (1024, 1024)
@@ -344,8 +234,8 @@ GATHER_CSR_ROWS = 280_000
 GATHER_TABLE_ROWS = 2_100_000
 GATHER_PAD_SHARE = 0.2
 GATHER_WIDTH = 6 + N_CHANNELS
-# the bin inputs of the main path and the driver, kept for
-# scripts/bin_route_trace.py to trace another tree's routes on them
+# the bin inputs of phases 3 and 5, kept for scripts/bin_route_trace.py to
+# trace another tree's routes on them
 BIN_INPUTS = Path(__file__).resolve().parent / "build" / "bin_route_inputs.pt"
 # planted faults of the CSR forward kernels' two passes (split_checks)
 SPLIT_FAULTS = ("the combine reading its partials one segment off",
@@ -375,26 +265,15 @@ B4_SPLIT_FAULTS = ("the walk fed the piece totals one piece toward the front",
                    "the walk fed the piece totals one piece back",
                    "a piece skipped by its own entry logT (not its segment's)",
                    "the dead-pair margin's sign flipped")
-# the query phases whose B3 launches render panorama views
-PANORAMA_PHASES = ("global_invisibility", "global_invisibility timed", "local_invisibility")
 
-# the per-frame mapper driver at the hermetic episode's configuration
-# (activesplat_tpu/runtime/launch.py:33-69: two_room, seed 0, 256x256,
-# 90 degrees hfov, depth to 10 m, MapperConfig() defaults)
-DRIVER_FRAMES = 40
+# the small driver check's frames at the hermetic episode's configuration
+# (activesplat_tpu/runtime/launch.py:33-69: two_room, seed 0, 90 degrees
+# hfov, depth to 10 m, MapperConfig() defaults)
 DRIVER_STEP_NUM = 500  # the episode's step budget (make_synthetic_dataset)
 CAMERA_HEIGHT = 1.25  # RGBDSensor.position above the agent's base
 TURN_DEG = 10.0  # SyntheticDataset's turn and forward step
 FORWARD_STEP = 0.065
 
-# the exploration episode (runtime/launch.run_episode) at
-# make_synthetic_dataset's configuration (runtime/launch.py: two_room, seed
-# 0, 256x256, 90 degrees hfov, depth to 10 m, 10 degree turns, 15 degree
-# tilts, MapperConfig(), pixel_max 360, pano_scale 1.0), its step budget cut
-# from 500 to fit the smoke; the last EPISODE_PROFILED actions run under
-# torch.profiler, after the timed ones
-EPISODE_STEPS = 300
-EPISODE_PROFILED = 10
 # the small card-against-CPU episode: tests/test_torch_episode.py's parity
 # run (single_room seed 2, 48x48, 45 degree turns, 18 steps, the lean
 # mapper), which plans its first target after the 16 actions of its spin,
@@ -411,55 +290,43 @@ SMALL_EPISODE_CFG = dict(initial_capacity=1 << 12, max_capacity=1 << 15, keyfram
 EPISODE_AREA_RTOL = 0.02
 EPISODE_GAUSSIAN_RTOL = 0.02
 
-# phase 5b, the judges, over phase 5's outputs: the coverage judge at the
-# reference's settings (eval_actions.py: 200,000 GT samples, 5 cm); the map
-# and NVS judges at scripts/rescore_episode.py's defaults (EP_K, EP_STRIDE)
-# and eval_nvs_from_dump's hold-out; a replay of the episode's first actions
-COVERAGE_SAMPLES = 200_000
-COVERAGE_THRESHOLD = 0.05
+# the judges, card against CPU, over the small episode's dump: the map
+# judge's k (scripts/rescore_episode.py's EP_K); the scores of one map
+# within the tolerance of tests/test_torch_judges.py, LPIPS within that of
+# tests/test_torch_eval.py, the offline fit's Gaussian count within that of
+# tests/test_torch_modes.py. The fit's end metrics are held to 1e-3, not to
+# that test's 1e-5 (the JAX and port fits on one CPU): the quaternions of
+# still-spherical Gaussians have a true gradient of 0, and Adam's eps of
+# 1e-15 turns their rounding noise (1e-10) into whole learning-rate steps
+# whose signs follow the summation order, so the two devices' maps part
+# from the second mapping event on (the PSNR by 1.04e-4 relative on an
+# H100). The first event's gradients are held instead: no sign differs
+# among those above 1e-6 of their field's largest, and 99% of them agree
+# within FIT_GRAD_RTOL.
 EVAL_K = 1024
-EVAL_STRIDE = 10
-NVS_HOLDOUT = 5
-REPLAY_ACTIONS = 60
-# the phases whose B3 launches render scored frames (B3's "eval render" entry)
-EVAL_PHASES = ("map quality", "map quality timed", "map quality profiled", "nvs")
-# card against CPU: the scores of one map within the tolerance of
-# tests/test_torch_judges.py, LPIPS within that of tests/test_torch_eval.py,
-# the offline fit's Gaussian count within that of tests/test_torch_modes.py.
-# The fit's end metrics are held to 1e-3, not to that test's 1e-5 (the JAX
-# and port fits on one CPU): the quaternions of still-spherical Gaussians
-# have a true gradient of 0, and Adam's eps of 1e-15 turns their rounding
-# noise (1e-10) into whole learning-rate steps whose signs follow the
-# summation order, so the two devices' maps part from the second mapping
-# event on (the PSNR by 1.04e-4 relative on an H100). The first event's
-# gradients are held instead: no sign differs among those above 1e-6 of
-# their field's largest, and 99% of them agree within FIT_GRAD_RTOL.
 JUDGE_RTOL, JUDGE_ATOL = 1e-5, 1e-6
 FIT_RTOL, FIT_GAUSSIAN_RTOL = 1e-3, 2e-3
 FIT_GRAD_RTOL = 1e-3
 LPIPS_REL = 1e-4
-LPIPS_RES = 256
 
 # the planner's map queries at bench.py's query size (bench_queries,
 # bench.py:124-156, at its default of 1,000,000 Gaussians)
 QUERY_GAUSSIANS = 1_000_000
-QUERY_REPS = 5  # timed calls of each query
 QUERY_BBOX = ((0.0, 10.0), (0.0, 3.0), (0.0, 6.0))  # top-down: a 216 x 360 px grid
 QUERY_NODES = ((4.0, 1.25, 2.0), (6.0, 1.25, 3.0))  # two panorama nodes at scale 0.5
 QUERY_VIEW = (5.0, 1.25, 1.5)  # the camera's position
 DUAL_CHANNELS = 3  # the top-down walk composites rgb
 
-# phase 6, the Habitat path at 512x512: the launcher's CLI with the
-# gibson_high_resolution scene config (512x512, mapping_iters 10, map_every
-# 5, pixel_max 360) on the Habitat adapter's BoxWorld mock, the recorder and
-# the live view on, the bin kernel route on; the step budget cut from the
-# config's 1,000; the last HABITAT_PROFILED actions run under torch.profiler
-HABITAT_CONFIG = "gibson_high_resolution"
-HABITAT_RES = 512
-HABITAT_STEPS = 150
-HABITAT_PROFILED = 10
-# the phases whose launches phase 6's kernel entries count, and no other entry
-HABITAT_PHASES = ("habitat episode",)
+# phase 5, the kernels at 512x512: the gibson_high_resolution scene config's
+# mapper (512x512, mapping_iters 10, map_every 5) builds a map of its
+# benchmark cell's room (BoxWorld.single_room(87)) from MAP_FRAMES frames of
+# the small driver check's walk; the kernels take its renders at k=HIGH_K
+# and its top-down map at the config's pixel_max of 360
+HIGH_CONFIG = "gibson_high_resolution"
+HIGH_RES = 512
+HIGH_K = 1024
+HIGH_WORLD_SEED = 87
+MAP_FRAMES = 4
 # the small card-against-CPU mock episode: tests/test_torch_habitat_episode.py's
 # parity run (the gibson config on a 48x48 env yaml, 45 degree turns, scene
 # id Elmira, 18 steps, the lean mapper of SMALL_EPISODE_CFG)
@@ -468,21 +335,13 @@ HABITAT_SMALL = dict(res=48, steps=18, turn=45.0, scene="Elmira")
 NATIVE_ATOL = 1e-4
 NATIVE_REPS = 5
 
-
-# phase 7, the multi-device path on a virtual mesh of the one card: the row
+# phase 4, the multi-device path on a virtual mesh of the one card: the row
 # shards of parallel/sharded.py, MESH_SHARDS of them naming cuda:0, on phase
 # 3's map at RES x RES (64 rows a shard); one mapping event, the driver over
-# MESH_FRAMES frames, the panorama queries on phase 3c's query map; the ms
-# per iteration timed in a child process (MESH_TIMING_FLAG) that runs no
-# profiler session.
+# MESH_FRAMES frames, the panorama queries on phase 3's query map.
 MESH_SHARDS = 4
 MESH_EVENT_ITERS = 10
-MESH_TIMED_ITERS = 20
-MESH_PROFILED = 10
 MESH_FRAMES = 10
-MESH_KERNEL_SHARD = 1  # the shard whose tile rows and CSR stream B1-B4 are held on
-MESH_TIMING_FLAG = "--mesh-timing"
-MESH_TIMING_TIMEOUT = 300
 # Tolerances, sharded against unsharded on one card. A shard's means shift
 # by a whole number of tile rows, exactly in float32 and on the bins' 1/8 px
 # grid, so its tiles get the full frame's rows and their pixel offsets round
@@ -496,14 +355,6 @@ MESH_IMG_REL = 1e-6
 MESH_LOSS_RTOL = 1e-6
 MESH_GRAD_REL = 1e-5
 MESH_METRIC_RTOL = FIT_RTOL
-# the phases of the sharded runs, whose launches phase 7's kernel entries
-# count, and those of the unsharded runs they are held against, which no
-# entry counts
-MESH_PHASES = ("mesh render", "mesh loss off", "mesh loss on", "mesh loss hybrid",
-               "mesh mapping_phase", "mesh profiled", "mesh driver", "mesh global_invisibility",
-               "mesh local_invisibility")
-MESH_REFERENCE_PHASES = tuple(p.replace("mesh ", "mesh reference ", 1) for p in MESH_PHASES
-                              if p != "mesh profiled")
 
 def nvidia_smi(query: str) -> str:
     out = subprocess.run(
@@ -1038,25 +889,6 @@ def threshold_logt_allowance(torch, rc, stream, walked, n_tiles):
     return per_tile[:n_tiles] * -math.log1p(-rc.ALPHA_MIN * (1 + EDGE_RTOL))
 
 
-def dead_test_off(torch, rc, entry_k, stream, n_tiles, c, dual, card):
-    """Pass 1's device time with the dead-pair test off (margin +inf kills
-    no pair, so every pair pays its special functions) beside its time
-    with it, from the measured entry `entry_k`."""
-    off = kernel_device_ms(torch, lambda: rc.csr_partials_cuda(
-        *stream, n_tiles, c, dual, margin=math.inf), (CSR_PASSES[0],), 20)[CSR_PASSES[0]]
-    print(f"{entry_k['name']} ({entry_k['stream']}): pass 1 {entry_k['pass_ms'][CSR_PASSES[0]]:.4f} "
-          f"ms with the dead-pair test, {off:.4f} ms without it on {card}")
-
-
-def walk_without_row_skip(torch, rc, bwd_args):
-    """B2's walk (pass 2) device ms with the warp-row skip off: every
-    warp-row runs the pixel-sum exchange, dead or not."""
-    rows, u0, v0, entry, g_acc, g_lt, c = bwd_args
-    suffix = rc.tile_bwd_suffix_cuda(rows, u0, v0, entry, g_acc, c)
-    return kernel_device_ms(torch, lambda: rc.tile_bwd_walk_cuda(
-        rows, u0, v0, entry, g_acc, g_lt, suffix, c, row_skip=False), B2_PASSES[1:], 20)[B2_PASSES[1]]
-
-
 def combine_exit_late(torch, rc, partials, seg_tile, n_tiles, c, dual):
     """csr_combine_plain with one planted fault: the exit is tested after
     accumulating, so the first segment whose entry carry is already below
@@ -1582,8 +1414,9 @@ def small_query_check(torch, np):
           f"differ), free alpha and panorama within {worst:.3e} of the port on the CPU")
 
 
-def main_path_rows(torch, buf, cam):
-    """The blend kernels' inputs for one training render of the map."""
+def main_path_rows(torch, buf, cam, k):
+    """The blend kernels' inputs for one training render of the map at
+    k_per_tile `k`."""
     from activesplat_tpu_torch.ops.projection import adaptive_cull_radius, project_gaussians
     from activesplat_tpu_torch.ops.raster_tiled import tile_rows
 
@@ -1598,7 +1431,7 @@ def main_path_rows(torch, buf, cam):
         colors = torch.cat([p.rgb, proj.depth[:, None], (proj.depth ** 2)[:, None]], -1)
         rows, u0, v0, _ = tile_rows(
             proj.mean2d, proj.conic, opac, colors, valid, radius, proj.depth,
-            width=cam.width, height=cam.height, k_per_tile=K_PER_TILE,
+            width=cam.width, height=cam.height, k_per_tile=k,
         )
     return rows.contiguous(), u0, v0
 
@@ -1714,51 +1547,6 @@ def small_scene_check(torch, np, exact_training="off", k_per_tile=64):
         raise AssertionError(f"{tag}: gradients differ: {worst:.3e} of scale")
     print(f"{tag}: loss cuda {float(l_gpu):.7f} cpu {float(l_cpu):.7f}, "
           f"max grad err {worst:.3e} of scale")
-
-
-def device_kernels(prof) -> list:
-    """A trace's device activity, less the device-side spans of the tracing
-    stages (record_function ranges), which cover the kernels they enclose."""
-    from torch.autograd import DeviceType
-
-    from activesplat_tpu_torch.utils.tracing import stage_report
-
-    stages = set(stage_report())
-    return [e for e in prof.events() if e.device_type == DeviceType.CUDA
-            and not getattr(e, "is_user_annotation", False) and e.name not in stages]
-
-
-def profile_calls(torch, fn, calls: int, timed_ms: float, card: str, label: str,
-                  tables=("device",), watch=()) -> dict:
-    """Run `calls` calls of `fn` under torch.profiler; print the device's
-    busy time and idle share per call and the top operators by device and
-    (if asked) host time. For each kernel name in `watch`, print and return
-    its launches and device ms per launch ({name: (launches, ms)})."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) / calls * 1e3
-    kernels = device_kernels(prof)
-    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / calls
-    print(f"profile of {calls} {label} calls on {card}: wall {wall_ms:.3f} ms/call "
-          f"under the profiler ({timed_ms:.3f} without), device busy {busy_ms:.3f} ms/call "
-          f"in {len(kernels) / calls:.0f} kernels/call, idle share {1.0 - busy_ms / wall_ms:.3f} "
-          f"of the profiled wall time, {1.0 - busy_ms / timed_ms:.3f} of the unprofiled one")
-    averages = prof.key_averages()
-    for table in tables:
-        sort_by = {"device": "self_device_time_total", "host": "self_cpu_time_total"}[table]
-        print(averages.table(sort_by=sort_by, row_limit=20))
-    watched = {}
-    for name in watch:
-        times = [e.time_range.elapsed_us() for e in kernels if name in e.name]
-        watched[name] = (len(times), sum(times) / max(len(times), 1) / 1e3)
-        print(f"  {name}: {len(times)} launches, {watched[name][1]:.4f} ms each ({label})")
-    return watched
 
 
 def random_bin_scene(torch, n: int, w: int, h: int):
@@ -2088,254 +1876,12 @@ def gather_bwd_checks(torch, rc, card) -> dict:
     return out
 
 
-def route_trace(torch, run, calls: int, label: str, card: str) -> dict:
-    """A trace of `calls` calls of one bin route (`run`): every device
-    operation with its launches and device ms a call (torch.profiler), the
-    host's self ms a call of the operators that launch them, and the
-    host ms a call unprofiled (the calls enqueued back to back, then one
-    synchronize: "enqueue", and to its end: "wall")."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    run()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        run()
-    enqueue = (time.perf_counter() - t0) / calls * 1e3
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) / calls * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            run()
-        torch.cuda.synchronize()
-    device = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
-            n_e, us = device.get(e.name, (0, 0.0))
-            device[e.name] = (n_e + 1, us + e.time_range.elapsed_us())
-    host = sorted(((a.self_cpu_time_total / calls / 1e3, a.key, a.count / calls)
-                   for a in prof.key_averages() if a.self_cpu_time_total > 0), reverse=True)
-    busy = sum(us for _, us in device.values()) / calls / 1e3
-    ops = sum(c for c, _ in device.values()) / calls
-    print(f"route trace, {label}: {ops:.1f} device operations a call, device busy {busy:.4f} ms a "
-          f"call; host {enqueue:.4f} ms a call to enqueue, {wall:.4f} ms to the end of the last "
-          f"({calls} calls, unprofiled) on {card}")
-    for name, (c, us) in sorted(device.items(), key=lambda x: -x[1][1]):
-        print(f"    device {us / calls / 1e3:9.4f} ms  {c / calls:5.1f}x  {name[:110]}")
-    for ms, key, c in host[:12]:
-        print(f"    host   {ms:9.4f} ms  {c:5.1f}x  {key[:110]}")
-    return {"device_ops": ops, "device_ms": busy, "host_enqueue_ms": enqueue, "host_wall_ms": wall}
-
-
-def driver_phase(torch, np, rc, rt, card, by_phase, int_rate: float) -> dict:
-    """Phase 3d: the per-frame mapper driver with the bin kernel route on
-    (see the module docstring). Its launches go into by_phase["mapper
-    driver"]: B2 and B6 once per mapping iteration (B1 and B6 also in any
-    exact render's fallback), B3 in every densify and exact online render,
-    B5 never. Returns B1's, B2's and B4's device ms a call in the profiled
-    mapping frame (B4: None where the frame launched none), and B6 on the
-    frame's last bin: its passes checked and timed, its bounds, both
-    routes' traces and the bin's inputs (on the host)."""
-    import dataclasses
-    import os
-    import tempfile
-
-    from activesplat_tpu_torch.io.params_io import load_params
-    from activesplat_tpu_torch.io.png import read_png
-    from activesplat_tpu_torch.mapper import MapperState
-    from activesplat_tpu_torch.mapper.config import MapperConfig
-    from activesplat_tpu_torch.mapper.splatam import SplaTAMMapper
-    from activesplat_tpu_torch.ops.render import render
-    from activesplat_tpu_torch.runtime.synthetic import BoxWorld
-    from activesplat_tpu_torch.utils import tracing
-
-    world = BoxWorld.two_room(seed=0)
-    intr = driver_intrinsics(np, RES)
-    t0 = time.perf_counter()
-    frames = driver_frames(np, world, intr, DRIVER_FRAMES + 1)
-    print(f"driver: {len(frames)} frames of two_room at {RES}x{RES} rendered in "
-          f"{time.perf_counter() - t0:.1f} s (set-up)")
-    rt._BIN_KERNEL = True
-    try:
-        with tempfile.TemporaryDirectory() as tmp:
-            mapper = SplaTAMMapper(MapperConfig(), RES, RES, intr, DRIVER_STEP_NUM,
-                                   results_dir=tmp, device="cuda")
-            tracing.reset_stages()
-            torch.cuda.synchronize()
-            rc.reset_launch_counts()
-            frame_ms, states, mapping_ms = [], [], []
-            for batch in frames[:DRIVER_FRAMES]:
-                iters_before = mapper.mapping_iter_time_count
-                t0 = time.perf_counter()
-                states.append(mapper.run(batch))
-                torch.cuda.synchronize()
-                frame_ms.append((time.perf_counter() - t0) * 1e3)
-                if mapper.mapping_iter_time_count > iters_before:
-                    mapping_ms.append(frame_ms[-1])
-            counts = {fn.__name__: fn.launches for fn in rc.KERNELS}
-            rc.reset_launch_counts()
-            by_phase["mapper driver"] = counts
-            iters = mapper.mapping_iter_time_count
-            n_gauss = mapper.num_gaussians()
-            met = mapper.last_metrics
-            print(f"driver frame wall ms: {[round(x, 3) for x in frame_ms]}")
-            print(f"mapper_frame_ms@two_room_{RES}px = {sum(frame_ms) / len(frame_ms):.3f} "
-                  f"({DRIVER_FRAMES} frames, {iters} mapping iterations, host clock to a "
-                  f"synchronize) on {card}")
-            print(f"driver: {n_gauss} Gaussians in a {mapper.buf.capacity}-slot buffer, "
-                  f"map_version {mapper.map_version}, keyframes {mapper.keyframe_time_indices}")
-            print(f"driver last_metrics: {met}")
-            print(f"driver shape_history: {mapper.shape_history}")
-            print(f"driver truncation bias: {mapper.truncation_bias()}")
-            print("driver stages (host wall-clock; total, calls, longest call):")
-            for name, (tot, calls, longest) in sorted(tracing.stage_report_full().items()):
-                print(f"  {name:<26} {tot * 1e3:10.3f} ms / {calls:4d} calls, longest "
-                      f"{longest * 1e3:9.3f} ms")
-            print(f"driver host syncs and device-to-host copies by stage: "
-                  f"{tracing.stage_report_io()}")
-            print(f"driver launches: {counts}")
-            if states != [MapperState.BOOTSTRAP] + [MapperState.MAPPING] * (DRIVER_FRAMES - 1):
-                raise AssertionError(f"driver states {states}")
-            if not (counts["blend_tiles_bwd"] == iters > 0 and counts["blend_tiles_fwd"] >= iters
-                    and counts["bin_slots"] >= iters and counts["bin_count"] == counts["bin_slots"]
-                    and counts["blend_csr_fwd"] > 0
-                    and counts["blend_csr_dual_fwd"] == 0):
-                raise AssertionError(f"driver launches {counts} for {iters} mapping iterations")
-            # a sanity floor (an empty map scores about 5 dB); correctness is
-            # small_driver_check's
-            if not (all(math.isfinite(v) for v in met.values()) and met["psnr"] > 10.0
-                    and n_gauss > RES * RES):
-                raise AssertionError(f"driver: {n_gauss} Gaussians, last metrics {met}")
-
-            # one more frame, a mapping frame, under the profiler; B6 checked
-            # and timed on the last bin it runs
-            seen, seen_count, seen_bin = [], [], []
-            real_slots, real_count, real_bin = rt.bin_slots, rt.bin_count, rt.bin_gaussians
-            rt.bin_slots = lambda *a: seen.append(a) or real_slots(*a)
-            rt.bin_count = lambda *a: seen_count.append(a) or real_count(*a)
-            rt.bin_gaussians = lambda *a, **kw: seen_bin.append(a) or real_bin(*a, **kw)
-            try:
-                # the unprofiled reference: the mean of the frames that mapped
-                watched = profile_calls(torch, lambda: mapper.run(frames[DRIVER_FRAMES]), 1,
-                                   sum(mapping_ms) / len(mapping_ms), card,
-                                   "mapper frame (a mapping frame)", ("device", "host"),
-                                   B1_PASSES + B2_PASSES + B4_PASSES)
-            finally:
-                rt.bin_slots, rt.bin_count, rt.bin_gaussians = real_slots, real_count, real_bin
-            rc.reset_launch_counts()
-            if not seen or len(seen_count) != len(seen) or seen_bin[-1][5:7] != seen[-1][2:4]:
-                raise AssertionError(f"driver: the profiled mapping frame ran {len(seen)} slot "
-                                     f"passes, {len(seen_count)} count passes, the last bin at "
-                                     f"{seen_bin[-1][5:7] if seen_bin else None}")
-            calls_b1 = watched[B1_PASSES[1]][0]
-            if not calls_b1 or watched[B1_PASSES[0]][0] != calls_b1:
-                raise AssertionError(f"driver: the profiled mapping frame's B1 launches {watched}")
-            driver_b1 = {"calls": calls_b1, "k": mapper.cfg.k_per_tile,
-                         "pass_ms": {n: watched[n][1] for n in B1_PASSES},
-                         "ms": sum(watched[n][1] for n in B1_PASSES)}
-            print(f"driver: B1 {driver_b1['ms']:.4f} ms a call ({calls_b1} calls in the profiled "
-                  f"mapping frame at k={driver_b1['k']}: {driver_b1['pass_ms']}) on {card}")
-            calls_b2 = watched[B2_PASSES[1]][0]
-            if not calls_b2 or watched[B2_PASSES[0]][0] != calls_b2:
-                raise AssertionError(f"driver: the profiled mapping frame's B2 launches {watched}")
-            driver_b2 = {"calls": calls_b2, "k": mapper.cfg.k_per_tile,
-                         "pass_ms": {n: watched[n][1] for n in B2_PASSES},
-                         "ms": sum(watched[n][1] for n in B2_PASSES)}
-            print(f"driver: B2 {driver_b2['ms']:.4f} ms a call ({calls_b2} calls in the profiled "
-                  f"mapping frame at k={driver_b2['k']}: {driver_b2['pass_ms']}) on {card}")
-            calls_b4 = watched[B4_PASSES[1]][0]
-            if watched[B4_PASSES[0]][0] != calls_b4:
-                raise AssertionError(f"driver: the profiled mapping frame's B4 launches {watched}")
-            driver_b4 = None
-            if calls_b4:
-                driver_b4 = {"calls": calls_b4, "k": mapper.cfg.k_per_tile,
-                             "pass_ms": {n: watched[n][1] for n in B4_PASSES},
-                             "ms": sum(watched[n][1] for n in B4_PASSES)}
-                print(f"driver: B4 {driver_b4['ms']:.4f} ms a call ({calls_b4} calls in the "
-                      f"profiled mapping frame at k={driver_b4['k']}: {driver_b4['pass_ms']}) on "
-                      f"{card}")
-            else:
-                print(f"driver: the profiled mapping frame at k={mapper.cfg.k_per_tile} launched "
-                      f"no B4")
-            args, count_args, bin_in = seen[-1], seen_count[-1], seen_bin[-1]
-            k_d = args[2]
-            split_rejected = dict.fromkeys(BIN_SPLIT_FAULTS, 0)
-            _, counts_d, got = bin_split_checks(torch, rc, count_args, args,
-                                                f"driver bin at k={k_d}", split_rejected)
-            if not torch.equal(got, rc.bin_slots_plain(*args)):
-                raise AssertionError("driver: bin_slots differs from its twin")
-            bb = bin_bound(torch, rc, count_args, args, counts_d, got, int_rate)
-            run, _ = b6_calls(torch, rc, count_args, args)
-            ms = kernel_device_ms(torch, run, B6_PASSES, 20)
-            driver_b6 = {"k": k_d, "blocks": args[0].shape[0],
-                         "pass_ms": ms, "ms": sum(ms.values()), "bound_ms": b6_bound_ms(bb)[0],
-                         "pass_bound_ms": {p: bb[p][0] for p in ("count", "slot")},
-                         "bound_slot_search_ms": bb["old"][0], "trace": {}}
-            print(f"driver bin at k={k_d}: {args[0].shape[0]} blocks; both passes bitwise equal to "
-                  f"their plain versions, planted faults rejected {split_rejected}; kernel "
-                  f"{driver_b6['ms']:.4f} ms {ms} on {card}")
-            print_bin_bound(bb, f"driver bin at k={k_d}",
-                            {"count": ms[B6_PASSES[0]], "slot": ms[B6_PASSES[1]]}, card)
-            for route, on in (("kernel", True), ("sort", False)):
-                driver_b6["trace"][route] = route_trace(
-                    torch, lambda on=on: rt.bin_gaussians(*bin_in[:7], use_kernel=on),
-                    ROUTE_TRACE_CALLS, f"the {route} route, driver bin (k={k_d}, offset "
-                    f"{bin_in[6]})", card)
-            driver_b6["inputs"] = tuple(x.cpu() if hasattr(x, "cpu") else x for x in bin_in[:7])
-            del seen, seen_count, seen_bin, args, count_args, bin_in, counts_d, got
-            rc.reset_launch_counts()
-
-            # the outputs and a checkpoint round trip
-            path = mapper.post_processing()
-            out_dir = os.path.dirname(path)
-            params = load_params(path)
-            kf = sorted(os.listdir(os.path.join(out_dir, "keyframes")))
-            side = read_png(os.path.join(out_dir, "keyframes", kf[0]))
-            with open(os.path.join(out_dir, "transforms.json")) as fh:
-                n_manifest = fh.read().count('"transform_matrix"')
-            if (params["means3D"].shape[0] != mapper.num_gaussians() or side.shape != (RES, 2 * RES, 3)
-                    or n_manifest != mapper.tracking_idx or len(kf) != mapper.store.count):
-                raise AssertionError(f"driver outputs: {params['means3D'].shape[0]} Gaussians in "
-                                     f"params.npz, keyframe dump {side.shape}, {n_manifest} "
-                                     f"manifest frames, {len(kf)} keyframe files")
-            ckpt = mapper.save_checkpoint(os.path.join(tmp, "ckpt"), mapper.tracking_idx - 1)
-            back = SplaTAMMapper(dataclasses.replace(mapper.cfg, initial_capacity=mapper.buf.capacity),
-                                 RES, RES, intr, DRIVER_STEP_NUM, device="cuda")
-            back.load_map(ckpt)
-            a, b = mapper.buf, back.buf
-            cam = mapper._camera(np.linalg.inv(frames[0]["c2w"]))
-            with torch.no_grad():
-                img_a, img_b = (render(x, cam, k_per_tile=mapper.cfg.k_per_tile, exact=True).rgb
-                                for x in (a, b))
-            same = (torch.equal(a.active, b.active)
-                    and all(torch.equal(x[a.active], y[b.active])
-                            for x, y in zip(a.params.tensors(), b.params.tensors()))
-                    and all(torch.equal(getattr(mapper.store, f)[:mapper.store.count],
-                                        getattr(back.store, f)[:back.store.count])
-                            for f in ("rgb", "depth", "w2c", "frame_id"))
-                    and back.tracking_idx == mapper.tracking_idx
-                    and back.keyframe_time_indices == mapper.keyframe_time_indices
-                    and torch.equal(back.generator.get_state(), mapper.generator.get_state())
-                    and torch.equal(img_a, img_b))
-            if not same:
-                raise AssertionError("driver: the loaded checkpoint differs from the saved map")
-            print(f"driver outputs: params.npz with {params['means3D'].shape[0]} Gaussians, "
-                  f"{n_manifest} manifest frames, {len(kf)} keyframe dumps of {side.shape}; the "
-                  f"checkpoint at frame {mapper.tracking_idx - 1} loads back bitwise (buffer, "
-                  f"keyframe store, counters, generator state, an exact render)")
-        small_driver_check(torch, np, world)
-    finally:
-        rt._BIN_KERNEL = False
-    return driver_b1, driver_b2, driver_b4, driver_b6
-
-
 def small_driver_check(torch, np, world, res: int = 64, frames: int = 5) -> None:
-    """The driver on the card (kernels, B6 included) against the driver on
-    the CPU (plain twins) over the first frames of the driver phase's
-    stream at 64x64: the same slots and Gaussian count; metrics within 1e-4
-    relative; parameters within 1e-4 but for at most 0.1% of them, each
-    within two learning rates per Adam step (both blends exit a saturated
+    """The driver on the card (kernels) against the driver on the CPU
+    (plain twins) over the first frames of driver_frames' walk at 64x64:
+    the same slots and Gaussian count; metrics within 1e-4 relative;
+    parameters within 1e-4 but for at most 0.1% of them, each within two
+    learning rates per Adam step (both blends exit a saturated
     tile early, and a segment at the exit threshold may be walked on one
     side only: its Gaussians' zero-versus-tiny gradients become whole Adam
     steps, tests/test_torch_splatam.py)."""
@@ -2420,137 +1966,6 @@ def target_timeline(np, planner, targets) -> list:
     return out
 
 
-def episode_phase(torch, np, rc, rt, card, by_phase, out_dir) -> None:
-    """Phase 5: the exploration episode through the port's run_episode at
-    make_synthetic_dataset's configuration, EPISODE_STEPS steps, the bin
-    kernel route on. Each action's wall runs from the start of one simulator
-    step to the start of the next (the host clock after a synchronize): the
-    step, its frame's mapping, and the planner's work until it issues the
-    next action. The first action is reported with the set-up before it;
-    the last EPISODE_PROFILED + 1 are left out of the mean: EPISODE_PROFILED
-    run under torch.profiler, and the last one holds post_processing. The
-    phase's launches go into by_phase["episode"]; its outputs are written
-    into `out_dir`, which phase 5b's judges read."""
-    import os
-
-    from torch.profiler import ProfilerActivity, profile
-
-    from activesplat_tpu_torch.io.actions import read_actions
-    from activesplat_tpu_torch.io.params_io import load_params
-    from activesplat_tpu_torch.runtime import planner_fsm
-    from activesplat_tpu_torch.runtime.launch import make_synthetic_dataset, run_episode
-    from activesplat_tpu_torch.utils import tracing
-
-    n = EPISODE_STEPS
-    first_profiled = n - 1 - EPISODE_PROFILED
-    rt._BIN_KERNEL = True
-    try:
-        with contextlib.nullcontext(out_dir) as tmp:
-            ds = make_synthetic_dataset("two_room", 0, n, RES, RES, results_dir=tmp)
-            stamps = []
-            prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-            real_move = ds.apply_movement
-
-            def move(twist):
-                torch.cuda.synchronize()
-                stamps.append(time.perf_counter())
-                if len(stamps) - 1 == first_profiled:
-                    prof.start()
-                elif len(stamps) == n:
-                    torch.cuda.synchronize()
-                    prof.stop()
-                return real_move(twist)
-
-            ds.apply_movement = move
-            tracing.reset_stages()
-            rc.reset_launch_counts()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            with recorded_targets(planner_fsm) as targets:
-                node, planner = run_episode(ds, tmp)
-            torch.cuda.synchronize()
-            t_end = time.perf_counter()
-            counts = {fn.__name__: fn.launches for fn in rc.KERNELS}
-            rc.reset_launch_counts()
-            by_phase["episode"] = counts
-            steps, budget = ds.get_step_info()
-            if steps != budget or len(stamps) != n:
-                raise AssertionError(f"episode: {steps} of {budget} steps taken, {len(stamps)} "
-                                     f"actions stamped")
-            mean_ms = (stamps[first_profiled] - stamps[1]) / (first_profiled - 1) * 1e3
-            walls = np.diff(stamps[:first_profiled + 1]) * 1e3
-            print(f"episode: {n} steps of two_room at {RES}x{RES} in {t_end - t0:.1f} s on {card}")
-            print(f"episode_action_ms@two_room_{RES}px = {mean_ms:.3f} (mean of actions 2 to "
-                  f"{first_profiled}, host clock, each from a synchronize) on {card}")
-            print(f"episode: set-up {(stamps[0] - t0) * 1e3:.3f} ms, the first action with its "
-                  f"set-up {(stamps[1] - t0) * 1e3:.3f} ms, the last action with post_processing "
-                  f"{(t_end - stamps[-1]) * 1e3:.3f} ms; action walls min / median / max "
-                  f"{walls[1:].min():.3f} / {float(np.median(walls[1:])):.3f} / "
-                  f"{walls[1:].max():.3f} ms")
-            print("episode stages (host wall-clock; total, calls, ms a call, longest call):")
-            for name, (tot, calls, longest) in sorted(tracing.stage_report_full().items()):
-                print(f"  {name:<26} {tot * 1e3:11.3f} ms / {calls:5d} calls = "
-                      f"{tot / calls * 1e3:9.3f} ms a call, longest {longest * 1e3:9.3f} ms")
-            print(f"episode host syncs and device-to-host copies by stage: "
-                  f"{tracing.stage_report_io()}")
-            kernels = device_kernels(prof)
-            window_ms = (stamps[-1] - stamps[first_profiled]) * 1e3
-            busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-            print(f"episode profile of actions {first_profiled + 1} to {n - 1} on {card}: wall "
-                  f"{window_ms / EPISODE_PROFILED:.3f} ms an action under the profiler, device busy "
-                  f"{busy_ms / EPISODE_PROFILED:.3f} ms an action in "
-                  f"{len(kernels) / EPISODE_PROFILED:.0f} kernels an action, idle share "
-                  f"{1.0 - busy_ms / window_ms:.3f} of the profiled wall, "
-                  f"{1.0 - busy_ms / EPISODE_PROFILED / mean_ms:.3f} of the timed mean")
-            print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=15))
-            hybrid = any(h.get("exact_training") == "hybrid" for h in node.mapper.shape_history)
-            print(f"episode launches: {counts}; the mapper switched to hybrid: {hybrid} "
-                  f"(shape history {node.mapper.shape_history})")
-            need = ("blend_tiles_fwd", "blend_tiles_bwd", "blend_csr_fwd", "blend_csr_dual_fwd",
-                    "bin_count", "bin_slots")
-            if (not all(counts[k] > 0 for k in need) or counts["bin_count"] != counts["bin_slots"]
-                    or (counts["blend_csr_bwd"] > 0) != hybrid):
-                raise AssertionError(f"episode launches {counts} (hybrid: {hybrid})")
-
-            # the outcome and the outputs
-            actions = read_actions(os.path.join(tmp, "actions.txt"))
-            if len(actions) != n or not all(0 <= a <= 5 for a in actions):
-                raise AssertionError(f"episode: actions.txt holds {len(actions)} actions "
-                                     f"{sorted(set(actions))} for {n} steps")
-            for rel in ("gaussians_data/params.npz", "topdown_free_map.png", "visited_map.png",
-                        "planner_log.jsonl"):
-                if not os.path.exists(os.path.join(tmp, rel)):
-                    raise AssertionError(f"episode: {rel} was not written")
-            params = load_params(os.path.join(tmp, "gaussians_data", "params.npz"))
-            bad = [k for k, v in params.items()
-                   if np.issubdtype(v.dtype, np.floating) and not np.isfinite(v).all()]
-            if bad:
-                raise AssertionError(f"episode: non-finite parameters in {bad}")
-            log = planner.decision_log
-            timeline = target_timeline(np, planner, targets)
-            reached = [t for t in timeline if t["reached"]]
-            ended = [t for t in timeline if t["ended"] is not None]
-            print(f"episode targets (the tick each was planned at and the actions taken by then, "
-                  f"its position, the closest approach until the next target in px, reached "
-                  f"when within px_as_arrived {planner.px_as_arrived:.3f} px, the tick the FSM "
-                  f"ended its navigation there): {timeline}")
-            area = np.count_nonzero(planner.free_map) * planner.topdown_cfg.meter_per_pixel ** 2
-            print(f"episode outcome: {steps} of {budget} steps, {planner._tick_count} planner "
-                  f"ticks, {sum(e['event'] == 'scores' for e in log)} scoring rounds, "
-                  f"{len(timeline)} targets planned, {len(ended)} ended, {len(reached)} reached, "
-                  f"{node.mapper.num_gaussians()} Gaussians, explored free area {area:.3f} m^2, "
-                  f"panorama cache {node.pano_cache_hits} hits / {node.pano_cache_misses} misses")
-            # the FSM ends a navigation on arrival and where the target hugs an
-            # obstacle; in this scene it does the latter every time (no target
-            # within px_as_arrived in 1,000 steps, scripts/episode_targets.py),
-            # so arrival is held on the small episode below
-            if not ended:
-                raise AssertionError(f"episode: {len(timeline)} targets planned, no navigation "
-                                     f"ended ({len(reached)} reached)")
-    finally:
-        rt._BIN_KERNEL = False
-
-
 def small_episode_check(torch, np, card, cpu_dir=None) -> None:
     """The port's episode on the card (kernels) against the same episode on
     the CPU (plain twins): tests/test_torch_episode.py's parity run
@@ -2563,7 +1978,7 @@ def small_episode_check(torch, np, card, cpu_dir=None) -> None:
     is printed with the two free maps' pixel difference and the two targets.
     At the end the explored free-map area is within EPISODE_AREA_RTOL and the
     Gaussian count within EPISODE_GAUSSIAN_RTOL. With `cpu_dir` the CPU run
-    writes its outputs there (phase 5b scores them)."""
+    writes its outputs there (small_judges_check scores them)."""
     import os
     import tempfile
 
@@ -2643,155 +2058,6 @@ def small_episode_check(torch, np, card, cpu_dir=None) -> None:
           f"{a['area']:.3f} m^2 free (card / CPU) on {card}")
 
 
-def judges_phase(torch, np, rc, rt, card, by_phase, episode_dir):
-    """Phase 5b: the judges over phase 5's outputs in `episode_dir`, each
-    fatal on failure: the coverage judge replays actions.txt in a fresh
-    dataset of the episode's configuration; the map-quality judge scores
-    every EVAL_STRIDE-th dumped frame with the exact render (B3 once a frame,
-    no B1 or B2), then again timed (the same scores), then once more under
-    torch.profiler; the NVS judge
-    scores the hold-out frames; run_replay maps the first REPLAY_ACTIONS
-    actions on the card. The launch counters are read after each phase.
-    Returns (the CSR stream B3 walks for one scored frame, its tile count,
-    the frame's manifest index)."""
-    import os
-    import tempfile
-
-    from activesplat_tpu_torch.eval.nvs import eval_nvs_from_dump
-    from activesplat_tpu_torch.eval.replay import eval_actions, eval_map_quality
-    from activesplat_tpu_torch.io.actions import read_actions
-    from activesplat_tpu_torch.io.manifest import load_frame, load_manifest, manifest_intrinsics
-    from activesplat_tpu_torch.io.params_io import buffer_from_params, load_params
-    from activesplat_tpu_torch.models.gaussians import make_camera
-    from activesplat_tpu_torch.ops.render import render
-    from activesplat_tpu_torch.runtime.launch import make_synthetic_dataset, run_replay
-
-    def read(phase, **expect):
-        counts = {fn.__name__: fn.launches for fn in rc.KERNELS}
-        rc.reset_launch_counts()
-        by_phase[phase] = counts
-        bad = {k: (counts[k], v) for k, v in expect.items() if counts[k] != v}
-        if bad:
-            raise AssertionError(f"judges, {phase}: launches (got, expected) {bad} of {counts}")
-        return counts
-
-    actions_path = os.path.join(episode_dir, "actions.txt")
-    gdir = os.path.join(episode_dir, "gaussians_data")
-    params_path = os.path.join(gdir, "params.npz")
-    actions = read_actions(actions_path)
-
-    # coverage: the episode's own frames, replayed on the host
-    t0 = time.perf_counter()
-    cov = eval_actions(make_synthetic_dataset("two_room", 0, EPISODE_STEPS, RES, RES,
-                                              results_dir=None),
-                       actions_path, num_gt_samples=COVERAGE_SAMPLES,
-                       dist_threshold=COVERAGE_THRESHOLD, workers=0)
-    cov_s = time.perf_counter() - t0
-    forward = sum(a == 1 for a in actions)
-    numbers = (cov.completeness, cov.completeness_ratio, cov.accuracy, cov.path_length)
-    print(f"judges, coverage of the {len(actions)}-action episode ({COVERAGE_SAMPLES} GT "
-          f"samples, {COVERAGE_THRESHOLD} m): completeness {cov.completeness:.6f} m, "
-          f"completeness_ratio {cov.completeness_ratio:.6f}, accuracy {cov.accuracy:.6f} m, "
-          f"path_length {cov.path_length:.6f} m ({forward} forward steps), "
-          f"{cov.num_observed_points} observed points, {cov_s:.3f} s (host)")
-    if (not all(math.isfinite(x) for x in numbers) or not 0 < cov.completeness_ratio <= 1
-            or abs(cov.path_length - forward * FORWARD_STEP) > 1e-9):
-        raise AssertionError(f"judges: coverage {cov} for {forward} forward steps")
-
-    # map quality: the exact render (B3) of every EVAL_STRIDE-th frame
-    manifest = load_manifest(gdir)
-    n_scored = len(manifest["frames"][::EVAL_STRIDE])
-
-    def quality():
-        return eval_map_quality(params_path, gdir, frame_stride=EVAL_STRIDE, k_per_tile=EVAL_K)
-
-    rc.reset_launch_counts()
-    scores = quality()  # the first call: the allocator's and the kernels' warm-up
-    read("map quality", blend_tiles_fwd=0, blend_tiles_bwd=0, blend_csr_fwd=n_scored,
-         blend_csr_bwd=0)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    again = quality()
-    torch.cuda.synchronize()
-    quality_ms = (time.perf_counter() - t0) * 1e3
-    read("map quality timed", blend_tiles_fwd=0, blend_tiles_bwd=0, blend_csr_fwd=n_scored,
-         blend_csr_bwd=0)
-    t0 = time.perf_counter()
-    n_map = int(buffer_from_params(load_params(params_path)).num_active())
-    torch.cuda.synchronize()
-    load_ms = (time.perf_counter() - t0) * 1e3
-    print(f"judges, map quality of the {n_map}-Gaussian map over {n_scored} of "
-          f"{len(manifest['frames'])} frames (k_per_tile {EVAL_K}, exact): "
-          f"{json.dumps(scores)}; the second call {quality_ms:.1f} ms, of which the map's load "
-          f"{load_ms:.1f} ms: {(quality_ms - load_ms) / n_scored:.3f} ms a scored frame on {card}")
-    if again != scores or not all(math.isfinite(v) for v in scores.values()):
-        raise AssertionError(f"judges: map quality {scores}, again {again}")
-    profile_calls(torch, quality, 1, quality_ms, card, "map-quality judge")
-    read("map quality profiled", blend_csr_fwd=n_scored)
-
-    # the CSR stream that B3 walks for the middle scored frame
-    frame_idx = (n_scored // 2) * EVAL_STRIDE
-    buf = buffer_from_params(load_params(params_path))
-    _, _, w2c = load_frame(gdir, manifest["frames"][frame_idx])
-    cam = make_camera(manifest["w"], manifest["h"], manifest_intrinsics(manifest), w2c)
-
-    def one_render():
-        with torch.no_grad():
-            render(buf, cam, k_per_tile=EVAL_K, exact=True)
-
-    streams = capture_streams("blend_csr", one_render)
-    rc.reset_launch_counts()
-    del buf
-    if len(streams) != 1:
-        raise AssertionError(f"judges: the exact render of frame {frame_idx} handed B3 "
-                             f"{len(streams)} streams")
-
-    # NVS: the hold-out frames
-    t0 = time.perf_counter()
-    nvs = eval_nvs_from_dump(params_path, gdir, holdout_every=NVS_HOLDOUT, k_per_tile=EVAL_K)
-    torch.cuda.synchronize()
-    nvs_ms = (time.perf_counter() - t0) * 1e3
-    read("nvs", blend_tiles_fwd=0, blend_tiles_bwd=0, blend_csr_fwd=nvs["num_eval_frames"],
-         blend_csr_bwd=0)
-    print(f"judges, NVS (hold-out every {NVS_HOLDOUT}, k_per_tile {EVAL_K}): {json.dumps(nvs)}; "
-          f"{nvs_ms / nvs['num_eval_frames']:.3f} ms a frame on {card}")
-    if not all(math.isfinite(v) for v in nvs.values()) or not 0 <= nvs["valid_frame_ratio"] <= 1:
-        raise AssertionError(f"judges: NVS {nvs}")
-
-    # replay of the episode's first actions through the mapper (B6 on, as
-    # in phase 5)
-    rt._BIN_KERNEL = True
-    try:
-        with tempfile.TemporaryDirectory() as tmp:
-            head = os.path.join(tmp, "actions_head.txt")
-            with open(head, "w") as fh:
-                fh.writelines(f"{a}\n" for a in actions[:REPLAY_ACTIONS])
-            ds = make_synthetic_dataset("two_room", 0, REPLAY_ACTIONS, RES, RES,
-                                        results_dir=None)
-            t0 = time.perf_counter()
-            node = run_replay(ds, head, os.path.join(tmp, "replay"))
-            torch.cuda.synchronize()
-            replay_s = time.perf_counter() - t0
-            counts = read("replay")
-            steps, _ = ds.get_step_info()
-            out = os.path.join(tmp, "replay", "gaussians_data", "params.npz")
-            params = load_params(out) if os.path.exists(out) else {}
-            bad = [k for k, v in params.items()
-                   if np.issubdtype(v.dtype, np.floating) and not np.isfinite(v).all()]
-            print(f"judges, replay of {REPLAY_ACTIONS} actions: {steps} steps, "
-                  f"{node.mapper.mapping_frame_time_count} frames mapped, "
-                  f"{node.mapper.num_gaussians()} Gaussians, {replay_s:.1f} s, launches {counts} "
-                  f"on {card}")
-            if (steps != REPLAY_ACTIONS or node.mapper.mapping_frame_time_count != steps + 1
-                    or not params or bad):
-                raise AssertionError(f"judges: replay took {steps} of {REPLAY_ACTIONS} actions, "
-                                     f"params.npz written: {bool(params)}, non-finite: {bad}")
-    finally:
-        rt._BIN_KERNEL = False
-    stream, n_tiles, _ = streams[0]
-    return stream, n_tiles, frame_idx
-
-
 def lpips_check(torch, np, card, rgb_a, rgb_b) -> float:
     """LPIPS(alex) on weights drawn from a seed (tests/test_lpips.py's
     recipe), on the card and on the CPU, on one pair of 256x256 frames:
@@ -2814,7 +2080,7 @@ def lpips_check(torch, np, card, rgb_a, rgb_b) -> float:
 
 def small_judges_check(torch, np, card, small_dir) -> None:
     """The judges on the card against the same on the CPU, over the small
-    episode's outputs in `small_dir` (phase 5's CPU run): eval_map_quality
+    episode's outputs in `small_dir` (its CPU run): eval_map_quality
     (exact, k=EVAL_K; LPIPS on seeded weights through the env gate) within
     JUDGE_RTOL / JUDGE_ATOL, and fit_offline with the small episode's mapper
     config, the mapping picks made deterministic on both devices (the
@@ -2905,240 +2171,6 @@ def habitat_env_yaml(path, res: int, turn: float) -> str:
     return str(path)
 
 
-def fetch_live_view(port: int) -> dict:
-    """/, /view.png, /topdown.png and /metrics.json of the live view at
-    `port`, each checked: the page names the live view, each PNG starts with
-    the PNG signature."""
-    import urllib.request
-
-    got = {}
-    for path in ("/", "/view.png", "/topdown.png", "/metrics.json"):
-        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=10) as r:
-            got[path] = r.read()
-    if b"live view" not in got["/"]:
-        raise AssertionError("live view: / is not the dashboard")
-    for path in ("/view.png", "/topdown.png"):
-        if got[path][:8] != b"\x89PNG\r\n\x1a\n":
-            raise AssertionError(f"live view: {path} is not a PNG")
-    return {"metrics": json.loads(got["/metrics.json"]),
-            "bytes": {k: len(v) for k, v in got.items()}}
-
-
-def habitat_phase(torch, np, rc, rt, card, by_phase, out_dir) -> dict:
-    """Phase 6: the gibson_high_resolution configuration through the
-    launcher's CLI (runtime/launch.main: --config, --habitat_sim mock,
-    --save_runtime_data 1, --live_view_port 0) on the card, HABITAT_STEPS
-    steps, the bin kernel route on. Each action's wall runs from the start
-    of one simulator step to the start of the next (host clock after a
-    synchronize); the last HABITAT_PROFILED + 1 are left out of the mean, as
-    in phase 5. While the episode runs, a planner-tick hook fetches the live
-    view's page, view, top-down map and metrics once the view exists. The
-    B3 launches of the recorder's and live view's view renders and of the
-    orbit overlay are counted apart. The kernels' inputs are kept from the
-    run: the last training call's tile rows (B1/B2), the last exact render's
-    CSR stream of the 512x512 frame (B3) and, once the mapper trains hybrid,
-    the last training CSR stream (B4), the last top-down query's stream
-    (B5) and the last 512x512 bin that the kernel route takes (B6). Fatal: the sensor (512x512, cx = cy
-    = 255), the budget consumed with one valid action a step in actions.txt,
-    params.npz finite, the recorder's folders filled and its first panel
-    1,024x1,536, no gt_mesh.json (the mock's mesh path does not exist), the
-    live view fetched, each kernel launched (B4 exactly when hybrid)."""
-    import os
-
-    from torch.profiler import ProfilerActivity, profile
-
-    from activesplat_tpu_torch.io.actions import read_actions
-    from activesplat_tpu_torch.io.params_io import load_params
-    from activesplat_tpu_torch.io.png import read_png
-    from activesplat_tpu_torch.runtime import launch, planner_fsm
-    from activesplat_tpu_torch.runtime.habitat_backend import HabitatDataset
-    from activesplat_tpu_torch.runtime.mapper_node import MapperNode
-    from activesplat_tpu_torch.utils import tracing
-
-    n = HABITAT_STEPS
-    first_profiled = n - 1 - HABITAT_PROFILED
-    keep = {"tiles": None, "csr": None, "csr_train": None, "dual": None, "bin": None}
-    stamps, live, ran, apart = [], {}, {}, {"view": 0, "map3d": 0}
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    n_tiles = (HABITAT_RES // 16) ** 2
-    real = {"blend_tiles": rt.blend_tiles, "blend_csr": rt.blend_csr,
-            "blend_csr_dual_fwd": rt.blend_csr_dual_fwd, "bin_gaussians": rt.bin_gaussians}
-    real_move, real_tick = HabitatDataset.apply_movement, planner_fsm.PlannerFSM.tick
-    real_view, real_map3d = MapperNode._record_view, MapperNode._update_map3d
-    real_run = launch.run_episode
-
-    def blend_tiles(rows, u0, v0, c):
-        if rows.requires_grad:  # a training render
-            keep["tiles"] = (rows.detach(), u0, v0)
-        return real["blend_tiles"](rows, u0, v0, c)
-
-    def blend_csr(rows, seg_tile, seg_u0, seg_v0, t, c):
-        if t == n_tiles:  # the 512x512 frame's, not a panorama view's
-            keep["csr_train" if rows.requires_grad else "csr"] = (
-                (rows.detach(), seg_tile, seg_u0, seg_v0), t, c)
-        return real["blend_csr"](rows, seg_tile, seg_u0, seg_v0, t, c)
-
-    def blend_csr_dual_fwd(*a):
-        keep["dual"] = (a[:4], a[4], a[5])
-        return real["blend_csr_dual_fwd"](*a)
-
-    def bin_gaussians(*a, **kw):
-        # a 512x512 bin that the kernel route takes (its gate: k a multiple of
-        # 128, at most BIN_MAX_BLOCKS blocks; larger prefixes take the sort route)
-        if (a[3] == a[4] == HABITAT_RES and a[5] % rc.BIN_BLOCK == 0
-                and -(-a[0].shape[0] // rc.BIN_BLOCK) <= rc.BIN_MAX_BLOCKS):
-            keep["bin"] = a
-        return real["bin_gaussians"](*a, **kw)
-
-    def move(self, twist):
-        torch.cuda.synchronize()
-        stamps.append(time.perf_counter())
-        if len(stamps) - 1 == first_profiled:
-            prof.start()
-        elif len(stamps) == n:
-            torch.cuda.synchronize()
-            prof.stop()
-        return real_move(self, twist)
-
-    def tick(self):
-        real_tick(self)
-        if not live and self.live_view is not None and self.live_view._get("view") is not None:
-            t0 = time.perf_counter()
-            live.update(fetch_live_view(self.live_view.port), ms=(time.perf_counter() - t0) * 1e3,
-                        actions=len(stamps))
-
-    b3 = next(fn for fn in rc.KERNELS if fn.__name__ == "blend_csr_fwd")
-
-    def counted(kind, fn):
-        def wrapped(self, *a):
-            before = b3.launches
-            fn(self, *a)
-            apart[kind] += b3.launches - before
-        return wrapped
-
-    def run_episode(*a, **kw):
-        ran["node"], ran["planner"] = real_run(*a, **kw)
-        return ran["node"], ran["planner"]
-
-    rt._BIN_KERNEL = True
-    rt.blend_tiles, rt.blend_csr, rt.blend_csr_dual_fwd, rt.bin_gaussians = (
-        blend_tiles, blend_csr, blend_csr_dual_fwd, bin_gaussians)
-    HabitatDataset.apply_movement, planner_fsm.PlannerFSM.tick = move, tick
-    MapperNode._record_view = counted("view", real_view)
-    MapperNode._update_map3d = counted("map3d", real_map3d)
-    launch.run_episode = run_episode
-    try:
-        tracing.reset_stages()
-        rc.reset_launch_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with recorded_targets(planner_fsm) as targets:
-            launch.main(["--config", HABITAT_CONFIG, "--habitat_sim", "mock", "--step_num", str(n),
-                         "--save_runtime_data", "1", "--live_view_port", "0",
-                         "--results_dir", out_dir])
-        torch.cuda.synchronize()
-        t_end = time.perf_counter()
-    finally:
-        rt._BIN_KERNEL = False
-        rt.blend_tiles, rt.blend_csr, rt.blend_csr_dual_fwd, rt.bin_gaussians = real.values()
-        HabitatDataset.apply_movement, planner_fsm.PlannerFSM.tick = real_move, real_tick
-        MapperNode._record_view, MapperNode._update_map3d = real_view, real_map3d
-        launch.run_episode = real_run
-    counts = {fn.__name__: fn.launches for fn in rc.KERNELS}
-    rc.reset_launch_counts()
-    by_phase["habitat episode"] = counts
-    node, planner = ran["node"], ran["planner"]
-    ds, s = node.dataset, node.dataset.sensor
-
-    # the configuration and the budget
-    # the Habitat principal point: cx = cy = W/2 - 1 = 255
-    if (s.width, s.height, s.cx, s.cy) != (HABITAT_RES, HABITAT_RES, *[HABITAT_RES / 2 - 1] * 2):
-        raise AssertionError(f"habitat: sensor {s.width}x{s.height}, cx {s.cx}, cy {s.cy}")
-    cfg = node.mapper.cfg
-    steps, budget = ds.get_step_info()
-    if steps != budget or budget != n or len(stamps) != n:
-        raise AssertionError(f"habitat: {steps} of {budget} steps taken, {len(stamps)} actions "
-                             f"stamped")
-    mean_ms = (stamps[first_profiled] - stamps[1]) / (first_profiled - 1) * 1e3
-    walls = np.diff(stamps[:first_profiled + 1]) * 1e3
-    print(f"habitat: {n} steps of {HABITAT_CONFIG} (mock scene {ds.get_scene_id()}, "
-          f"{type(ds).__name__} on {type(ds._sim).__name__}, {s.width}x{s.height}, cx {s.cx}, "
-          f"cy {s.cy}, mapping_iters {cfg.mapping_iters}, map_every {cfg.map_every}, pixel_max "
-          f"{max(node.topdown_cfg.grid_shape)}; the config's 1,000 steps cut to {n}) in "
-          f"{t_end - t0:.1f} s on {card}")
-    print(f"habitat_action_ms@{HABITAT_CONFIG}_{HABITAT_RES}px = {mean_ms:.3f} (mean of actions 2 "
-          f"to {first_profiled}, host clock, each from a synchronize) on {card}")
-    print(f"habitat: set-up {(stamps[0] - t0) * 1e3:.3f} ms, the first action with its set-up "
-          f"{(stamps[1] - t0) * 1e3:.3f} ms, the last action with post_processing "
-          f"{(t_end - stamps[-1]) * 1e3:.3f} ms; action walls min / median / max "
-          f"{walls[1:].min():.3f} / {float(np.median(walls[1:])):.3f} / {walls[1:].max():.3f} ms")
-    print("habitat stages (host wall-clock; total, calls, ms a call, longest call):")
-    for name, (tot, calls, longest) in sorted(tracing.stage_report_full().items()):
-        print(f"  {name:<26} {tot * 1e3:11.3f} ms / {calls:5d} calls = "
-              f"{tot / calls * 1e3:9.3f} ms a call, longest {longest * 1e3:9.3f} ms")
-    print(f"habitat host syncs and device-to-host copies by stage: {tracing.stage_report_io()}")
-    kernels = device_kernels(prof)
-    window_ms = (stamps[-1] - stamps[first_profiled]) * 1e3
-    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-    print(f"habitat profile of actions {first_profiled + 1} to {n - 1} on {card}: wall "
-          f"{window_ms / HABITAT_PROFILED:.3f} ms an action under the profiler, device busy "
-          f"{busy_ms / HABITAT_PROFILED:.3f} ms an action in "
-          f"{len(kernels) / HABITAT_PROFILED:.0f} kernels an action, idle share "
-          f"{1.0 - busy_ms / window_ms:.3f} of the profiled wall, "
-          f"{1.0 - busy_ms / HABITAT_PROFILED / mean_ms:.3f} of the timed mean")
-    print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=15))
-    hybrid = any(h.get("exact_training") == "hybrid" for h in node.mapper.shape_history)
-    print(f"habitat launches: {counts}; the mapper switched to hybrid: {hybrid} (shape history "
-          f"{node.mapper.shape_history})")
-    print(f"habitat: B3 launches of the view renders (recorder and live view, every "
-          f"{node.record_view_every} steps) {apart['view']}, of the orbit overlay {apart['map3d']}, "
-          f"of everything else {counts['blend_csr_fwd'] - apart['view'] - apart['map3d']}")
-    need = ("blend_tiles_fwd", "blend_tiles_bwd", "blend_csr_fwd", "blend_csr_dual_fwd",
-            "bin_count", "bin_slots")
-    if (not all(counts[k] > 0 for k in need) or counts["bin_count"] != counts["bin_slots"]
-            or (counts["blend_csr_bwd"] > 0) != hybrid or not apart["view"] or not apart["map3d"]):
-        raise AssertionError(f"habitat launches {counts} (hybrid: {hybrid}, apart: {apart})")
-
-    # the outputs
-    actions = read_actions(os.path.join(out_dir, "actions.txt"))
-    if len(actions) != n or not all(0 <= a <= 5 for a in actions):
-        raise AssertionError(f"habitat: actions.txt holds {len(actions)} actions for {n} steps")
-    params = load_params(os.path.join(out_dir, "gaussians_data", "params.npz"))
-    bad = [k for k, v in params.items()
-           if np.issubdtype(v.dtype, np.floating) and not np.isfinite(v).all()]
-    if bad:
-        raise AssertionError(f"habitat: non-finite parameters in {bad}")
-    written = {d: sorted(os.listdir(os.path.join(out_dir, d)))
-               for d in ("topdown_map", "opacity", "current_vis_data")}
-    empty = [d for d, files in written.items() if not files]
-    if empty:
-        raise AssertionError(f"habitat: the recorder's {empty} are empty")
-    panel = next(f for f in written["current_vis_data"] if f.startswith("rgbd_sil_"))
-    shape = read_png(os.path.join(out_dir, "current_vis_data", panel)).shape
-    if shape != (2 * HABITAT_RES, 3 * HABITAT_RES, 3):
-        raise AssertionError(f"habitat: {panel} decodes to {shape}")
-    if os.path.exists(os.path.join(out_dir, "gt_mesh.json")):
-        raise AssertionError("habitat: gt_mesh.json written for a mesh that does not exist")
-    if not live or not live["metrics"].get("step", 0) > 0:
-        raise AssertionError(f"habitat: the live view was not fetched during the run: {live}")
-    print(f"habitat recorder: {', '.join(f'{d}/ {len(f)} files' for d, f in written.items())}; "
-          f"{panel} {shape[1]}x{shape[0]}; live view fetched after {live['actions']} actions in "
-          f"{live['ms']:.1f} ms ({live['bytes']}), metrics {live['metrics']}")
-    timeline = target_timeline(np, planner, targets)
-    reached = [t for t in timeline if t["reached"]]
-    ended = [t for t in timeline if t["ended"] is not None]
-    area = np.count_nonzero(planner.free_map) * planner.topdown_cfg.meter_per_pixel ** 2
-    print(f"habitat targets: {timeline}")
-    print(f"habitat outcome: {steps} of {budget} steps, {planner._tick_count} planner ticks, "
-          f"{len(timeline)} targets planned, {len(ended)} ended, {len(reached)} reached, "
-          f"{node.mapper.num_gaussians()} Gaussians, explored free area {area:.3f} m^2")
-    missing = [k for k, v in keep.items() if v is None and (k != "csr_train" or hybrid)]
-    if missing:
-        raise AssertionError(f"habitat: no inputs kept for {missing}")
-    return {**keep, "hybrid": hybrid, "gaussians": node.mapper.num_gaussians(),
-            "action_ms": mean_ms}
-
-
 def habitat_small_check(torch, np, card) -> None:
     """The Habitat adapter on its mock on the card against the same on the
     CPU: tests/test_torch_habitat_episode.py's parity run (HABITAT_SMALL),
@@ -3189,34 +2221,8 @@ def habitat_small_check(torch, np, card) -> None:
           f"{a['area']:.3f} m^2 free (card / CPU) on {card}")
 
 
-def habitat_coverage(np, card, out_dir) -> None:
-    """The coverage judge over phase 6's actions.txt through the adapter: a
-    fresh Eval dataset on the mock (get_dataset, scene_id "Eval"),
-    COVERAGE_SAMPLES GT samples of the mock's world, COVERAGE_THRESHOLD.
-    Fatal unless every number is finite and 0 < completeness_ratio <= 1."""
-    import os
-
-    from activesplat_tpu_torch.configs import load_scene_config, load_user_config
-    from activesplat_tpu_torch.eval.replay import eval_actions
-    from activesplat_tpu_torch.runtime.habitat_backend import get_dataset
-    from activesplat_tpu_torch.runtime.mock_habitat import make_mock_sim
-
-    t0 = time.perf_counter()
-    ds = get_dataset(load_scene_config(HABITAT_CONFIG), load_user_config(), scene_id="Eval",
-                     sim_factory=make_mock_sim)
-    report = eval_actions(ds, os.path.join(out_dir, "actions.txt"),
-                          num_gt_samples=COVERAGE_SAMPLES, dist_threshold=COVERAGE_THRESHOLD)
-    nums = (report.completeness, report.completeness_ratio, report.accuracy, report.path_length)
-    if not all(math.isfinite(x) for x in nums) or not 0 < report.completeness_ratio <= 1:
-        raise AssertionError(f"habitat coverage: {report}")
-    print(f"habitat coverage (eval_actions through the adapter, {COVERAGE_SAMPLES} GT samples of "
-          f"the mock's world, {COVERAGE_THRESHOLD} m): {report.as_row()} (completeness, "
-          f"completeness_ratio, accuracy, path length), {report.num_observed_points} observed "
-          f"points, {time.perf_counter() - t0:.1f} s on the host of {card}")
-
-
 def native_raycast_check(np, card) -> None:
-    """One HABITAT_RES x HABITAT_RES frame of the mock's world (BoxWorld.render),
+    """One HIGH_RES x HIGH_RES frame of the mock's world (BoxWorld.render),
     the native raycaster (built from csrc/raycast.cpp) against the numpy one
     on the host: NATIVE_REPS calls each, the frames within NATIVE_ATOL."""
     import os
@@ -3226,7 +2232,7 @@ def native_raycast_check(np, card) -> None:
     from activesplat_tpu_torch.utils.transforms import rot_axis
 
     world = BoxWorld.two_room(seed=0)
-    f = HABITAT_RES / 2
+    f = HIGH_RES / 2
     intr = np.array([[f, 0, f - 1], [0, f, f - 1], [0, 0, 1]])
     c2w = query_pose(np, (5.0, 1.25, 1.5))
     c2w = rot_axis(c2w, "y", np.deg2rad(35.0))
@@ -3238,10 +2244,10 @@ def native_raycast_check(np, card) -> None:
     try:
         for label, flag in (("native", "1"), ("numpy", "0")):
             os.environ["ACTIVESPLAT_NATIVE"] = flag
-            frames[label] = world.render(c2w, intr, HABITAT_RES, HABITAT_RES)
+            frames[label] = world.render(c2w, intr, HIGH_RES, HIGH_RES)
             t0 = time.perf_counter()
             for _ in range(NATIVE_REPS):
-                world.render(c2w, intr, HABITAT_RES, HABITAT_RES)
+                world.render(c2w, intr, HIGH_RES, HIGH_RES)
             ms[label] = (time.perf_counter() - t0) / NATIVE_REPS * 1e3
     finally:
         if old is None:
@@ -3251,152 +2257,9 @@ def native_raycast_check(np, card) -> None:
     err = max(float(np.abs(a - b).max()) for a, b in zip(frames["native"], frames["numpy"]))
     if err > NATIVE_ATOL:
         raise AssertionError(f"native raycaster: {err:.3e} from the numpy one")
-    print(f"native raycaster: {HABITAT_RES}x{HABITAT_RES} frame {ms['native']:.3f} ms native, "
+    print(f"native raycaster: {HIGH_RES}x{HIGH_RES} frame {ms['native']:.3f} ms native, "
           f"{ms['numpy']:.3f} ms numpy ({NATIVE_REPS} calls each, host clock), max difference "
           f"{err:.3e}; library load (built if missing) {build_s:.2f} s, on the host of {card}")
-
-
-def habitat_kernels(torch, np, rc, rt, card, hab, measure, bound, int_rate) -> None:
-    """Phase 6's kernels against their twins on the inputs that
-    habitat_phase kept (`hab`), each timed and bounded through main's
-    `measure` and `bound` as in phase 4, each entry counting the launches
-    of HABITAT_PHASES only. Frees the inputs as it goes."""
-    seg_bytes = rc.SEG * rc.N_ATTR * 4
-    entries = []
-
-    def timed(*a, **kw):
-        entries.append(measure(*a, **kw))
-        return entries[-1]
-
-    where = f"{HABITAT_CONFIG} {HABITAT_RES}x{HABITAT_RES}"
-    # B1 and B2 on the last training render's tile rows (T = 1,024 tiles)
-    h_rows, h_u0, h_v0 = hab["tiles"]
-    h_rows = h_rows.contiguous()
-    h_t, h_k, _ = h_rows.shape
-    h_tile_rej, h_fwd_rej = dict.fromkeys(TILE_SPLIT_FAULTS, 0), dict.fromkeys(TILE_FWD_FAULTS, 0)
-    h_errs, (h_entry, h_g_acc, h_g_lt) = kernel_checks(
-        torch, rc, h_rows, h_u0, h_v0, f"{where} mapping rows T={h_t} K={h_k}", h_tile_rej,
-        h_fwd_rej)
-    h_walked, h_live, h_live_wr = pair_counts(torch, rc, h_rows, h_u0, h_v0, h_entry)
-    h_px_bytes = h_t * rc.PX * 4
-    h_walk_bytes = h_walked // (rc.SEG * rc.PX) * seg_bytes + 2 * h_t * 4
-    h_fwd = (h_rows, h_u0, h_v0, N_CHANNELS)
-    h_bwd = (h_rows, h_u0, h_v0, h_entry, h_g_acc, h_g_lt, N_CHANNELS)
-    h_pairs = {"walked": h_walked, "live": h_live, "live_warp_rows": h_live_wr,
-               "warp_rows": h_walked // 32}
-    stream_6 = f"{where} (phase 6)"
-    timed("blend_tiles_fwd", "activesplat_tpu_torch/csrc/blend_fwd.cu", FWD_REPLACES,
-          lambda: rc.blend_tiles_fwd(*h_fwd, with_entry=True),
-          lambda: rc.blend_tiles_fwd_plain(*h_fwd, with_entry=True), B1_PASSES,
-          bound(h_walk_bytes + h_px_bytes * (N_CHANNELS + 1 + h_k // rc.SEG), h_walked, h_live,
-                live_f32_fwd(N_CHANNELS)),
-          h_errs["fwd"], stream=stream_6, phases=HABITAT_PHASES, tiles=h_t, k=h_k,
-          pairs=h_pairs,
-          segments=dict(zip(("computed", "walked"), h_errs["segments"]), all=h_t * (h_k // rc.SEG)))
-    timed("blend_tiles_bwd", "activesplat_tpu_torch/csrc/blend_bwd.cu", BWD_REPLACES,
-          lambda: rc.blend_tiles_bwd(*h_bwd), lambda: rc.blend_tiles_bwd_plain(*h_bwd),
-          B2_PASSES,
-          bound(h_walk_bytes + h_px_bytes * (h_k // rc.SEG + N_CHANNELS + 1)
-                + h_t * h_k * rc.N_ATTR * 4, h_walked, h_live, live_f32_bwd(N_CHANNELS)),
-          h_errs["bwd"], stream=stream_6, phases=HABITAT_PHASES, tiles=h_t, k=h_k,
-          pairs=h_pairs)
-    del h_fwd, h_bwd, h_entry, h_g_acc, h_g_lt
-    hab.pop("tiles")
-    # B3 on the last exact render's CSR stream of the 512x512 frame, B4 on
-    # the training stream once the mapper trains hybrid
-    print(f"habitat: the mapper went hybrid during the run: {hab['hybrid']} (B4 "
-          f"{'checked on its training stream' if hab['hybrid'] else 'not launched'})")
-    (h_stream, h_tiles, h_c) = hab["csr"]
-    h_stream = (h_stream[0].contiguous(), *h_stream[1:])
-    h_csr_rej = dict.fromkeys(SPLIT_FAULTS, 0)
-    h_cerrs, (h_centry, _, _) = csr_kernel_checks(
-        torch, rc, h_stream, h_tiles, f"{where} exact render CSR stream, "
-        f"{h_stream[1].shape[0]} segments", h_csr_rej, c=h_c, with_bwd=False)
-    h_cseg, h_cwalked, h_clive = csr_pair_counts(torch, rc, h_stream, h_centry, h_tiles)
-    timed("blend_csr_fwd", "activesplat_tpu_torch/csrc/blend_csr_fwd.cu", CSR_FWD_REPLACES,
-          lambda: rc.blend_csr_fwd(*h_stream, h_tiles, h_c),
-          lambda: rc.blend_csr_fwd_plain(*h_stream, h_tiles, h_c), CSR_PASSES,
-          bound(h_cseg * rc.CSEG * rc.N_ATTR * 4 + 2 * h_tiles * 4
-                + h_tiles * rc.PX * 4 * (h_c + 1), h_cwalked, h_clive, live_f32_fwd(h_c)),
-          h_cerrs["fwd"], plain_reps=2, stream=stream_6, phases=HABITAT_PHASES,
-          segments={"walked": h_cseg, "computed": h_cerrs["segments"][0],
-                    "all": h_stream[1].shape[0]})
-    del h_stream, h_centry
-    hab.pop("csr")
-    if hab["hybrid"]:
-        (h_stream, h_tiles, h_c) = hab["csr_train"]
-        h_stream = (h_stream[0].contiguous(), *h_stream[1:])
-        h_b4_rej = dict.fromkeys(B4_SPLIT_FAULTS, 0)
-        h_berrs, (h_bentry, h_bg_acc, h_bg_lt) = csr_kernel_checks(
-            torch, rc, h_stream, h_tiles, f"{where} hybrid training CSR stream, "
-            f"{h_stream[1].shape[0]} segments", h_csr_rej, c=h_c, bwd_rejected=h_b4_rej)
-        h_bseg, h_bwalked, h_blive = csr_pair_counts(torch, rc, h_stream, h_bentry, h_tiles)
-        h_bvisited = int(torch.unique(h_stream[1][h_stream[1] < h_tiles]).numel())
-        h_bn_seg = h_stream[1].shape[0]
-        h_b4 = (*h_stream, h_bentry, h_bg_acc, h_bg_lt, h_tiles, h_c)
-        timed("blend_csr_bwd", "activesplat_tpu_torch/csrc/blend_csr_bwd.cu", CSR_BWD_REPLACES,
-              lambda: rc.blend_csr_bwd(*h_b4), lambda: rc.blend_csr_bwd_plain(*h_b4), B4_PASSES,
-              bound(h_bseg * rc.CSEG * rc.N_ATTR * 4 + 2 * h_tiles * 4 + h_bn_seg * rc.PX * 4
-                    + h_bvisited * rc.PX * 4 * (h_c + 1) + h_bn_seg * rc.CSEG * rc.N_ATTR * 4,
-                    h_bwalked, h_blive, live_f32_bwd(h_c)),
-              h_berrs["bwd"], stream=stream_6, phases=HABITAT_PHASES,
-              pairs={"walked": h_bwalked, "live": h_blive})
-        del h_b4, h_stream, h_bentry, h_bg_acc, h_bg_lt
-    hab.pop("csr_train", None)
-    # B5 on the last top-down query's stream
-    (h_dstream, h_dtiles, _) = hab.pop("dual")
-    h_dstream = (h_dstream[0].contiguous(), *h_dstream[1:])
-    h_derr, h_dentry, _, (h_dcomputed, _) = dual_kernel_checks(
-        torch, rc, h_dstream, h_dtiles, f"{where} top-down CSR stream, "
-        f"{h_dstream[1].shape[0]} segments", h_csr_rej, require_exit_fault=False)
-    h_dseg, h_dwalked, h_dlive, h_dband = dual_pair_counts(torch, rc, h_dstream, h_dentry,
-                                                           h_dtiles)
-    h_dual = (*h_dstream, h_dtiles, DUAL_CHANNELS)
-    timed("blend_csr_dual_fwd", "activesplat_tpu_torch/csrc/blend_csr_dual.cu", DUAL_REPLACES,
-          lambda: rc.blend_csr_dual_fwd(*h_dual), lambda: rc.blend_csr_dual_fwd_plain(*h_dual),
-          CSR_PASSES,
-          bound(h_dseg * rc.CSEG * rc.N_ATTR * 4 + 2 * h_dtiles * 4
-                + h_dtiles * rc.PX * 4 * (DUAL_CHANNELS + 2), h_dwalked, h_dlive,
-                live_f32_fwd(DUAL_CHANNELS), h_dband, h_dband),
-          h_derr, plain_reps=2, stream=stream_6, phases=HABITAT_PHASES,
-          segments={"walked": h_dseg, "computed": h_dcomputed, "all": h_dstream[1].shape[0]})
-    del h_dual, h_dstream, h_dentry
-    # B6 on the last 512x512 bin
-    h_bin = hab.pop("bin")
-    h_bin_rej, h_bin_split_rej = dict.fromkeys(BIN_FAULTS, 0), dict.fromkeys(BIN_SPLIT_FAULTS, 0)
-    [(_, h_count_args, h_bin_args, h_lists)] = bin_checks(
-        torch, rc, rt, h_bin[:5], h_bin[5], (h_bin[6],),
-        f"{where} bin, visible prefix of {h_bin[0].shape[0]} splats", h_bin_rej, h_bin_split_rej)
-    h_counts = rc.bin_count_cuda(*h_count_args)[1]
-    h_bb = bin_bound(torch, rc, h_count_args, h_bin_args, h_counts, h_lists.indices, int_rate)
-    h_b6_run, h_b6_plain = b6_calls(torch, rc, h_count_args, h_bin_args)
-    b6 = timed("bin_slots", "activesplat_tpu_torch/csrc/bin_slots.cu", BIN_REPLACES, h_b6_run,
-               h_b6_plain, B6_PASSES, b6_bound_ms(h_bb), 0.0, stream=stream_6,
-               phases=HABITAT_PHASES, k=h_bin[5], offset=h_bin[6])
-    print_bin_bound(h_bb, f"{where} bin (k={h_bin[5]}, offset {h_bin[6]})",
-                    {"count": b6["pass_ms"][B6_PASSES[0]], "slot": b6["pass_ms"][B6_PASSES[1]]},
-                    card)
-    del h_bin, h_count_args, h_bin_args, h_lists, h_counts
-    print(f"planted faults rejected at {where}: B1's passes {h_fwd_rej}, B2's {h_tile_rej}, "
-          f"the CSR forwards' {h_csr_rej}")
-    for e in entries:
-        print(f"{e['name']} at {where}: kernel {e['ms']:.4f} ms {e.get('pass_ms', '')}, "
-              f"wrapper {e['wrapper_ms']:.4f} ms, twin {e['plain_ms']:.4f} ms, bound "
-              f"{e['bound_ms']:.4f} ms ({e['bound_by']}, {e['bound_ms'] / e['ms']:.3f} of it "
-              f"reached), max_abs_err {e['max_abs_err']:.3e} on {card}")
-
-
-def mesh_counts(rc, by_phase, phase, expect=None):
-    """Read and reset the launch counters into by_phase[phase]; with `expect`
-    ({kernel: launches}, every kernel it does not name 0) assert them."""
-    counts = {fn.__name__: fn.launches for fn in rc.KERNELS}
-    rc.reset_launch_counts()
-    by_phase[phase] = counts
-    if expect is not None:
-        want = {name: expect.get(name, 0) for name in counts}
-        if counts != want:
-            raise AssertionError(f"{phase}: kernel launches {counts}, not {want}")
-    return counts
 
 
 def rel_err(torch, got, want) -> float:
@@ -3404,120 +2267,318 @@ def rel_err(torch, got, want) -> float:
     return float((got - want).abs().max()) / (float(want.abs().max()) + 1e-30)
 
 
-def shard_inputs(torch, buf, cam, shard: int, rows: int):
-    """One shard's inputs to the tiled rasterizer, as render_sharded_tiled
-    hands them over: the projected arrays with the means shifted into the
-    shard's rows (no gradient)."""
-    from activesplat_tpu_torch.ops.projection import adaptive_cull_radius, project_gaussians
+def driver_intrinsics(np, res: int):
+    """The episode's sensor (RGBDSensor.from_fov): 90 degrees hfov, square
+    pixels, cx = W/2 - 1."""
+    from activesplat_tpu_torch.utils.transforms import compute_intrinsics
 
-    p = buf.params
-    with torch.no_grad():
-        proj = project_gaussians(p.means3d, p.quats, p.log_scales, buf.active, cam.w2c,
-                                 cam.fx, cam.fy, cam.cx, cam.cy, cam.width, cam.height)
-        opac = torch.sigmoid(p.logit_opacities)
-        radius, valid = adaptive_cull_radius(proj.radius, proj.valid, opac)
-        colors = torch.cat([p.rgb, proj.depth[:, None], (proj.depth ** 2)[:, None]], -1)
-        mean2d = proj.mean2d - proj.mean2d.new_tensor([0.0, float(shard * rows)])
-    return mean2d, proj.conic, opac, colors, valid, radius, proj.depth
+    fx, fy, cx, cy = compute_intrinsics(res, res, math.radians(90.0))
+    return np.array([[fx, 0.0, cx], [0.0, fy, cy], [0.0, 0.0, 1.0]])
 
 
-def mesh_timing(torch, np) -> int:
-    """The child process of phase 7 (b): ms per mapping iteration on phase
-    3's map, unsharded (mapping_iteration) and on the virtual mesh
-    (sharded_mapping_step), MESH_TIMED_ITERS chained iterations a run, in
-    turns (unsharded, sharded, sharded, unsharded) after one warm-up each,
-    in a process that runs no profiler session. Prints one JSON line."""
-    from activesplat_tpu_torch.mapper.adam import AdamState
-    from activesplat_tpu_torch.mapper.step import mapping_iteration
-    from activesplat_tpu_torch.ops import raster_cuda as rc
-    from activesplat_tpu_torch.parallel.sharded import make_render_mesh, sharded_mapping_step
-    from activesplat_tpu_torch.runtime.bench_scene import build_map
+def driver_frames(np, world, intr, frames: int, res=None):
+    """A walk's frames at res x res (default RES), rendered up front: from
+    the hermetic episode's start (make_synthetic_dataset's search for a free spot near
+    the room centre) three left turns of TURN_DEG, then one forward step of
+    FORWARD_STEP (skipped where blocked), over and over; each frame the
+    agent's camera (SyntheticDataset.camera_c2w) at CAMERA_HEIGHT."""
+    from activesplat_tpu_torch.utils.transforms import rot_axis
 
-    scene = build_map(N_GAUSSIANS, RES, k_per_tile=K_PER_TILE)
-    buf, cam, cfg = scene.buf, scene.cam, scene.cfg
-    rgb, depth = scene.frame(scene.c2w)
-    mesh = make_render_mesh([torch.device("cuda", 0)] * MESH_SHARDS)
-    steps = {"unsharded": lambda b, o: mapping_iteration(b, o, cam, rgb, depth, cfg),
-             "sharded": lambda b, o: sharded_mapping_step(b, o, cam, rgb, depth, cfg, mesh)}
-    per_iter = {"unsharded": 1, "sharded": MESH_SHARDS}
-
-    def run(name, iters):
-        b, opt = buf, AdamState.init(buf.params)
-        torch.cuda.synchronize()
-        rc.reset_launch_counts()
-        t0 = time.perf_counter()
-        acc = torch.zeros((), device="cuda")
-        for _ in range(iters):
-            b, opt, m = steps[name](b, opt)
-            acc = acc + m["loss"]
-        final = float(acc)  # synchronises
-        ms = (time.perf_counter() - t0) / iters * 1e3
-        counts = {fn.__name__: fn.launches for fn in rc.KERNELS}
-        want = iters * per_iter[name]
-        if not math.isfinite(final) or counts["blend_tiles_fwd"] != want or counts[
-                "blend_tiles_bwd"] != want:
-            raise AssertionError(f"mesh timing, {name}: loss {final}, launches {counts}")
-        return ms
-
-    for name in steps:
-        run(name, 1)
-    order = ("unsharded", "sharded", "sharded", "unsharded")
-    out = {name: [] for name in steps}
-    for name in order:
-        out[name].append(run(name, MESH_TIMED_ITERS))
-    print(json.dumps({"mesh_timing": out, "order": order, "iters": MESH_TIMED_ITERS}))
-    return 0
+    res = res or RES
+    sx, _, sz = world.size
+    pos = next(c for c in (np.array([sx / 2 + dx, 0.0, sz / 4])
+                           for dx in np.linspace(0, min(sx, sz) / 2 - 0.5, 8))
+               if world.is_free(c[[0, 2]], 0.2))
+    yaw, out = 0.0, []
+    for i in range(frames):
+        c2w = np.eye(4)
+        c2w[:3, :3] = np.diag([1.0, -1.0, -1.0])
+        c2w[:3, 3] = pos + [0.0, CAMERA_HEIGHT, 0.0]
+        c2w = rot_axis(c2w, "y", np.deg2rad(-yaw))
+        rgb, depth = world.render(c2w, intr, res, res, depth_max=10.0, depth_min=0.0)
+        out.append({"frame_id": i, "rgb": rgb, "depth": depth, "c2w": c2w})
+        if i % 4 == 3:
+            ahead = pos + FORWARD_STEP * np.array([-np.sin(np.deg2rad(yaw)), 0.0,
+                                                   -np.cos(np.deg2rad(yaw))])
+            if world.is_free(ahead[[0, 2]], 0.1):
+                pos = ahead
+        else:
+            yaw = (yaw + TURN_DEG) % 360
+    return out
 
 
-def mesh_phase(torch, np, rc, rt, card, by_phase, measure, bound) -> None:
-    """Phase 7: the multi-device path on a virtual mesh of the card (see the
-    module docstring). The sharded runs' launches go into by_phase under
-    MESH_PHASES, the unsharded runs they are held against under
-    MESH_REFERENCE_PHASES; the kernel entries of this phase count
-    MESH_PHASES only."""
+def read_launches(rc, what: str, expect=None) -> dict:
+    """Read and reset the kernel launch counters; with `expect` ({kernel:
+    launches}, every kernel it does not name 0) fail unless they match and
+    the row gathers' backward ran once for each blend backward."""
+    counts = {fn.__name__: fn.launches for fn in rc.KERNELS}
+    gathers = rc.gather_rows_bwd.launches
+    rc.reset_launch_counts()
+    if expect is not None:
+        want = {name: expect.get(name, 0) for name in counts}
+        backwards = want["blend_tiles_bwd"] + want["blend_csr_bwd"]
+        if counts != want or gathers != backwards:
+            raise AssertionError(f"{what}: kernel launches {counts} and {gathers} gather "
+                                 f"backwards, not {want} and {backwards}")
+    return counts
+
+
+def bound(rates, nbytes, walked, live, live_f32, extra_f32=0, extra_sfu=0):
+    """A blend's least time a call in ms on these inputs and what sets it:
+    its `nbytes` at HBM_BYTES_PER_S, or its float32 operations (WALKED_F32
+    a walked pair, `live_f32` more a live one) at F32_FLOPS and its
+    special-function results (LIVE_SFU a live pair) at rates["sfu"],
+    whichever takes longer."""
+    f32_ops = walked * WALKED_F32 + live * live_f32 + extra_f32
+    times = {
+        "bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+        "operations": max(f32_ops / F32_FLOPS, (live * LIVE_SFU + extra_sfu) / rates["sfu"]) * 1e3,
+    }
+    by = max(times, key=times.get)
+    return times[by], by
+
+
+def measure(torch, name, src, repl, run, plain, kernels, b_ms_by, err, plain_reps=5, **extra):
+    """One kernel's entry: the device ms of its passes `kernels` in a call
+    of the wrapper `run` ("ms" their sum), the wrapper's and its twin
+    `plain`'s ms a call, its bound `b_ms_by` (ms, what sets it) and the
+    largest error `err` against the twin."""
+    pass_ms = kernel_device_ms(torch, run, kernels, 20)
+    return {"name": name, "route": "cuda", "source": src, "replaces": repl, "max_abs_err": err,
+            "ms": sum(pass_ms.values()), "wrapper_ms": cuda_ms(run, 100),
+            "plain_ms": cuda_ms(plain, plain_reps), "bound_ms": b_ms_by[0],
+            "bound_by": b_ms_by[1], "library_ms": None, "pass_ms": pass_ms, **extra}
+
+
+def tile_entries(torch, rc, rows, u0, v0, where, rejected, rates) -> list:
+    """B1 and B2 on one set of tile rows: held against their twins
+    (kernel_checks, counting planted faults in rejected["B1"] and
+    rejected["B2"]), then timed and bounded. Bytes: the walked segments'
+    rows, the origins, the pixels' outputs and the stash (B1); the same
+    with the pixels' cotangents and every gradient row written (B2)."""
+    t, k, _ = rows.shape
+    errs, (entry, g_acc, g_lt) = kernel_checks(torch, rc, rows, u0, v0,
+                                               f"{where} tile rows T={t} K={k}", rejected["B2"],
+                                               rejected["B1"])
+    walked, live, live_wr = pair_counts(torch, rc, rows, u0, v0, entry)
+    print(f"{where} tile rows: {walked} (row, pixel) pairs walked, {live} of them live "
+          f"({live / walked:.4f}), {live_wr} of {walked // 32} warp-rows (B2's 8x4-pixel warps) "
+          f"hold a live pair ({live_wr / (walked // 32):.4f})")
+    walk_bytes = walked // (rc.SEG * rc.PX) * rc.SEG * rc.N_ATTR * 4 + 2 * t * 4
+    px_bytes = t * rc.PX * 4
+    fwd = (rows, u0, v0, N_CHANNELS)
+    bwd = (rows, u0, v0, entry, g_acc, g_lt, N_CHANNELS)
+    pairs = {"walked": walked, "live": live, "live_warp_rows": live_wr, "warp_rows": walked // 32}
+    return [
+        measure(torch, "blend_tiles_fwd", "activesplat_tpu_torch/csrc/blend_fwd.cu", FWD_REPLACES,
+                lambda: rc.blend_tiles_fwd(*fwd, with_entry=True),
+                lambda: rc.blend_tiles_fwd_plain(*fwd, with_entry=True), B1_PASSES,
+                bound(rates, walk_bytes + px_bytes * (N_CHANNELS + 1 + k // rc.SEG), walked, live,
+                      live_f32_fwd(N_CHANNELS)),
+                errs["fwd"], stream=where, tiles=t, k=k, pairs=pairs,
+                segments=dict(zip(("computed", "walked"), errs["segments"]),
+                              all=t * (k // rc.SEG))),
+        measure(torch, "blend_tiles_bwd", "activesplat_tpu_torch/csrc/blend_bwd.cu", BWD_REPLACES,
+                lambda: rc.blend_tiles_bwd(*bwd), lambda: rc.blend_tiles_bwd_plain(*bwd),
+                B2_PASSES,
+                bound(rates, walk_bytes + px_bytes * (k // rc.SEG + N_CHANNELS + 1)
+                      + t * k * rc.N_ATTR * 4, walked, live, live_f32_bwd(N_CHANNELS)),
+                errs["bwd"], stream=where, tiles=t, k=k, pairs=pairs)]
+
+
+def csr_entries(torch, rc, stream, n_tiles, where, rejected, rates, c=N_CHANNELS,
+                with_bwd=True) -> list:
+    """B3, and with `with_bwd` B4, on one CSR stream: held against their
+    twins (csr_kernel_checks, counting planted faults in rejected["B3/B5"]
+    and rejected["B4"]), then timed and bounded. Bytes: the walked
+    segments' rows, the per-tile segment ranges and the pixels' outputs or
+    cotangents; with `with_bwd` (a training stream) also the stash, written
+    by B3 and read by B4, and B4's gradient rows, every one of them written.
+    Without it the stream is a forward-only render's, with no stash."""
+    seg_tile = stream[1]
+    n_seg = seg_tile.shape[0]
+    errs, (entry, g_acc, g_lt) = csr_kernel_checks(
+        torch, rc, stream, n_tiles, f"{where} CSR stream, {n_seg} segments", rejected["B3/B5"], c=c,
+        with_bwd=with_bwd, bwd_rejected=rejected["B4"])
+    seg, walked, live = csr_pair_counts(torch, rc, stream, entry, n_tiles)
+    print(f"{where} CSR stream: {seg} of {n_seg} segments walked, {errs['segments'][0]} computed "
+          f"by pass 1, {walked} (row, pixel) pairs walked, {live} of them live "
+          f"({live / walked:.4f})")
+    seg_bytes = rc.CSEG * rc.N_ATTR * 4
+    stash_bytes = n_seg * rc.PX * 4 if with_bwd else 0
+    fwd = (*stream, n_tiles, c)
+    out = [measure(torch, "blend_csr_fwd", "activesplat_tpu_torch/csrc/blend_csr_fwd.cu",
+                   CSR_FWD_REPLACES, lambda: rc.blend_csr_fwd(*fwd, with_entry=with_bwd),
+                   lambda: rc.blend_csr_fwd_plain(*fwd, with_entry=with_bwd), CSR_PASSES,
+                   bound(rates, seg * seg_bytes + 2 * n_tiles * 4 + stash_bytes
+                         + n_tiles * rc.PX * 4 * (c + 1), walked, live, live_f32_fwd(c)),
+                   errs["fwd"], plain_reps=2, stream=where,
+                   segments={"walked": seg, "computed": errs["segments"][0], "all": n_seg})]
+    if with_bwd:
+        visited = int(torch.unique(seg_tile[seg_tile < n_tiles]).numel())
+        bwd = (*stream, entry, g_acc, g_lt, n_tiles, c)
+        out.append(measure(torch, "blend_csr_bwd", "activesplat_tpu_torch/csrc/blend_csr_bwd.cu",
+                           CSR_BWD_REPLACES, lambda: rc.blend_csr_bwd(*bwd),
+                           lambda: rc.blend_csr_bwd_plain(*bwd), B4_PASSES,
+                           bound(rates, seg * seg_bytes + 2 * n_tiles * 4 + stash_bytes
+                                 + visited * rc.PX * 4 * (c + 1) + n_seg * seg_bytes, walked,
+                                 live, live_f32_bwd(c)),
+                           errs["bwd"], stream=where, pairs={"walked": walked, "live": live}))
+    return out
+
+
+def dual_entry(torch, rc, stream, n_tiles, where, rejected, rates) -> dict:
+    """B5 on one top-down CSR stream: held against its twin
+    (dual_kernel_checks, counting planted faults in rejected["B3/B5"]), then
+    timed and bounded. Bytes: the walked segments' rows, the per-tile
+    segment ranges and the pixels' outputs (C colours and two
+    log-transmittances); operations: B3's at C=3, plus the band's log1p and
+    add per band-live pair."""
+    n_seg = stream[1].shape[0]
+    err, entry, _, (computed, _) = dual_kernel_checks(
+        torch, rc, stream, n_tiles, f"{where} top-down CSR stream, {n_seg} segments",
+        rejected["B3/B5"], require_exit_fault=False)
+    seg, walked, live, band = dual_pair_counts(torch, rc, stream, entry, n_tiles)
+    print(f"{where} top-down CSR stream: {seg} of {n_seg} segments walked, {computed} computed by "
+          f"pass 1, {walked} (row, pixel) pairs walked, {live} of them live "
+          f"({live / walked:.4f}), {band} of those in the band")
+    nbytes = (seg * rc.CSEG * rc.N_ATTR * 4 + 2 * n_tiles * 4
+              + n_tiles * rc.PX * 4 * (DUAL_CHANNELS + 2))
+    args = (*stream, n_tiles, DUAL_CHANNELS)
+    return measure(torch, "blend_csr_dual_fwd", "activesplat_tpu_torch/csrc/blend_csr_dual.cu",
+                   DUAL_REPLACES, lambda: rc.blend_csr_dual_fwd(*args),
+                   lambda: rc.blend_csr_dual_fwd_plain(*args), CSR_PASSES,
+                   bound(rates, nbytes, walked, live, live_f32_fwd(DUAL_CHANNELS), band, band),
+                   err, plain_reps=2, stream=where,
+                   segments={"walked": seg, "computed": computed, "all": n_seg})
+
+
+def bin_entry(torch, rc, rt, prefix, k, where, rates, card) -> dict:
+    """B6 on one render's bin, `prefix` its visible prefix as bin_gaussians
+    takes it (mean2d, radius, valid, width, height): its passes and its
+    route held at slot offsets 0 and k (bin_checks; every planted fault of
+    the output must show), then timed at offset 0 and bounded pass by pass
+    (bin_bound)."""
+    rejected, split_rejected = dict.fromkeys(BIN_FAULTS, 0), dict.fromkeys(BIN_SPLIT_FAULTS, 0)
+    [(_, count_args, args, lists), _] = bin_checks(
+        torch, rc, rt, prefix, k, (0, k), f"{where} bin, visible prefix of {prefix[0].shape[0]} "
+        f"splats", rejected, split_rejected)
+    if not all(rejected.values()):
+        raise AssertionError(f"{where}: a planted bin fault never showed: {rejected}")
+    print(f"{where} bin: planted faults of B6's two passes rejected: {split_rejected}")
+    counts = rc.bin_count_cuda(*count_args)[1]
+    bb = bin_bound(torch, rc, count_args, args, counts, lists.indices, rates["int"])
+    run, plain = b6_calls(torch, rc, count_args, args)
+    entry = measure(torch, "bin_slots", "activesplat_tpu_torch/csrc/bin_slots.cu", BIN_REPLACES,
+                    run, plain, B6_PASSES, b6_bound_ms(bb), 0.0, stream=where, k=k,
+                    pass_bound_ms={p: bb[p][0] for p in ("count", "slot")},
+                    bound_slot_search_ms=bb["old"][0])
+    print_bin_bound(bb, f"{where} bin (k={k}, offset 0)",
+                    {"count": entry["pass_ms"][B6_PASSES[0]],
+                     "slot": entry["pass_ms"][B6_PASSES[1]]}, card)
+    return entry
+
+
+def render_inputs(torch, rc, rt, buf, cam, k):
+    """The kernels' inputs for one camera on one map: the tile rows of a
+    k-capped render (B1, B2), the CSR stream of an exact render and its
+    tile count (B3, B4), and the k-capped render's bin, its visible prefix
+    as bin_gaussians takes it (B6), which must fit the kernel route's gate."""
+    from activesplat_tpu_torch.ops.render import render
+
+    seen = []
+    real = rt.bin_gaussians
+    rt.bin_gaussians = lambda *a, **kw: seen.append(a) or real(*a, **kw)
+    try:
+        with torch.no_grad():
+            render(buf, cam, k_per_tile=k)
+    finally:
+        rt.bin_gaussians = real
+    prefix = seen[0][:5]
+    if -(-prefix[0].shape[0] // rc.BIN_BLOCK) > rc.BIN_MAX_BLOCKS:
+        raise AssertionError(f"the render's visible prefix of {prefix[0].shape[0]} splats passes "
+                             f"the bin kernel route's gate of {rc.BIN_MAX_BLOCKS} blocks")
+    return main_path_rows(torch, buf, cam, k), main_path_csr(torch, buf, cam), prefix
+
+
+def exact_render_check(torch, rc, buf, cam) -> None:
+    """The forward-only exact render: one launch of B3, without the stash
+    (its output carries no autograd graph although the parameters ask for
+    gradients, so BlendCSR saves nothing and B3 runs without the stash),
+    giving the image of the exact_training="on" render's forward."""
+    from activesplat_tpu_torch.ops.render import render
+
+    grad_buf = buf.replace(params=buf.params.map(lambda x: x.detach().requires_grad_(True)))
+    rc.reset_launch_counts()
+    exact_img = render(grad_buf, cam, k_per_tile=K_PER_TILE, exact=True)
+    read_launches(rc, "render(exact=True)", {"blend_csr_fwd": 1})
+    if exact_img.rgb.requires_grad:
+        raise AssertionError("render(exact=True) built an autograd graph")
+    on_img = render(grad_buf, cam, k_per_tile=K_PER_TILE, grad_exact=True)
+    rc.reset_launch_counts()
+    gap = max(float((getattr(exact_img, f) - getattr(on_img, f).detach()).abs().max())
+              for f in ("rgb", "depth", "alpha"))
+    if gap > 1e-6 or int(exact_img.dropped) != 0:
+        raise AssertionError(f"render(exact=True) differs from the 'on' forward by {gap:.3e}")
+    print(f"render(exact=True): one B3 launch without the stash; rgb, depth and alpha "
+          f"within {gap:.3e} of the exact_training='on' render's forward")
+
+
+def high_res_map(torch, np):
+    """Phase 5's map: SplaTAMMapper with the HIGH_CONFIG scene config's
+    mapper on the card, fed MAP_FRAMES frames of
+    BoxWorld.single_room(HIGH_WORLD_SEED) at HIGH_RES x HIGH_RES along
+    driver_frames' walk. Returns (the mapper, the camera of its last frame,
+    the room's top-down config at the scene config's pixel_max)."""
+    from activesplat_tpu_torch.configs import load_scene_config, mapper_config_from_scene
+    from activesplat_tpu_torch.mapper.splatam import SplaTAMMapper
+    from activesplat_tpu_torch.queries.topdown import topdown_config_from_bbox
+    from activesplat_tpu_torch.runtime.synthetic import BoxWorld
+
+    scene_cfg = load_scene_config(HIGH_CONFIG)
+    world = BoxWorld.single_room(seed=HIGH_WORLD_SEED)
+    intr = driver_intrinsics(np, HIGH_RES)
+    frames = driver_frames(np, world, intr, MAP_FRAMES, HIGH_RES)
+    mapper = SplaTAMMapper(mapper_config_from_scene(scene_cfg), HIGH_RES, HIGH_RES, intr,
+                           DRIVER_STEP_NUM, device="cuda")
+    t0 = time.perf_counter()
+    for batch in frames:
+        mapper.run(batch)
+    torch.cuda.synchronize()
+    sx, sy, sz = world.size
+    td_cfg = topdown_config_from_bbox(np.array([[0.0, sx], [0.0, sy], [0.0, sz]]), agent_foot=0.0,
+                                      agent_head=1.5,
+                                      pixel_max=scene_cfg["painter"]["grid_map"]["pixel_max"])
+    print(f"{HIGH_CONFIG} map: {mapper.num_gaussians()} Gaussians from {MAP_FRAMES} frames at "
+          f"{HIGH_RES}x{HIGH_RES} in {time.perf_counter() - t0:.1f} s (shape history "
+          f"{mapper.shape_history})")
+    return mapper, mapper._camera(np.linalg.inv(frames[-1]["c2w"])), td_cfg
+
+
+def mesh_checks(torch, np, rc, scene, qbuf) -> None:
+    """Phase 4: the multi-device path on a virtual mesh of the card against
+    the unsharded path (see the module docstring), on phase 3's map `scene`
+    and query map `qbuf`."""
     from activesplat_tpu_torch.mapper import step
-    from activesplat_tpu_torch.mapper.adam import AdamState
     from activesplat_tpu_torch.mapper.config import MapperConfig
     from activesplat_tpu_torch.mapper.keyframes import KeyframeStore
     from activesplat_tpu_torch.mapper.splatam import SplaTAMMapper
-    from activesplat_tpu_torch.ops.raster_tiled import csr_rows, tile_rows
     from activesplat_tpu_torch.ops.render import render
     from activesplat_tpu_torch.parallel import sharded
     from activesplat_tpu_torch.queries.panorama import global_invisibility, local_invisibility
-    from activesplat_tpu_torch.runtime.bench_scene import build_map
     from activesplat_tpu_torch.runtime.synthetic import BoxWorld
     from activesplat_tpu_torch.utils.transforms import rot_axis
 
-    t7 = time.perf_counter()
     n_cards = torch.cuda.device_count()
     mesh = sharded.make_render_mesh([torch.device("cuda", 0)] * MESH_SHARDS)
-    rows = RES // MESH_SHARDS
-    print(f"phase 7: torch.cuda.device_count() = {n_cards}; a virtual mesh of {mesh.px} shards "
-          f"on {mesh.devices[0]} ({rows} rows each at {RES}x{RES}) on {card}")
-    b1, b2, b3, b4 = (fn.__name__ for fn in rc.KERNELS[:4])
-
-    # (b, timing) ms per iteration in a child process that runs no profiler
-    # session, before anything else of this phase
-    t0 = time.perf_counter()
-    child = subprocess.run([sys.executable, str(Path(__file__).resolve()), MESH_TIMING_FLAG],
-                           capture_output=True, text=True, timeout=MESH_TIMING_TIMEOUT)
-    if child.returncode != 0:
-        raise AssertionError(f"mesh timing child failed ({child.returncode}):\n"
-                             f"{child.stdout[-2000:]}\n{child.stderr[-4000:]}")
-    timing = json.loads(child.stdout.strip().splitlines()[-1])["mesh_timing"]
-    un_ms, sh_ms = sum(timing["unsharded"]) / 2, sum(timing["sharded"]) / 2
-    print(f"mesh_ms_per_iter@{N_GAUSSIANS}g_{RES}px = {sh_ms:.3f} on a {MESH_SHARDS}-shard virtual "
-          f"mesh against {un_ms:.3f} unsharded ({sh_ms / un_ms:.3f}x; runs in turns: unsharded "
-          f"{timing['unsharded']}, sharded {timing['sharded']} ms/iter, {MESH_TIMED_ITERS} "
-          f"iterations each, a child process with no profiler session, "
-          f"{time.perf_counter() - t0:.1f} s with its set-up) on {card}")
-
-    scene = build_map(N_GAUSSIANS, RES, k_per_tile=K_PER_TILE)
     buf, cam, cfg = scene.buf, scene.cam, scene.cfg
     rgb0, depth0 = scene.frame(scene.c2w)
+    print(f"mesh: torch.cuda.device_count() = {n_cards}; a virtual mesh of {mesh.px} shards on "
+          f"{mesh.devices[0]} ({RES // MESH_SHARDS} rows each at {RES}x{RES})")
+    b1, b2, b3, b4 = (fn.__name__ for fn in rc.KERNELS[:4])
 
-    # (a) the sharded render against the unsharded one; `dropped` against
-    # the sum of the shards' own renders
+    # the sharded render against the unsharded one; `dropped` against the
+    # sum of the shards' own renders
     shard_dropped = []
     real_tiled = sharded.rasterize_tiled
     sharded.rasterize_tiled = lambda *a, **kw: (lambda out: shard_dropped.append(int(out[2]))
@@ -3526,12 +2587,12 @@ def mesh_phase(torch, np, rc, rt, card, by_phase, measure, bound) -> None:
         rc.reset_launch_counts()
         with torch.no_grad():
             got = sharded.render_sharded_tiled(buf, cam, mesh, k_per_tile=K_PER_TILE)
-        mesh_counts(rc, by_phase, "mesh render", {b1: MESH_SHARDS})
+        read_launches(rc, "mesh render", {b1: MESH_SHARDS})
     finally:
         sharded.rasterize_tiled = real_tiled
     with torch.no_grad():
         ref = render(buf, cam, k_per_tile=K_PER_TILE)
-    mesh_counts(rc, by_phase, "mesh reference render", {b1: 1})
+    read_launches(rc, "mesh reference render", {b1: 1})
     errs = {f: rel_err(torch, g, getattr(ref, f)) for f, g in zip(("rgb", "depth", "alpha"), got)}
     if (max(errs.values()) > MESH_IMG_REL or len(shard_dropped) != MESH_SHARDS
             or int(got[4]) != sum(shard_dropped) or not torch.equal(got[3], ref.radii)):
@@ -3554,7 +2615,7 @@ def mesh_phase(torch, np, rc, rt, card, by_phase, measure, bound) -> None:
     else:
         print("mesh render over several real devices: not run (this machine has one card)")
 
-    # (a) the loss and its gradients against mapping_loss
+    # the loss and its gradients against mapping_loss
     for mode, k, ref_mode, expect in (
             ("off", K_PER_TILE, "off", {b1: MESH_SHARDS, b2: MESH_SHARDS}),
             ("on", K_PER_TILE, "on", {b3: MESH_SHARDS, b4: MESH_SHARDS}),
@@ -3562,10 +2623,10 @@ def mesh_phase(torch, np, rc, rt, card, by_phase, measure, bound) -> None:
         cfg_m = dataclasses.replace(cfg, k_per_tile=k, exact_training=mode)
         rc.reset_launch_counts()
         loss_m, aux_m, g_m = step.loss_and_grads(buf, cam, rgb0, depth0, cfg_m, mesh=mesh)
-        mesh_counts(rc, by_phase, f"mesh loss {mode}", expect)
+        launches = read_launches(rc, f"mesh loss {mode}", expect)
         loss_s, aux_s, g_s = step.loss_and_grads(
             buf, cam, rgb0, depth0, dataclasses.replace(cfg_m, exact_training=ref_mode))
-        mesh_counts(rc, by_phase, f"mesh reference loss {mode}")
+        read_launches(rc, f"unsharded loss {ref_mode}", dict.fromkeys(expect, 1))
         g_err = max(rel_err(torch, a, b) for a, b in zip(g_m.tensors(), g_s.tensors()))
         l_err = abs(float(loss_m) - float(loss_s)) / abs(float(loss_s))
         if l_err > MESH_LOSS_RTOL or g_err > MESH_GRAD_REL or (
@@ -3576,10 +2637,14 @@ def mesh_phase(torch, np, rc, rt, card, by_phase, measure, bound) -> None:
         print(f"mesh loss exact_training={mode!r} (k={k}) against the unsharded {ref_mode!r}: "
               f"loss {float(loss_m):.7f} ({l_err:.3e} relative), gradients within {g_err:.3e} "
               f"of each field's largest, dropped {int(aux_m.dropped)} (unsharded "
-              f"{int(aux_s.dropped)}); launches {by_phase[f'mesh loss {mode}']}")
+              f"{int(aux_s.dropped)}); launches {launches}")
+    # unsharded, "hybrid" finds harmful tiles at HYBRID_K: all four blends run
+    step.loss_and_grads(buf, cam, rgb0, depth0,
+                        dataclasses.replace(cfg, k_per_tile=HYBRID_K, exact_training="hybrid"))
+    read_launches(rc, f"unsharded loss hybrid (k={HYBRID_K})", dict.fromkeys((b1, b2, b3, b4), 1))
 
-    # (b) one mapping event of MESH_EVENT_ITERS iterations on the mesh
-    # against the unsharded one: the same map, keyframes and draws
+    # one mapping event of MESH_EVENT_ITERS iterations on the mesh against
+    # the unsharded one: the same map, keyframes and draws
     store = KeyframeStore.empty(16, RES, RES)
     views = []
     for ev in range(3):
@@ -3612,12 +2677,11 @@ def mesh_phase(torch, np, rc, rt, card, by_phase, measure, bound) -> None:
             step.loss_and_grads = real_lg
         events[name] = out
         per = MESH_SHARDS if m else 1
-        mesh_counts(rc, by_phase, "mesh mapping_phase" if m else "mesh reference mapping_phase",
-                    {b1: MESH_EVENT_ITERS * per, b2: MESH_EVENT_ITERS * per})
-    first_grads = [first_grads[0], first_grads[1]]
+        read_launches(rc, f"{name} mapping_phase",
+                      {b1: MESH_EVENT_ITERS * per, b2: MESH_EVENT_ITERS * per})
     g_err = max(rel_err(torch, a, b) for a, b in zip(first_grads[0].tensors(),
                                                       first_grads[1].tensors()))
-    (mbuf, _, mm), (sbuf, _, sm) = events["mesh"], events["single"]
+    (_, _, mm), (_, _, sm) = events["mesh"], events["single"]
     names = ("loss", "psnr", "depth_l1", "rgb_l1", "ssim")
     first = max(abs(float(mm[k][0]) - float(sm[k][0])) / abs(float(sm[k][0])) for k in names)
     worst = max(float(((mm[k] - sm[k]).abs() / sm[k].abs()).max()) for k in names)
@@ -3630,161 +2694,50 @@ def mesh_phase(torch, np, rc, rt, card, by_phase, measure, bound) -> None:
           f"metrics within {worst:.3e} (losses {float(mm['loss'][0]):.5f} -> "
           f"{float(mm['loss'][-1]):.5f}, unsharded {float(sm['loss'][0]):.5f} -> "
           f"{float(sm['loss'][-1]):.5f})")
-    del events, mbuf, sbuf, first_grads
+    del events, first_grads, views, store
 
-    # (b, profile) the sharded step under torch.profiler: device busy time
-    # and idle share; the phase's launches are read apart
-    state = [buf, AdamState.init(buf.params)]
-
-    def sharded_step():
-        state[0], state[1], _ = sharded.sharded_mapping_step(state[0], state[1], cam, rgb0, depth0,
-                                                             cfg, mesh)
-
-    rc.reset_launch_counts()
-    profile_calls(torch, sharded_step, MESH_PROFILED, sh_ms, card,
-                  f"sharded_mapping_step ({MESH_SHARDS}-shard virtual mesh)", ("device",))
-    mesh_counts(rc, by_phase, "mesh profiled", {b1: MESH_SHARDS * MESH_PROFILED,
-                                                b2: MESH_SHARDS * MESH_PROFILED})
-    del state
-
-    # (e) B1-B4 at one shard's shapes: its tile rows and its CSR stream
-    args = shard_inputs(torch, buf, cam, MESH_KERNEL_SHARD, rows)
-    with torch.no_grad():
-        s_rows, s_u0, s_v0, _ = tile_rows(*args, width=RES, height=rows, k_per_tile=K_PER_TILE)
-        data, seg_tile, seg_u0, seg_v0, dropped = csr_rows(*args, width=RES, height=rows)
-    if dropped:
-        raise AssertionError(f"mesh shard {MESH_KERNEL_SHARD}: the exact render passed the "
-                             f"entry budget by {dropped}")
-    s_rows = s_rows.contiguous()
-    where = f"shard {MESH_KERNEL_SHARD} of {MESH_SHARDS} ({rows}x{RES} px)"
-    stream_7 = f"{where} (phase 7)"
-    m_tile_rej, m_fwd_rej = dict.fromkeys(TILE_SPLIT_FAULTS, 0), dict.fromkeys(TILE_FWD_FAULTS, 0)
-    s_t, s_k, _ = s_rows.shape
-    s_errs, (s_entry, s_g_acc, s_g_lt) = kernel_checks(
-        torch, rc, s_rows, s_u0, s_v0, f"{where} tile rows T={s_t} K={s_k}", m_tile_rej, m_fwd_rej)
-    s_walked, s_live, s_live_wr = pair_counts(torch, rc, s_rows, s_u0, s_v0, s_entry)
-    seg_bytes = rc.SEG * rc.N_ATTR * 4
-    s_px_bytes = s_t * rc.PX * 4
-    s_walk_bytes = s_walked // (rc.SEG * rc.PX) * seg_bytes + 2 * s_t * 4
-    s_fwd = (s_rows, s_u0, s_v0, N_CHANNELS)
-    s_bwd = (s_rows, s_u0, s_v0, s_entry, s_g_acc, s_g_lt, N_CHANNELS)
-    s_pairs = {"walked": s_walked, "live": s_live, "live_warp_rows": s_live_wr,
-               "warp_rows": s_walked // 32}
-    entries = [
-        measure("blend_tiles_fwd", "activesplat_tpu_torch/csrc/blend_fwd.cu", FWD_REPLACES,
-                lambda: rc.blend_tiles_fwd(*s_fwd, with_entry=True),
-                lambda: rc.blend_tiles_fwd_plain(*s_fwd, with_entry=True), B1_PASSES,
-                bound(s_walk_bytes + s_px_bytes * (N_CHANNELS + 1 + s_k // rc.SEG), s_walked,
-                      s_live, live_f32_fwd(N_CHANNELS)),
-                s_errs["fwd"], stream=stream_7, phases=MESH_PHASES, tiles=s_t, k=s_k,
-                pairs=s_pairs, segments=dict(zip(("computed", "walked"), s_errs["segments"]),
-                                             all=s_t * (s_k // rc.SEG))),
-        measure("blend_tiles_bwd", "activesplat_tpu_torch/csrc/blend_bwd.cu", BWD_REPLACES,
-                lambda: rc.blend_tiles_bwd(*s_bwd), lambda: rc.blend_tiles_bwd_plain(*s_bwd),
-                B2_PASSES,
-                bound(s_walk_bytes + s_px_bytes * (s_k // rc.SEG + N_CHANNELS + 1)
-                      + s_t * s_k * rc.N_ATTR * 4, s_walked, s_live, live_f32_bwd(N_CHANNELS)),
-                s_errs["bwd"], stream=stream_7, phases=MESH_PHASES, tiles=s_t, k=s_k,
-                pairs=s_pairs)]
-    del s_fwd, s_bwd, s_entry, s_g_acc, s_g_lt, s_rows
-    stream = (data.contiguous(), seg_tile, seg_u0, seg_v0)
-    n_tiles = (RES // 16) * (rows // 16)
-    n_seg = seg_tile.shape[0]
-    m_csr_rej, m_b4_rej = dict.fromkeys(SPLIT_FAULTS, 0), dict.fromkeys(B4_SPLIT_FAULTS, 0)
-    c_errs, (c_entry, c_g_acc, c_g_lt) = csr_kernel_checks(
-        torch, rc, stream, n_tiles, f"{where} CSR stream, {n_seg} segments", m_csr_rej,
-        bwd_rejected=m_b4_rej)
-    c_seg, c_walked, c_live = csr_pair_counts(torch, rc, stream, c_entry, n_tiles)
-    visited = int(torch.unique(seg_tile[seg_tile < n_tiles]).numel())
-    c_seg_bytes = rc.CSEG * rc.N_ATTR * 4
-    stash_bytes = n_seg * rc.PX * 4
-    c_fwd = (*stream, n_tiles, N_CHANNELS)
-    c_bwd = (*stream, c_entry, c_g_acc, c_g_lt, n_tiles, N_CHANNELS)
-    entries += [
-        measure("blend_csr_fwd", "activesplat_tpu_torch/csrc/blend_csr_fwd.cu", CSR_FWD_REPLACES,
-                lambda: rc.blend_csr_fwd(*c_fwd, with_entry=True),
-                lambda: rc.blend_csr_fwd_plain(*c_fwd, with_entry=True), CSR_PASSES,
-                bound(c_seg * c_seg_bytes + 2 * n_tiles * 4 + stash_bytes
-                      + n_tiles * rc.PX * 4 * (N_CHANNELS + 1), c_walked, c_live,
-                      live_f32_fwd(N_CHANNELS)),
-                c_errs["fwd"], stream=stream_7, phases=MESH_PHASES,
-                segments={"walked": c_seg, "computed": c_errs["segments"][0], "all": n_seg}),
-        measure("blend_csr_bwd", "activesplat_tpu_torch/csrc/blend_csr_bwd.cu", CSR_BWD_REPLACES,
-                lambda: rc.blend_csr_bwd(*c_bwd), lambda: rc.blend_csr_bwd_plain(*c_bwd),
-                B4_PASSES,
-                bound(c_seg * c_seg_bytes + 2 * n_tiles * 4 + stash_bytes
-                      + visited * rc.PX * 4 * (N_CHANNELS + 1) + n_seg * c_seg_bytes,
-                      c_walked, c_live, live_f32_bwd(N_CHANNELS)),
-                c_errs["bwd"], stream=stream_7, phases=MESH_PHASES,
-                pairs={"walked": c_walked, "live": c_live})]
-    del c_fwd, c_bwd, c_entry, c_g_acc, c_g_lt, stream, data
-    print(f"planted faults rejected at {where}: B1's passes {m_fwd_rej}, B2's {m_tile_rej}, "
-          f"the CSR forward's {m_csr_rej}, B4's {m_b4_rej}")
-    for e in entries:
-        print(f"{e['name']} at {where}: kernel {e['ms']:.4f} ms {e.get('pass_ms', '')}, "
-              f"wrapper {e['wrapper_ms']:.4f} ms, twin {e['plain_ms']:.4f} ms, bound "
-              f"{e['bound_ms']:.4f} ms ({e['bound_by']}, {e['bound_ms'] / e['ms']:.3f} of it "
-              f"reached), max_abs_err {e['max_abs_err']:.3e} on {card}")
-    del scene, buf, rgb0, depth0, views, store, args
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-
-    # (c) the driver (MapperConfig(), the bin kernel route on) over
-    # MESH_FRAMES frames on the mesh and unsharded
-    world = BoxWorld.two_room(seed=0)
+    # the driver (MapperConfig()) over MESH_FRAMES frames on the mesh and unsharded
     intr = driver_intrinsics(np, RES)
-    frames = driver_frames(np, world, intr, MESH_FRAMES)
+    frames = driver_frames(np, BoxWorld.two_room(seed=0), intr, MESH_FRAMES)
     drivers = {}
-    rt._BIN_KERNEL = True
-    try:
-        for name, m in (("mesh", mesh), ("single", None)):
-            mapper = SplaTAMMapper(MapperConfig(), RES, RES, intr, DRIVER_STEP_NUM, device="cuda",
-                                   mesh=m)
-            rc.reset_launch_counts()
-            t0 = time.perf_counter()
-            for batch in frames:
-                mapper.run(batch)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) / len(frames) * 1e3
-            counts = mesh_counts(rc, by_phase, "mesh driver" if m else "mesh reference driver")
-            iters = mapper.mapping_iter_time_count
-            per = MESH_SHARDS if m else 1
-            if not (counts[b2] == per * iters > 0 and counts[b1] >= per * iters
-                    and counts["bin_slots"] >= per * iters and counts[b3] > 0):
-                raise AssertionError(f"mesh driver ({name}): launches {counts} for {iters} "
-                                     f"mapping iterations")
-            drivers[name] = (mapper, wall, counts)
-    finally:
-        rt._BIN_KERNEL = False
-    (a, a_ms, a_counts), (b, b_ms, _) = drivers["mesh"], drivers["single"]
+    for name, m in (("mesh", mesh), ("single", None)):
+        mapper = SplaTAMMapper(MapperConfig(), RES, RES, intr, DRIVER_STEP_NUM, device="cuda",
+                               mesh=m)
+        rc.reset_launch_counts()
+        for batch in frames:
+            mapper.run(batch)
+        counts = read_launches(rc, f"{name} driver")
+        iters = mapper.mapping_iter_time_count
+        per = MESH_SHARDS if m else 1
+        if not (counts[b2] == per * iters > 0 and counts[b1] >= per * iters and counts[b3] > 0):
+            raise AssertionError(f"mesh driver ({name}): launches {counts} for {iters} mapping "
+                                 f"iterations")
+        drivers[name] = (mapper, counts)
+    (a, a_counts), (b, _) = drivers["mesh"], drivers["single"]
     worst = max(abs(a.last_metrics[k] - v) / (abs(v) + 1e-12) for k, v in b.last_metrics.items())
     if (a.num_gaussians() != b.num_gaussians() or worst > MESH_METRIC_RTOL
             or a._densify_mesh is None or a.mesh != mesh):
         raise AssertionError(f"mesh driver: {a.num_gaussians()} Gaussians against "
                              f"{b.num_gaussians()}, metrics {a.last_metrics} against "
                              f"{b.last_metrics}")
-    print(f"mesh driver ({MESH_FRAMES} frames of two_room at {RES}x{RES}, MapperConfig(), bin "
-          f"kernel route on, {a.mapping_iter_time_count} mapping iterations): "
-          f"{a.num_gaussians()} Gaussians on both; last metrics within {worst:.3e} relative "
-          f"({a.last_metrics}); {a_ms:.3f} ms a frame on the mesh against {b_ms:.3f} unsharded; "
-          f"launches {a_counts} on {card}")
+    print(f"mesh driver ({MESH_FRAMES} frames of two_room at {RES}x{RES}, MapperConfig(), "
+          f"{a.mapping_iter_time_count} mapping iterations): {a.num_gaussians()} Gaussians on "
+          f"both; last metrics within {worst:.3e} relative ({a.last_metrics}); launches "
+          f"{a_counts}")
     del drivers, a, b, mapper, frames
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
 
-    # (d) the panorama queries on phase 3c's query map, views sharded
-    qbuf = build_map(QUERY_GAUSSIANS, RES).buf
+    # the panorama queries on the query map, views sharded
     view = query_pose(np, QUERY_VIEW)
     nodes = np.array(QUERY_NODES)
     rc.reset_launch_counts()
     scores = global_invisibility(qbuf, view, nodes, scale=0.5, mesh=mesh)
-    mesh_counts(rc, by_phase, "mesh global_invisibility", {b3: 2 * 3})
+    read_launches(rc, "mesh global_invisibility", {b3: 2 * 3})
     single = global_invisibility(qbuf, view, nodes, scale=0.5)
-    mesh_counts(rc, by_phase, "mesh reference global_invisibility", {b3: 2 * 3})
+    read_launches(rc, "mesh reference global_invisibility", {b3: 2 * 3})
     loc = local_invisibility(qbuf, view, mesh=mesh)
-    mesh_counts(rc, by_phase, "mesh local_invisibility", {b3: 3})
+    read_launches(rc, "mesh local_invisibility", {b3: 3})
     loc_s = local_invisibility(qbuf, view)
-    mesh_counts(rc, by_phase, "mesh reference local_invisibility", {b3: 3})
+    read_launches(rc, "mesh reference local_invisibility", {b3: 3})
     if scores != single or loc[0] != loc_s[0] or not np.array_equal(loc[2], loc_s[2]) or (
             (loc[1] is None) != (loc_s[1] is None)) or (
             loc[1] is not None and not np.array_equal(loc[1], loc_s[1])):
@@ -3793,52 +2746,8 @@ def mesh_phase(torch, np, rc, rt, card, by_phase, measure, bound) -> None:
     print(f"mesh panoramas ({QUERY_GAUSSIANS} Gaussians; 6 views over {MESH_SHARDS} shards, then "
           f"3): global_invisibility {scores} and local_invisibility (sum {loc[0]:.3f}) equal to "
           f"the unsharded queries bitwise")
-    del qbuf
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    print(f"phase 7 (the multi-device path on a virtual mesh) took "
-          f"{time.perf_counter() - t7:.1f} s")
-
-
-def driver_intrinsics(np, res: int):
-    """The episode's sensor (RGBDSensor.from_fov): 90 degrees hfov, square
-    pixels, cx = W/2 - 1."""
-    from activesplat_tpu_torch.utils.transforms import compute_intrinsics
-
-    fx, fy, cx, cy = compute_intrinsics(res, res, math.radians(90.0))
-    return np.array([[fx, 0.0, cx], [0.0, fy, cy], [0.0, 0.0, 1.0]])
-
-
-def driver_frames(np, world, intr, frames: int, res=None):
-    """The driver phase's frames at res x res (default RES), rendered up
-    front: from the hermetic
-    episode's start (make_synthetic_dataset's search for a free spot near
-    the room centre) three left turns of TURN_DEG, then one forward step of
-    FORWARD_STEP (skipped where blocked), over and over; each frame the
-    agent's camera (SyntheticDataset.camera_c2w) at CAMERA_HEIGHT."""
-    from activesplat_tpu_torch.utils.transforms import rot_axis
-
-    res = res or RES
-    sx, _, sz = world.size
-    pos = next(c for c in (np.array([sx / 2 + dx, 0.0, sz / 4])
-                           for dx in np.linspace(0, min(sx, sz) / 2 - 0.5, 8))
-               if world.is_free(c[[0, 2]], 0.2))
-    yaw, out = 0.0, []
-    for i in range(frames):
-        c2w = np.eye(4)
-        c2w[:3, :3] = np.diag([1.0, -1.0, -1.0])
-        c2w[:3, 3] = pos + [0.0, CAMERA_HEIGHT, 0.0]
-        c2w = rot_axis(c2w, "y", np.deg2rad(-yaw))
-        rgb, depth = world.render(c2w, intr, res, res, depth_max=10.0, depth_min=0.0)
-        out.append({"frame_id": i, "rgb": rgb, "depth": depth, "c2w": c2w})
-        if i % 4 == 3:
-            ahead = pos + FORWARD_STEP * np.array([-np.sin(np.deg2rad(yaw)), 0.0,
-                                                   -np.cos(np.deg2rad(yaw))])
-            if world.is_free(ahead[[0, 2]], 0.1):
-                pos = ahead
-        else:
-            yaw = (yaw + TURN_DEG) % 360
-    return out
 
 
 def main() -> int:
@@ -3859,9 +2768,6 @@ def main() -> int:
         return 2
     import numpy as np
 
-    if sys.argv[1:] == [MESH_TIMING_FLAG]:  # phase 7's child process
-        _build.build()
-        return mesh_timing(torch, np)
     t_start = time.perf_counter()
     # ---- phase 1: build, card ------------------------------------------ #
     card = nvidia_smi("name,power.limit")
@@ -3885,49 +2791,44 @@ def main() -> int:
                   f"memory a block, {occ['local_bytes']} B local, {occ['blocks_per_sm']} resident "
                   f"blocks of 256 threads a SM")
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    sfu_rate = SFU_PER_CLOCK_PER_SM * n_sm * max_sm_mhz * 1e6
-    int_rate = INT32_PER_CLOCK_PER_SM * n_sm * max_sm_mhz * 1e6
+    rates = {"sfu": SFU_PER_CLOCK_PER_SM * n_sm * max_sm_mhz * 1e6,
+             "int": INT32_PER_CLOCK_PER_SM * n_sm * max_sm_mhz * 1e6}
 
     # ---- phase 2: kernels against their twins -------------------------- #
-    tile_rejected = dict.fromkeys(TILE_SPLIT_FAULTS, 0)  # planted faults of B2's two passes
-    fwd_rejected = dict.fromkeys(TILE_FWD_FAULTS, 0)  # planted faults of B1's two passes
+    # the planted faults each pass's checks reject, counted over phases 2-5
+    rejected = {"B1": dict.fromkeys(TILE_FWD_FAULTS, 0), "B2": dict.fromkeys(TILE_SPLIT_FAULTS, 0),
+                "B3/B5": dict.fromkeys(SPLIT_FAULTS, 0), "B4": dict.fromkeys(B4_SPLIT_FAULTS, 0)}
     rows, u0, v0 = random_tiles(torch, seed=0)
-    errs, _ = kernel_checks(torch, rc, rows, u0, v0, "random tiles T=256 K=256", tile_rejected,
-                            fwd_rejected)
-    rows_p, u0_p, v0_p = random_tiles(torch, seed=1, k=192)  # K not a SEG multiple...
-    rows_p = torch.nn.functional.pad(rows_p, (0, 0, 0, 64))  # ...padded to 256
-    rows_p[:, 192:, 0:2] = -1e9
-    rows_p[:, 192:, 2:5] = 1.0
-    errs_p, _ = kernel_checks(torch, rc, rows_p.contiguous(), u0_p, v0_p, "padded K=192->256",
-                              tile_rejected, fwd_rejected)
+    kernel_checks(torch, rc, rows, u0, v0, "random tiles T=256 K=256", rejected["B2"],
+                  rejected["B1"])
+    rows, u0, v0 = random_tiles(torch, seed=1, k=192)  # K not a SEG multiple...
+    rows = torch.nn.functional.pad(rows, (0, 0, 0, 64))  # ...padded to 256
+    rows[:, 192:, 0:2] = -1e9
+    rows[:, 192:, 2:5] = 1.0
+    kernel_checks(torch, rc, rows.contiguous(), u0, v0, "padded K=192->256", rejected["B2"],
+                  rejected["B1"])
     # the driver's k=1,024: the fold spans 16 segments
-    rows_k, u0_k, v0_k = random_tiles(torch, seed=2, k=1024)
-    errs_k, (entry_k, g_acc_k, g_lt_k) = kernel_checks(torch, rc, rows_k, u0_k, v0_k,
-                                                        "random tiles T=256 K=1024", tile_rejected,
-                                                        fwd_rejected)
-    k1024_args = (rows_k, u0_k, v0_k, entry_k, g_acc_k, g_lt_k, N_CHANNELS)
-    for k in ("fwd", "bwd"):
-        errs[k] = max(errs[k], errs_p[k], errs_k[k])
-    if not all(fwd_rejected.values()):
+    rows, u0, v0 = random_tiles(torch, seed=2, k=1024)
+    kernel_checks(torch, rc, rows, u0, v0, "random tiles T=256 K=1024", rejected["B2"],
+                  rejected["B1"])
+    del rows, u0, v0
+    if not all(rejected["B1"].values()):
         raise AssertionError(f"a planted fault of B1's two passes never showed on the random "
-                             f"tiles: {fwd_rejected}")
-    if not all(tile_rejected.values()):
+                             f"tiles: {rejected['B1']}")
+    if not all(rejected["B2"].values()):
         raise AssertionError(f"a planted fault of B2's two passes never showed on the random "
-                             f"tiles: {tile_rejected}")
-    split_rejected = dict.fromkeys(SPLIT_FAULTS, 0)  # planted faults of the two passes
-    b4_rejected = dict.fromkeys(B4_SPLIT_FAULTS, 0)  # planted faults of B4's two passes
-    csr_errs, _ = csr_kernel_checks(torch, rc, random_csr_stream(torch, seed=0), 256,
-                                    "random CSR stream, 256 tiles", split_rejected,
-                                    bwd_rejected=b4_rejected)
-    if not all(b4_rejected.values()):
+                             f"tiles: {rejected['B2']}")
+    csr_kernel_checks(torch, rc, random_csr_stream(torch, seed=0), 256,
+                      "random CSR stream, 256 tiles", rejected["B3/B5"],
+                      bwd_rejected=rejected["B4"])
+    if not all(rejected["B4"].values()):
         raise AssertionError(f"a planted fault of B4's two passes never showed on the random "
-                             f"stream: {b4_rejected}")
-    dual_err, _, _, _ = dual_kernel_checks(torch, rc, random_dual_stream(torch, rc, seed=0), 256,
-                                           "random CSR stream with band bits, 256 tiles",
-                                           split_rejected)
-    if not all(split_rejected.values()):
+                             f"stream: {rejected['B4']}")
+    dual_kernel_checks(torch, rc, random_dual_stream(torch, rc, seed=0), 256,
+                       "random CSR stream with band bits, 256 tiles", rejected["B3/B5"])
+    if not all(rejected["B3/B5"].values()):
         raise AssertionError(f"a planted fault of the two passes never showed on the random "
-                             f"streams: {split_rejected}")
+                             f"streams: {rejected['B3/B5']}")
     from activesplat_tpu_torch.ops import raster_tiled as rt
 
     bin_rejected = dict.fromkeys(BIN_FAULTS, 0)
@@ -3949,736 +2850,100 @@ def main() -> int:
     del scene_b
     torch.cuda.synchronize()
     gather_entry = gather_bwd_checks(torch, rc, card)
-    gather_by_phase = {}  # phase -> the gather backward's launches
 
-    # ---- phase 3: the mapping slice at the benchmark's size ------------ #
-    from activesplat_tpu_torch.mapper.adam import AdamState
-    from activesplat_tpu_torch.mapper.keyframes import KeyframeStore
-    from activesplat_tpu_torch.mapper.step import (
-        first_frame_phase,
-        mapping_iteration,
-        mapping_phase,
-    )
-    from activesplat_tpu_torch.models.gaussians import GaussianBuffer
-    from activesplat_tpu_torch.ops.render import render
+    # ---- phase 3: the kernels on the main path's inputs at 256x256 ------ #
+    from activesplat_tpu_torch.queries.panorama import global_invisibility
+    from activesplat_tpu_torch.queries.topdown import render_topdown, topdown_config_from_bbox
     from activesplat_tpu_torch.runtime.bench_scene import build_map
-    from activesplat_tpu_torch.utils import tracing
     from activesplat_tpu_torch.utils.transforms import rot_axis
 
     scene = build_map(N_GAUSSIANS, RES, k_per_tile=K_PER_TILE)
-    buf, cam, cfg, c2w0 = scene.buf, scene.cam, scene.cfg, scene.c2w
-    rgb0, depth0 = scene.frame(c2w0)
-
-    by_phase = {}  # phase -> {kernel: launches}, counters set to 0 before each
-
-    def read_counts(phase, capped=0, csr=0, csr_bwd=None, dual=0, bins=0):
-        """Read and reset the counters; the phase must have launched B1 and
-        B2 `capped` times each, B3 `csr` times, B4 `csr_bwd` times (by
-        default as often as B3), B5 `dual` times and B6's two passes `bins`
-        times each."""
-        counts = {fn.__name__: fn.launches for fn in rc.KERNELS}
-        gathers = rc.gather_rows_bwd.launches
-        rc.reset_launch_counts()
-        by_phase[phase] = counts
-        gather_by_phase[phase] = gathers
-        expect = dict(zip(counts, (capped, capped, csr, csr if csr_bwd is None else csr_bwd, dual,
-                                   bins, bins)))
-        if counts != expect:
-            raise AssertionError(f"{phase}: kernel launches {counts}, not {expect}")
-        # a gather backward feeds each blend backward its table's gradient
-        backwards = expect["blend_tiles_bwd"] + expect["blend_csr_bwd"]
-        if gathers != backwards:
-            raise AssertionError(f"{phase}: {gathers} gather backward launches, not {backwards}")
-        return counts
-
-    rc.reset_launch_counts()
-    fresh = GaussianBuffer.empty(1 << 17)
-    fresh, n_drop, scene_radius = first_frame_phase(fresh, cam, rgb0, depth0, cfg)
-    read_counts("first_frame_phase")
-    n_init = int(fresh.num_active())
-    if n_init != int((depth0 > 0).sum()) or int(n_drop) != 0:
-        raise AssertionError(f"first_frame_phase inserted {n_init}, dropped {int(n_drop)}")
-    print(f"first_frame_phase: {n_init} Gaussians, scene radius {float(scene_radius):.3f} m")
-
-    store = KeyframeStore.empty(16, RES, RES)
-    gen = torch.Generator(device="cuda").manual_seed(0)
-
-    def event(ev, cfg_e, phase, capped=0, csr=0):
-        """One mapping_phase event of EVENT_ITERS iterations on a view
-        turned 4 degrees further per event, its launches read after it."""
-        nonlocal buf, store
-        c2w = rot_axis(c2w0, "y", np.deg2rad(4.0 * ev))
-        c2w[:3, 3] += [0.05 * ev, 0.0, 0.0]
-        rgb, depth = scene.frame(c2w)
-        w2c = torch.from_numpy(np.linalg.inv(c2w).astype(np.float32)).cuda()
-        rc.reset_launch_counts()
-        buf, store, met = mapping_phase(
-            buf, store, rgb, depth, w2c, ev, cam, gen, cfg_e, EVENT_ITERS
-        )
-        counts = read_counts(phase, capped, csr)
-        store.committed(rgb, depth, w2c, ev)
-        losses = met["loss"].cpu().numpy()
-        if not np.isfinite(losses).all():
-            raise AssertionError(f"{phase}: non-finite losses {losses}")
-        print(f"{phase}: losses {losses[0]:.5f} -> {losses[-1]:.5f}, "
-              f"psnr {float(met['psnr'][-1]):.3f}, dropped {int(met['dropped'].max())}, "
-              f"window {int(met['num_window'])}, launches {counts}")
-
-    def timed(cfg_e, iters, phase, capped=0, csr=0, bins=0):
-        """`iters` chained mapping_iterations from a fresh optimizer state;
-        returns (iterations/s by the host clock, the last metrics)."""
-        nonlocal buf
-        opt = AdamState.init(buf.params)
-        torch.cuda.synchronize()
-        rc.reset_launch_counts()
-        t0 = time.perf_counter()
-        acc = torch.zeros((), device="cuda")
-        for _ in range(iters):
-            buf, opt, m = mapping_iteration(buf, opt, cam, rgb0, depth0, cfg_e)
-            acc = acc + m["loss"] + 1e-20 * (m["psnr"] + m["depth_l1"])
-        final = float(acc)  # synchronises and reads the chain's value
-        dt = time.perf_counter() - t0
-        read_counts(phase, capped, csr, bins=bins)
-        if not math.isfinite(final):
-            raise AssertionError(f"{phase}: non-finite loss")
-        return iters / dt, m
-
-    def profile(cfg_e, iters, timed_its, tables):
-        state = [buf, AdamState.init(buf.params)]
-
-        def step():
-            state[0], state[1], out = mapping_iteration(state[0], state[1], cam, rgb0, depth0, cfg_e)
-            return out
-
-        profile_calls(torch, step, iters, 1000.0 / timed_its, card, "mapping_iteration", tables)
-
-    for ev in range(EVENTS):
-        event(ev, cfg, f"mapping_phase {ev}", capped=EVENT_ITERS)
-    opt = AdamState.init(buf.params)
-    rc.reset_launch_counts()
-    buf, opt, m = mapping_iteration(buf, opt, cam, rgb0, depth0, cfg)
-    read_counts("warm-up", capped=1)
-    its, m = timed(cfg, TIMED_ITERS, "timed", capped=TIMED_ITERS)
-    print(f"mapping_iters_per_sec@{N_GAUSSIANS}g_{RES}px = {its:.3f} "
-          f"({1000.0 / its:.3f} ms/iter, {TIMED_ITERS} iterations, loss "
-          f"{float(m['loss']):.5f}, dropped {int(m['dropped'])}) on {card}")
-    profile(cfg, PROFILE_ITERS, its, ("device", "host"))
-
-    # the same iterations with the bin kernel route on (B6 once per
-    # iteration), in turns with the sort route: sort (above), kernel,
-    # kernel, sort; the switch is flipped for these runs only
-    rt._BIN_KERNEL = True
-    try:
-        its_b = [timed(cfg, TIMED_ITERS, f"timed bin kernel {i}", capped=TIMED_ITERS,
-                       bins=TIMED_ITERS)[0] for i in (1, 2)]
-        profile(cfg, PROFILE_EXACT_ITERS, its_b[-1], ("device", "host"))
-    finally:
-        rt._BIN_KERNEL = False
-    its_s2, m = timed(cfg, TIMED_ITERS, "timed 2", capped=TIMED_ITERS)
-    print(f"mapping_iters_per_sec_bin_kernel@{N_GAUSSIANS}g_{RES}px = {sum(its_b) / 2:.3f} "
-          f"(runs {its_b[0]:.3f}, {its_b[1]:.3f}; the sort route's before and after: {its:.3f}, "
-          f"{its_s2:.3f}; {TIMED_ITERS} iterations each) on {card}")
-    small_scene_check(torch, np)
-
-    # ---- phase 3b: exact and hybrid training, the exact render ---------- #
-    # "on" trains every tile through B3/B4; B1/B2 launch only if the entry
-    # budget overflows (the fallback to the k-capped render), so their
-    # counts of 0 show that no fallback fired
-    cfg_on = dataclasses.replace(cfg, exact_training="on")
-    event(EVENTS, cfg_on, "mapping_phase exact_training=on", csr=EVENT_ITERS)
-    its_on, m = timed(cfg_on, EXACT_TIMED_ITERS, "timed exact_training=on", csr=EXACT_TIMED_ITERS)
-    print(f"mapping_iters_per_sec_exact_on@{N_GAUSSIANS}g_{RES}px = {its_on:.3f} "
-          f"({1000.0 / its_on:.3f} ms/iter, {EXACT_TIMED_ITERS} iterations, loss "
-          f"{float(m['loss']):.5f}) on {card}")
-    profile(cfg_on, PROFILE_EXACT_ITERS, its_on, ("device",))
-
-    # "hybrid" at k=64: every iteration has harmful tiles, so B3/B4 launch
-    # once per iteration; a CSR budget overflow would skip them (the
-    # fallback to the capped render), so B3 = B4 = 10 shows none fired
-    cfg_h = dataclasses.replace(cfg, exact_training="hybrid", k_per_tile=HYBRID_K)
-
-    def hybrid_counts():
-        return tracing.counter("hybrid.calls"), tracing.counter("hybrid.harmful_tiles")
-
-    def harmful_since(phase, calls, harmful):
-        calls_now, harmful_now = hybrid_counts()
-        per_iter = (harmful_now - harmful) / (calls_now - calls)
-        print(f"{phase}: {per_iter:.1f} harmful tiles per iteration, of {(RES // 16) ** 2}")
-        if per_iter <= 0:
-            raise AssertionError(f"{phase}: no harmful tile at k={HYBRID_K}")
-
-    phase = "mapping_phase exact_training=hybrid"
-    calls, harmful = hybrid_counts()
-    event(EVENTS + 1, cfg_h, phase, capped=EVENT_ITERS, csr=EVENT_ITERS)
-    harmful_since(phase, calls, harmful)
-    phase = "timed exact_training=hybrid"
-    calls, harmful = hybrid_counts()
-    its_h, m = timed(cfg_h, EXACT_TIMED_ITERS, phase, capped=EXACT_TIMED_ITERS, csr=EXACT_TIMED_ITERS)
-    harmful_since(phase, calls, harmful)
-    print(f"mapping_iters_per_sec_hybrid_k{HYBRID_K}@{N_GAUSSIANS}g_{RES}px = {its_h:.3f} "
-          f"({1000.0 / its_h:.3f} ms/iter, {EXACT_TIMED_ITERS} iterations, loss "
-          f"{float(m['loss']):.5f}, dropped {int(m['dropped'])}) on {card}")
-    profile(cfg_h, PROFILE_EXACT_ITERS, its_h, ("device",))
-
-    # the forward-only exact render: one launch of B3, without the stash
-    # (its output carries no autograd graph although the parameters ask
-    # for gradients, so BlendCSR saved nothing and B3 ran without the
-    # stash), giving the image of the "on" render's forward
-    grad_buf = buf.replace(params=buf.params.map(lambda x: x.detach().requires_grad_(True)))
-    rc.reset_launch_counts()
-    exact_img = render(grad_buf, cam, k_per_tile=K_PER_TILE, exact=True)
-    read_counts("render exact=True", csr=1, csr_bwd=0)
-    if exact_img.rgb.requires_grad:
-        raise AssertionError("render(exact=True) built an autograd graph")
-    on_img = render(grad_buf, cam, k_per_tile=K_PER_TILE, grad_exact=True)
-    gap = max(float((getattr(exact_img, f) - getattr(on_img, f).detach()).abs().max())
-              for f in ("rgb", "depth", "alpha"))
-    if gap > 1e-6 or int(exact_img.dropped) != 0:
-        raise AssertionError(f"render(exact=True) differs from the 'on' forward by {gap:.3e}")
-    print(f"render(exact=True): one B3 launch without the stash; rgb, depth and alpha "
-          f"within {gap:.3e} of the exact_training='on' render's forward")
-
-    for mode in ("on", "hybrid"):
-        small_scene_check(torch, np, exact_training=mode, k_per_tile=16)
-
-    # ---- phase 4a: the mapping kernels at the main path's rows ---------- #
-    rows, u0, v0 = main_path_rows(torch, buf, cam)
-    t, k, _ = rows.shape
-    errs_m, (entry, g_acc, g_lt) = kernel_checks(torch, rc, rows, u0, v0,
-                                                 f"main-path rows T={t} K={k}", tile_rejected,
-                                                 fwd_rejected)
-    walked, live, live_wr = pair_counts(torch, rc, rows, u0, v0, entry)
-    n_walked_seg = walked // (rc.SEG * rc.PX)
-    seg_bytes = rc.SEG * rc.N_ATTR * 4
-    px_bytes = t * rc.PX * 4
-    fwd_bytes = n_walked_seg * seg_bytes + 2 * t * 4 + px_bytes * (N_CHANNELS + 1 + k // rc.SEG)
-    bwd_bytes = n_walked_seg * seg_bytes + 2 * t * 4 + px_bytes * (k // rc.SEG + N_CHANNELS + 1) + t * k * rc.N_ATTR * 4
-    fwd_args = (rows, u0, v0, N_CHANNELS)
-    bwd_args = (rows, u0, v0, entry, g_acc, g_lt, N_CHANNELS)
-
-    def bound(nbytes, walked, live, live_f32, extra_f32=0, extra_sfu=0):
-        f32_ops = walked * WALKED_F32 + live * live_f32 + extra_f32
-        times = {
-            "bytes": nbytes / HBM_BYTES_PER_S * 1e3,
-            "operations": max(f32_ops / F32_FLOPS, (live * LIVE_SFU + extra_sfu) / sfu_rate) * 1e3,
-        }
-        by = max(times, key=times.get)
-        return times[by], by
-
-    print(f"main-path rows: {n_walked_seg} of {t * (k // rc.SEG)} segments walked, "
-          f"{walked} (row, pixel) pairs walked, {live} of them live ({live / walked:.4f}), "
-          f"{live_wr} of {walked // 32} warp-rows (B2's 8x4-pixel warps) hold a live pair "
-          f"({live_wr / (walked // 32):.4f})")
-    fwd_bound = bound(fwd_bytes, walked, live, live_f32_fwd(N_CHANNELS))
-    bwd_bound = bound(bwd_bytes, walked, live, live_f32_bwd(N_CHANNELS))
-
-    # the CSR pair at the stream of one exact render of the map
-    stream, n_tiles = main_path_csr(torch, buf, cam)
-    n_seg = stream[1].shape[0]
-    csr_errs_m, (c_entry, c_g_acc, c_g_lt) = csr_kernel_checks(
-        torch, rc, stream, n_tiles, f"main-path CSR stream, {n_seg} segments", split_rejected,
-        bwd_rejected=b4_rejected
-    )
-    c_seg, c_walked, c_live = csr_pair_counts(torch, rc, stream, c_entry, n_tiles)
-    visited = int(torch.unique(stream[1][stream[1] < n_tiles]).numel())
-    # bytes: the walked segments' rows, the per-tile segment ranges, the
-    # stash (written by B3, read by B4), the pixels' outputs or cotangents,
-    # and B4's gradient rows, every one of them written
-    c_seg_bytes = rc.CSEG * rc.N_ATTR * 4
-    stash_bytes = n_seg * rc.PX * 4
-    csr_fwd_bytes = (c_seg * c_seg_bytes + 2 * n_tiles * 4 + stash_bytes
-                     + n_tiles * rc.PX * 4 * (N_CHANNELS + 1))
-    csr_bwd_bytes = (c_seg * c_seg_bytes + 2 * n_tiles * 4 + stash_bytes
-                     + visited * rc.PX * 4 * (N_CHANNELS + 1) + n_seg * c_seg_bytes)
-    csr_args = (*stream, n_tiles, N_CHANNELS)
-    csr_bwd_args = (*stream, c_entry, c_g_acc, c_g_lt, n_tiles, N_CHANNELS)
-    print(f"main-path CSR stream: {c_seg} of {n_seg} segments walked, "
-          f"{csr_errs_m['segments'][0]} computed by pass 1 ({visited} tiles with entries), "
-          f"{c_walked} (row, pixel) pairs walked, {c_live} of them live ({c_live / c_walked:.4f})")
-
-    # "ms" is the kernel's own device time (profiler; B1-B5: both passes
-    # summed, each in "pass_ms"); "wrapper_ms" the time per call of 100
-    # back-to-back wrapper calls between CUDA events, which includes the
-    # wrapper's helper kernels and, where the host is slower than the
-    # device, its Python. "stream" names the inputs where a kernel is timed
-    # on two; its launches then count the phases that feed that stream.
-    measured = []
-
-    def measure(name, src, repl, run, plain, kernels, b_ms_by, err, plain_reps=5, **extra):
-        pass_ms = kernel_device_ms(torch, run, kernels, 20)
-        wrapper_ms = cuda_ms(run, 100)
-        plain_ms = cuda_ms(plain, plain_reps)
-        measured.append({
-            "name": name, "route": "cuda", "source": src, "replaces": repl,
-            "max_abs_err": err, "ms": sum(pass_ms.values()), "wrapper_ms": wrapper_ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms_by[0], "bound_by": b_ms_by[1],
-            "library_ms": None, **({"pass_ms": pass_ms} if len(kernels) > 1 else {}), **extra,
-        })
-        return measured[-1]
-
-    measure("blend_tiles_fwd", "activesplat_tpu_torch/csrc/blend_fwd.cu", FWD_REPLACES,
-            lambda: rc.blend_tiles_fwd(*fwd_args, with_entry=True),
-            lambda: rc.blend_tiles_fwd_plain(*fwd_args, with_entry=True), B1_PASSES,
-            fwd_bound, max(errs["fwd"], errs_m["fwd"]), occupancy=occupancy["B1"],
-            pairs={"walked": walked, "live": live, "live_warp_rows": live_wr,
-                   "warp_rows": walked // 32},
-            segments=dict(zip(("computed", "walked"), errs_m["segments"]), all=t * (k // rc.SEG)))
-    b1_entry = measured[-1]
-
-    def partials_variants(rows_r, u0_r, v0_r):
-        """B1's pass 1 device ms with every warp walking every row, and with
-        no row walked (its staging and stores alone)."""
-        return {name: kernel_device_ms(torch, lambda kw=kw: rc.tile_fwd_partials_cuda(
-            rows_r, u0_r, v0_r, N_CHANNELS, **kw), B1_PASSES[:1], 20)[B1_PASSES[0]]
-            for name, kw in (("partials_ms_without_reach_mask", {"reach": False}),
-                             ("partials_ms_walking_no_row", {"drop_warps": rc.ALL_WARPS}))}
-
-    b1_entry.update(partials_variants(rows, u0, v0))
-    measure("blend_tiles_bwd", "activesplat_tpu_torch/csrc/blend_bwd.cu", BWD_REPLACES,
-            lambda: rc.blend_tiles_bwd(*bwd_args), lambda: rc.blend_tiles_bwd_plain(*bwd_args),
-            B2_PASSES, bwd_bound, max(errs["bwd"], errs_m["bwd"]), occupancy=occupancy["B2"],
-            pairs={"walked": walked, "live": live, "live_warp_rows": live_wr,
-                   "warp_rows": walked // 32})
-    b2_entry = measured[-1]
-    b2_entry["walk_ms_without_row_skip"] = walk_without_row_skip(torch, rc, bwd_args)
-    # the same at the driver's k=1,024, on the random rows of phase 2
-    walked_k, live_k, live_wr_k = pair_counts(torch, rc, *k1024_args[:3], k1024_args[3])
-    t_k, k_k = k1024_args[0].shape[:2]
-    bytes_k = (walked_k // (rc.SEG * rc.PX) * seg_bytes + 2 * t_k * 4
-               + px_bytes * (k_k // rc.SEG + N_CHANNELS + 1) + t_k * k_k * rc.N_ATTR * 4)
-    b_ms_k, by_k = bound(bytes_k, walked_k, live_k, live_f32_bwd(N_CHANNELS))
-    pass_ms_k = kernel_device_ms(torch, lambda: rc.blend_tiles_bwd(*k1024_args), B2_PASSES, 20)
-    b2_entry["random_k1024"] = {
-        "ms": sum(pass_ms_k.values()), "pass_ms": pass_ms_k,
-        "wrapper_ms": cuda_ms(lambda: rc.blend_tiles_bwd(*k1024_args), 100),
-        "plain_ms": cuda_ms(lambda: rc.blend_tiles_bwd_plain(*k1024_args), 5),
-        "bound_ms": b_ms_k, "bound_by": by_k,
-        "walk_ms_without_row_skip": walk_without_row_skip(torch, rc, k1024_args),
-        "pairs": {"walked": walked_k, "live": live_k, "live_warp_rows": live_wr_k,
-                  "warp_rows": walked_k // 32}}
-    for label, e in (("main-path rows K=256", b2_entry), ("random rows K=1024", b2_entry["random_k1024"])):
-        pr = e["pairs"]
-        print(f"B2 on the {label}: kernel {e['ms']:.4f} ms {e['pass_ms']}, wrapper "
-              f"{e['wrapper_ms']:.4f} ms, twin {e['plain_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms "
-              f"({e['bound_by']}, {e['bound_ms'] / e['ms']:.3f} of it reached); the walk "
-              f"{e['walk_ms_without_row_skip']:.4f} ms without the warp-row skip; {pr['walked']} "
-              f"pairs walked, {pr['live']} live ({pr['live'] / pr['walked']:.4f}), live warp-rows "
-              f"{pr['live_warp_rows']} of {pr['warp_rows']} ({pr['live_warp_rows'] / pr['warp_rows']:.4f}) "
-              f"on {card}")
-    print(f"planted faults of B2's two passes rejected (tile rows): {tile_rejected}")
-    # B1 at the driver's k=1,024 on the same rows: the walked segments' rows,
-    # the origins, the pixels' outputs and the stash
-    fwd_k = (rows_k, u0_k, v0_k, N_CHANNELS)
-    fwd_bytes_k = (walked_k // (rc.SEG * rc.PX) * seg_bytes + 2 * t_k * 4
-                   + px_bytes * (N_CHANNELS + 1 + k_k // rc.SEG))
-    b1_ms_k, b1_by_k = bound(fwd_bytes_k, walked_k, live_k, live_f32_fwd(N_CHANNELS))
-    pass_ms_k = kernel_device_ms(torch, lambda: rc.blend_tiles_fwd(*fwd_k, with_entry=True),
-                                 B1_PASSES, 20)
-    b1_entry["random_k1024"] = {
-        "ms": sum(pass_ms_k.values()), "pass_ms": pass_ms_k,
-        "wrapper_ms": cuda_ms(lambda: rc.blend_tiles_fwd(*fwd_k, with_entry=True), 100),
-        "plain_ms": cuda_ms(lambda: rc.blend_tiles_fwd_plain(*fwd_k, with_entry=True), 5),
-        "bound_ms": b1_ms_k, "bound_by": b1_by_k,
-        **partials_variants(rows_k, u0_k, v0_k),
-        "pairs": b2_entry["random_k1024"]["pairs"],
-        "segments": dict(zip(("computed", "walked"), errs_k["segments"]), all=t_k * (k_k // rc.SEG))}
-    for label, e in (("main-path rows K=256", b1_entry), ("random rows K=1024", b1_entry["random_k1024"])):
-        pr, sg = e["pairs"], e["segments"]
-        print(f"B1 on the {label}: kernel {e['ms']:.4f} ms {e['pass_ms']}, wrapper "
-              f"{e['wrapper_ms']:.4f} ms, twin {e['plain_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms "
-              f"({e['bound_by']}, {e['bound_ms'] / e['ms']:.3f} of it reached); pass 1 "
-              f"{e['partials_ms_without_reach_mask']:.4f} ms without the reach mask, "
-              f"{e['partials_ms_walking_no_row']:.4f} ms walking no row; "
-              f"{sg['computed']} of {sg['all']} segments computed by pass 1 for {sg['walked']} "
-              f"walked; {pr['walked']} pairs walked, {pr['live']} live, live warp-rows "
-              f"{pr['live_warp_rows']} of {pr['warp_rows']} on {card}")
-    print(f"planted faults of B1's two passes rejected (tile rows): {fwd_rejected}")
-    del k1024_args, rows_k, entry_k, g_acc_k, g_lt_k, fwd_k
-    measure("blend_csr_fwd", "activesplat_tpu_torch/csrc/blend_csr_fwd.cu", CSR_FWD_REPLACES,
-            lambda: rc.blend_csr_fwd(*csr_args, with_entry=True),
-            lambda: rc.blend_csr_fwd_plain(*csr_args, with_entry=True), CSR_PASSES,
-            bound(csr_fwd_bytes, c_walked, c_live, live_f32_fwd(N_CHANNELS)),
-            max(csr_errs["fwd"], csr_errs_m["fwd"]), stream="training (main-path CSR stream)",
-            segments={"walked": c_seg, "computed": csr_errs_m["segments"][0], "all": n_seg})
-    measure("blend_csr_bwd", "activesplat_tpu_torch/csrc/blend_csr_bwd.cu", CSR_BWD_REPLACES,
-            lambda: rc.blend_csr_bwd(*csr_bwd_args), lambda: rc.blend_csr_bwd_plain(*csr_bwd_args),
-            B4_PASSES, bound(csr_bwd_bytes, c_walked, c_live, live_f32_bwd(N_CHANNELS)),
-            max(csr_errs["bwd"], csr_errs_m["bwd"]), occupancy=occupancy["B4"],
-            stream="training (main-path CSR stream)",
-            pairs={"walked": c_walked, "live": c_live})
-    b4_entry = measured[-1]
-    b4_pieces = rc.csr_bwd_pieces_cuda(*csr_bwd_args[:6], n_tiles, N_CHANNELS)
-    b4_entry["walk_ms_without_row_skip"] = kernel_device_ms(torch, lambda: rc.csr_bwd_walk_cuda(
-        *csr_bwd_args[:7], b4_pieces, n_tiles, N_CHANNELS, row_skip=False), B4_PASSES[1:],
-        20)[B4_PASSES[1]]
-    print(f"B4 on the main-path CSR stream: kernel {b4_entry['ms']:.4f} ms {b4_entry['pass_ms']}, "
-          f"wrapper {b4_entry['wrapper_ms']:.4f} ms, twin {b4_entry['plain_ms']:.4f} ms, bound "
-          f"{b4_entry['bound_ms']:.4f} ms ({b4_entry['bound_by']}, "
-          f"{b4_entry['bound_ms'] / b4_entry['ms']:.3f} of it reached); the walk "
-          f"{b4_entry['walk_ms_without_row_skip']:.4f} ms without the warp-row skip; "
-          f"{rc.N_PIECES * n_seg} blocks a pass on {card}")
-    print(f"planted faults of B4's two passes rejected (CSR streams): {b4_rejected}")
-    del b4_pieces
-    del rows, stream, entry, g_acc, g_lt, c_entry, c_g_acc, c_g_lt, fwd_args, bwd_args
-    del csr_args, csr_bwd_args
-
-    # B6 on the slot searches of the map's k-capped render: the bin inputs
-    # of its visible prefix, at offsets 0 and k (the multi-pass walk's second
-    # window)
-    seen = []
-    real_bin = rt.bin_gaussians
-    rt.bin_gaussians = lambda *a, **kw: seen.append(a) or real_bin(*a, **kw)
-    try:
-        with torch.no_grad():
-            render(buf, cam, k_per_tile=K_PER_TILE)
-    finally:
-        rt.bin_gaussians = real_bin
-    prefix, k_main = seen[0][:5], seen[0][5]
-    main_rejected = dict.fromkeys(BIN_FAULTS, 0)
-    main_split_rejected = dict.fromkeys(BIN_SPLIT_FAULTS, 0)
-    [(_, count_args, bin_args, bin_lists), _] = bin_checks(
-        torch, rc, rt, prefix, k_main, (0, k_main),
-        f"main-path bin, visible prefix of {prefix[0].shape[0]} splats", main_rejected,
-        main_split_rejected)
-    if not all(main_rejected.values()):
-        raise AssertionError(f"a planted bin fault never showed on the main path: {main_rejected}")
-    print(f"planted faults of B6's two passes rejected (main path): {main_split_rejected}")
-    counts_main = rc.bin_count_cuda(*count_args)[1]
-    b6_bb = bin_bound(torch, rc, count_args, bin_args, counts_main, bin_lists.indices, int_rate)
-    b6_run, b6_plain = b6_calls(torch, rc, count_args, bin_args)
-    measure("bin_slots", "activesplat_tpu_torch/csrc/bin_slots.cu", BIN_REPLACES, b6_run, b6_plain,
-            B6_PASSES, b6_bound_ms(b6_bb), 0.0)
-    b6_entry = measured[-1]
-    b6_ms = {"count": b6_entry["pass_ms"][B6_PASSES[0]], "slot": b6_entry["pass_ms"][B6_PASSES[1]]}
-    print_bin_bound(b6_bb, "main-path bin at offset 0", b6_ms, card)
-    b6_entry["bound_slot_search_ms"] = b6_bb["old"][0]
-    b6_entry["pass_bound_ms"] = {p: b6_bb[p][0] for p in ("count", "slot")}
-    b6_entry["trace"] = {}
-    for route, on in (("kernel", True), ("sort", False)):
-        b6_entry["trace"][route] = route_trace(
-            torch, lambda on=on: rt.bin_gaussians(*prefix, k_main, 0, use_kernel=on),
-            ROUTE_TRACE_CALLS, f"the {route} route, main-path bin (k={k_main}, offset 0)", card)
-    b6_entry.update(route_ms=cuda_ms(lambda: rt.bin_gaussians(*prefix, k_main, 0, use_kernel=True), 20),
-                    sort_route_ms=cuda_ms(lambda: rt.bin_gaussians(*prefix, k_main, 0,
-                                                                   use_kernel=False), 20))
-    print(f"main-path bin: the whole kernel route (tile bounds, count pass, cumsum, slot pass) "
-          f"{b6_entry['route_ms']:.4f} ms per call, the sort route {b6_entry['sort_route_ms']:.4f} ms "
-          f"per call (CUDA events, 20 calls) on {card}")
-    bin_inputs = {"main": tuple(x.cpu() if hasattr(x, "cpu") else x for x in prefix) + (k_main, 0)}
-    del seen, prefix, count_args, bin_args, bin_lists, counts_main
-
-    # ---- phase 3d: the per-frame mapper driver ------------------------- #
-    (b1_entry["driver_frame"], b2_entry["driver_frame"], b4_entry["driver_frame"],
-     b6_entry["driver_bin"]) = driver_phase(torch, np, rc, rt, card, by_phase, int_rate)
-    bin_inputs["driver"] = b6_entry["driver_bin"].pop("inputs")
-    BIN_INPUTS.parent.mkdir(parents=True, exist_ok=True)
-    torch.save(bin_inputs, BIN_INPUTS)
-    print(f"the main path's and the driver's bin inputs saved to {BIN_INPUTS} for "
-          f"scripts/bin_route_trace.py")
-
-    # ---- phase 3c: the planner's map queries at 1,000,000 Gaussians ----- #
-    from activesplat_tpu_torch.queries.panorama import global_invisibility, local_invisibility
-    from activesplat_tpu_torch.queries.topdown import (
-        FREE_OPACITY_THRESHOLD,
-        IncrementalTopdown,
-        _topdown_binary,
-        _topdown_dual,
-        render_topdown,
-        topdown_camera,
-        topdown_config_from_bbox,
-    )
-    from activesplat_tpu_torch.utils.tracing import format_stage_report, reset_stages, stage_report_io
-
-    del scene, buf, fresh, store, grad_buf, exact_img, on_img, rgb0, depth0
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
+    exact_render_check(torch, rc, scene.buf, scene.cam)
+    (rows, u0, v0), (stream, n_tiles), prefix = render_inputs(torch, rc, rt, scene.buf, scene.cam,
+                                                              K_PER_TILE)
+    where = f"main path {RES}x{RES}"
+    measured = tile_entries(torch, rc, rows, u0, v0, where, rejected, rates)
+    measured += csr_entries(torch, rc, stream, n_tiles, where, rejected, rates)
+    measured.append(bin_entry(torch, rc, rt, prefix, K_PER_TILE, where, rates, card))
+    # the bins of phases 3 and 5, on the host, as bin_gaussians takes them
+    bin_inputs = {where: tuple(x.cpu() if hasattr(x, "cpu") else x for x in prefix)
+                  + (K_PER_TILE, 0)}
+    del rows, u0, v0, stream, prefix
     qbuf = build_map(QUERY_GAUSSIANS, RES).buf
-    torch.cuda.synchronize()
-    print(f"query map: {QUERY_GAUSSIANS} Gaussians in a {qbuf.capacity}-slot buffer, built in "
-          f"{time.perf_counter() - t0:.1f} s")
-    torch.cuda.reset_peak_memory_stats()
-    base_mem = torch.cuda.memory_allocated()
     td_cfg = topdown_config_from_bbox(np.array(QUERY_BBOX), agent_foot=0.0, agent_head=1.5,
                                       pixel_max=360)
-    rc.reset_launch_counts()
-    free, unobs, free_alpha = render_topdown(qbuf, td_cfg)
-    read_counts("render_topdown", dual=1)
-    if free.shape != (td_cfg.height, td_cfg.width) or not 0 < free.mean() < 1 or not 0 < unobs.mean() < 1:
-        raise AssertionError(f"render_topdown: maps {free.shape}, free share {free.mean():.3f}, "
-                             f"unobserved share {unobs.mean():.3f}")
-    t0 = time.perf_counter()
-    for _ in range(QUERY_REPS):
-        render_topdown(qbuf, td_cfg)
-    topdown_ms = (time.perf_counter() - t0) / QUERY_REPS * 1e3
-    read_counts("render_topdown timed", dual=QUERY_REPS)
-    profile_calls(torch, lambda: render_topdown(qbuf, td_cfg), QUERY_REPS, topdown_ms, card,
-                  "render_topdown")
-    [(dual_stream, dual_tiles, _)] = capture_streams("blend_csr_dual_fwd",
-                                                     lambda: render_topdown(qbuf, td_cfg))
-    runs = torch.bincount(dual_stream[1][dual_stream[1] < dual_tiles].long(), minlength=dual_tiles)
-    print(f"topdown_query_ms@{QUERY_GAUSSIANS}g = {topdown_ms:.3f} ({QUERY_REPS} calls host to host, "
-          f"{td_cfg.width}x{td_cfg.height} px, free share {free.mean():.4f}, unobserved share "
-          f"{unobs.mean():.4f}) on {card}; its CSR stream: {dual_stream[0].shape[0]} entry rows, "
-          f"{dual_stream[1].shape[0]} segments over {dual_tiles} tiles, largest run "
-          f"{int(runs.max())} segments")
+    [(stream, n_tiles, _)] = capture_streams("blend_csr_dual_fwd",
+                                             lambda: render_topdown(qbuf, td_cfg))
+    measured.append(dual_entry(torch, rc, stream, n_tiles, f"top-down query, {QUERY_GAUSSIANS} "
+                               f"Gaussians", rejected, rates))
+    # the six views of one global_invisibility call (60x75 px in 4x5 tiles):
+    # unlike the mapping stream, their edge tiles never saturate and walk
+    # their whole run; B3 is held on the view with the most walked pairs
+    pano = capture_streams("blend_csr", lambda: global_invisibility(
+        qbuf, query_pose(np, QUERY_VIEW), np.array(QUERY_NODES), scale=0.5))
+    walked = [csr_pair_counts(torch, rc, st, rc.blend_csr_fwd(*st, nt, c, with_entry=True)[2],
+                              nt)[1] for st, nt, c in pano]
+    big = max(range(len(pano)), key=walked.__getitem__)
+    stream, n_tiles, c = pano[big]
+    measured += csr_entries(torch, rc, stream, n_tiles, f"panorama view {big} of {len(pano)}",
+                            rejected, rates, c=c, with_bwd=False)
+    del pano, stream
 
-    # the dual walk against the pair of exact renders (B3 twice) on the card
-    td_cam = topdown_camera(td_cfg)
-    foot, head = td_cfg.agent_foot, td_cfg.agent_head
-    dual_u8, dual_alpha = _topdown_dual(qbuf, td_cam, foot, head, (0, 0, td_cfg.width, td_cfg.height),
-                                        height_axis=td_cfg.height_axis, k_per_tile=K_PER_TILE)
-    pair_u8, _ = _topdown_binary(qbuf, td_cam, foot, head, height_axis=td_cfg.height_axis,
-                                 chunk=256, k_per_tile=K_PER_TILE)
-    full_rgb = render(qbuf, td_cam, bg=torch.ones(3, device="cuda"), scale_modifier=0.01,
-                      k_per_tile=K_PER_TILE, exact=True).rgb
-    differ = (dual_u8 != pair_u8).cpu().numpy()
-    edge_free = ((dual_alpha - FREE_OPACITY_THRESHOLD).abs() < 1e-5).cpu().numpy()
-    step = full_rgb.clamp(0, 1) * 255.0
-    edge_gray = ((step - step.round()).abs() < 255.0 * 1e-5).any(dim=-1).cpu().numpy()
-    allowed = np.stack([edge_free, edge_gray])
-    for m, v, u in np.argwhere(differ):
-        print(f"  pair oracle: {('free', 'unobserved')[m]} map differs at (v={v}, u={u}), "
-              f"a threshold-adjacent pixel: {bool(allowed[m, v, u])}")
-    if (differ & ~allowed).any():
-        raise AssertionError(f"the dual maps differ from the pair oracle at "
-                             f"{int((differ & ~allowed).sum())} pixels")
-    print(f"pair oracle: the dual maps equal the two exact renders' but for "
-          f"{int(differ.sum())} threshold-adjacent pixels")
-
-    # the incremental cache through five refreshes; the snapshot is a copy
-    eng = IncrementalTopdown(td_cfg)
-    snap_bytes = sum(x.numel() * x.element_size() for x in (*qbuf.params.tensors(), qbuf.active))
-
-    def refresh(phase, want, dual, buf_r):
-        rc.reset_launch_counts()
-        maps = eng.refresh(buf_r)
-        read_counts(phase, dual=dual)
-        if eng.stats[want] < 1:
-            raise AssertionError(f"{phase}: stats {eng.stats}, expected a {want!r} refresh")
-        return maps
-
-    reset_stages()
-    refresh("IncrementalTopdown first", "full_first", 1, qbuf)
-    refresh("IncrementalTopdown unchanged", "clean", 0, qbuf)
-    means = qbuf.params.means3d
-    ball = ((means - means[0]).norm(dim=1) < 0.4) & qbuf.active
-    means[ball] += 0.05  # written in place: the snapshot must be a copy
-    win_maps = refresh("IncrementalTopdown window", "window", 1, qbuf)
-    fresh_maps = render_topdown(qbuf, td_cfg)[:2]
-    if not all(np.array_equal(a, b) for a, b in zip(win_maps, fresh_maps)):
-        raise AssertionError("the window refresh differs from a fresh render_topdown")
-    means[qbuf.active] += 0.01
-    refresh("IncrementalTopdown global move", "full_oversize", 1, qbuf)
-    refresh("IncrementalTopdown grown", "full_growth", 1, qbuf.grown(2 * qbuf.capacity))
-    print(f"IncrementalTopdown: {int(ball.sum())} Gaussians moved in the ball; stats {eng.stats}; "
-          f"the window refresh equals a fresh render bitwise; snapshot copy {snap_bytes} bytes "
-          f"on the device")
-    # the refreshes' stages (host wall-clock, no synchronize) and their
-    # device-to-host copies; the fresh render_topdown fetches outside a stage
-    print("IncrementalTopdown stages:\n" + format_stage_report())
-    print(f"IncrementalTopdown device-to-host copies by stage: {stage_report_io()}")
-
-    # the panorama queries at bench.py's nodes and scale, and the local one
-    view = query_pose(np, QUERY_VIEW)
-    nodes = np.array(QUERY_NODES)
-    rc.reset_launch_counts()
-    scores = global_invisibility(qbuf, view, nodes, scale=0.5)
-    read_counts("global_invisibility", csr=2 * 3, csr_bwd=0)
-    t0 = time.perf_counter()
-    for _ in range(QUERY_REPS):
-        global_invisibility(qbuf, view, nodes, scale=0.5)
-    pano_ms = (time.perf_counter() - t0) / QUERY_REPS * 1e3
-    read_counts("global_invisibility timed", csr=QUERY_REPS * 2 * 3, csr_bwd=0)
-    profile_calls(torch, lambda: global_invisibility(qbuf, view, nodes, scale=0.5), 2, pano_ms,
-                  card, "global_invisibility", ("device", "host"))
-    if len(scores) != 2 or not all(math.isfinite(s[0]) and s[1] >= 0 for s in scores):
-        raise AssertionError(f"global_invisibility scores {scores}")
-    print(f"panorama_query_ms@{QUERY_GAUSSIANS}g_2nodes = {pano_ms:.3f} ({QUERY_REPS} calls host "
-          f"to host, scale 0.5) on {card}; scores {scores}")
-    rc.reset_launch_counts()
-    total, best, invis = local_invisibility(qbuf, view)
-    read_counts("local_invisibility", csr=3, csr_bwd=0)
-    if invis.shape != (150, 360) or not math.isfinite(total):
-        raise AssertionError(f"local_invisibility: {invis.shape}, sum {total}")
-    print(f"local_invisibility (scale 1.0): sum {total:.3f}, reorientation "
-          f"{'proposed' if best is not None else 'none'}")
-    peak_gib = (torch.cuda.max_memory_allocated() - base_mem) / 2**30
-    print(f"query phase peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
-          f"allocated ({peak_gib:.3f} GiB above the map) on {card}")
-    small_query_check(torch, np)
-
-    launches = {fn.__name__: sum(c[fn.__name__] for c in by_phase.values()) for fn in rc.KERNELS}
-    for name, count in launches.items():
-        if count == 0:
-            raise AssertionError(f"{name} was never launched on the main path")
-    print(f"main-path launches by phase: {by_phase}")
-
-    # ---- phase 4b: B5 on the top-down query's own stream ---------------- #
-    dual_err_m, d_entry, _, (d_computed, _) = dual_kernel_checks(
-        torch, rc, dual_stream, dual_tiles,
-        f"top-down CSR stream, {dual_stream[1].shape[0]} segments", split_rejected,
-        require_exit_fault=False)
-    d_seg, d_walked, d_live, d_band = dual_pair_counts(torch, rc, dual_stream, d_entry, dual_tiles)
-    print(f"top-down CSR stream: {d_seg} of {dual_stream[1].shape[0]} segments walked, {d_computed} "
-          f"computed by pass 1, {d_walked} (row, pixel) pairs walked, {d_live} of them live "
-          f"({d_live / d_walked:.4f}), {d_band} of those in the band")
-    # bytes: the walked segments' rows, the per-tile segment ranges and the
-    # pixels' outputs (C colours and two log-transmittances)
-    dual_bytes = (d_seg * rc.CSEG * rc.N_ATTR * 4 + 2 * dual_tiles * 4
-                  + dual_tiles * rc.PX * 4 * (DUAL_CHANNELS + 2))
-    dual_args = (*dual_stream, dual_tiles, DUAL_CHANNELS)
-    measure("blend_csr_dual_fwd", "activesplat_tpu_torch/csrc/blend_csr_dual.cu", DUAL_REPLACES,
-            lambda: rc.blend_csr_dual_fwd(*dual_args), lambda: rc.blend_csr_dual_fwd_plain(*dual_args),
-            CSR_PASSES,
-            # B3's count at C=3, plus the band's log1p and add per band-live pair
-            bound(dual_bytes, d_walked, d_live, live_f32_fwd(DUAL_CHANNELS), d_band, d_band),
-            max(dual_err, dual_err_m), plain_reps=2, stream="top-down query",
-            segments={"walked": d_seg, "computed": d_computed, "all": dual_stream[1].shape[0]})
-    dead_test_off(torch, rc, measured[-1], dual_stream, dual_tiles, DUAL_CHANNELS, True, card)
-    del dual_stream, dual_args, d_entry
-
-    # ---- phase 4c: B3 on the panorama views' own streams ---------------- #
-    # the six views of one global_invisibility call at 1M Gaussians (60x75
-    # px in 4x5 tiles): unlike the mapping stream, their edge tiles never
-    # saturate and walk their whole run. B4 never runs on this path.
-    t0 = time.perf_counter()
-    pano = capture_streams("blend_csr", lambda: global_invisibility(qbuf, view, nodes, scale=0.5))
-    if len(pano) != 2 * 3:
-        raise AssertionError(f"global_invisibility rendered {len(pano)} views, not 6")
-    pano_err, views = 0.0, []
-    for i, (p_stream, p_tiles, p_c) in enumerate(pano):
-        p_errs, (p_entry, _, _) = csr_kernel_checks(
-            torch, rc, p_stream, p_tiles, f"panorama view {i} CSR stream", split_rejected, c=p_c,
-            with_bwd=False)
-        pano_err = max(pano_err, p_errs["fwd"])
-        in_grid = p_stream[1][p_stream[1] < p_tiles].long()
-        views.append({"rows": p_stream[0].shape[0], "segments": p_stream[1].shape[0],
-                      "computed": p_errs["segments"][0],
-                      "run": int(torch.bincount(in_grid, minlength=p_tiles).max()),
-                      **dict(zip(("walked_seg", "walked", "live"),
-                                 csr_pair_counts(torch, rc, p_stream, p_entry, p_tiles)))})
-    del p_entry
-    total_v = {k: sum(v[k] for v in views) for k in views[0]}
-    print(f"panorama CSR streams (6 views, C={p_c}): {total_v['rows']} entry rows, "
-          f"{total_v['walked_seg']} of {total_v['segments']} segments walked, "
-          f"{total_v['computed']} computed by pass 1, largest run {max(v['run'] for v in views)} "
-          f"segments, {total_v['walked']} (row, pixel) pairs walked, {total_v['live']} of them live "
-          f"({total_v['live'] / total_v['walked']:.4f}); blend_csr_fwd max_abs_err {pano_err:.3e}; "
-          f"checked in {time.perf_counter() - t0:.1f} s")
-    # each view's kernel time (both passes); the view with the most walked
-    # pairs is measured in full as B3's panorama entry
-    view_ms = [sum(kernel_device_ms(torch, lambda: rc.blend_csr_fwd(*st, nt, c), CSR_PASSES,
-                                    10).values()) for st, nt, c in pano]
-    for i, v in enumerate(views):
-        print(f"  panorama view {i}: {v['segments']} segments, {v['walked_seg']} walked, "
-              f"{v['computed']} computed, largest run {v['run']}, {v['walked']} pairs walked, "
-              f"{v['live']} live; blend_csr_fwd {view_ms[i]:.4f} ms on {card}")
-    print(f"panorama views: blend_csr_fwd {sum(view_ms) / len(view_ms):.4f} ms a view on average "
-          f"(both passes, torch.profiler, 10 calls each) on {card}")
-    big = max(range(len(views)), key=lambda i: views[i]["walked"])
-    p_stream, p_tiles, p_c = pano[big]
-    v = views[big]
-    # bytes: the walked segments' rows, the per-tile segment ranges, the
-    # pixels' outputs (no stash: the panorama renders forward only)
-    pano_bytes = (v["walked_seg"] * rc.CSEG * rc.N_ATTR * 4 + 2 * p_tiles * 4
-                  + p_tiles * rc.PX * 4 * (p_c + 1))
-    measure("blend_csr_fwd", "activesplat_tpu_torch/csrc/blend_csr_fwd.cu", CSR_FWD_REPLACES,
-            lambda: rc.blend_csr_fwd(*p_stream, p_tiles, p_c),
-            lambda: rc.blend_csr_fwd_plain(*p_stream, p_tiles, p_c), CSR_PASSES,
-            bound(pano_bytes, v["walked"], v["live"], live_f32_fwd(p_c)), pano_err,
-            stream=f"panorama view {big}",
-            segments={"walked": v["walked_seg"], "computed": v["computed"], "all": v["segments"]})
-    dead_test_off(torch, rc, measured[-1], p_stream, p_tiles, p_c, False, card)
-    del pano, p_stream
-    print(f"planted faults of the CSR forward's two passes rejected (streams): {split_rejected}")
-
-    # ---- phase 5: the exploration episode -------------------------------- #
-    del qbuf
+    # ---- phase 4: the multi-device path on a virtual mesh --------------- #
+    # two frames of the map's room for LPIPS in phase 6
+    lpips_pair = [scene.world.render(rot_axis(scene.c2w, "y", np.deg2rad(a)), scene.intrinsics,
+                                     RES, RES)[0] for a in (0.0, 30.0)]
+    mesh_checks(torch, np, rc, scene, qbuf)
+    del scene, qbuf
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+
+    # ---- phase 5: the kernels at 512x512 --------------------------------- #
+    mapper, cam, td_cfg = high_res_map(torch, np)
+    (rows, u0, v0), (stream, n_tiles), prefix = render_inputs(torch, rc, rt, mapper.buf, cam,
+                                                              HIGH_K)
+    where = f"{HIGH_CONFIG} {HIGH_RES}x{HIGH_RES}"
+    measured += tile_entries(torch, rc, rows, u0, v0, where, rejected, rates)
+    measured += csr_entries(torch, rc, stream, n_tiles, where, rejected, rates)
+    [(d_stream, d_tiles, _)] = capture_streams("blend_csr_dual_fwd",
+                                               lambda: render_topdown(mapper.buf, td_cfg))
+    measured.append(dual_entry(torch, rc, d_stream, d_tiles, where, rejected, rates))
+    measured.append(bin_entry(torch, rc, rt, prefix, HIGH_K, where, rates, card))
+    bin_inputs[where] = tuple(x.cpu() if hasattr(x, "cpu") else x for x in prefix) + (HIGH_K, 0)
+    BIN_INPUTS.parent.mkdir(parents=True, exist_ok=True)
+    torch.save(bin_inputs, BIN_INPUTS)
+    print(f"the bins {sorted(bin_inputs)} saved to {BIN_INPUTS} for scripts/bin_route_trace.py")
+    del mapper, rows, u0, v0, stream, d_stream, prefix
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # ---- phase 6: the card against the CPU on small inputs -------------- #
     import tempfile
 
-    with tempfile.TemporaryDirectory() as episode_dir, tempfile.TemporaryDirectory() as small_dir:
-        episode_phase(torch, np, rc, rt, card, by_phase, episode_dir)
+    from activesplat_tpu_torch.runtime.synthetic import BoxWorld
+
+    small_scene_check(torch, np)
+    for mode in ("on", "hybrid"):
+        small_scene_check(torch, np, exact_training=mode, k_per_tile=16)
+    small_query_check(torch, np)
+    small_driver_check(torch, np, BoxWorld.two_room(seed=0))
+    with tempfile.TemporaryDirectory() as small_dir:
         small_episode_check(torch, np, card, small_dir)
-
-        # ---- phase 5b: the judges ------------------------------------------ #
-        t5b = time.perf_counter()
-        e_stream, e_tiles, e_frame = judges_phase(torch, np, rc, rt, card, by_phase, episode_dir)
-        from activesplat_tpu_torch.io.manifest import load_frame, load_manifest
-
-        gdir = Path(episode_dir) / "gaussians_data"
-        pair = [load_frame(str(gdir), e)[0] for e in load_manifest(str(gdir))["frames"][:11:10]]
-        lpips_check(torch, np, card, *pair)
         small_judges_check(torch, np, card, small_dir)
-    # B3 on the stream of one scored frame of the map-quality judge
-    e_errs, (e_entry, _, _) = csr_kernel_checks(
-        torch, rc, e_stream, e_tiles, f"eval render CSR stream (frame {e_frame}), "
-        f"{e_stream[1].shape[0]} segments", split_rejected, with_bwd=False)
-    e_seg, e_walked, e_live = csr_pair_counts(torch, rc, e_stream, e_entry, e_tiles)
-    print(f"eval render CSR stream: {e_stream[0].shape[0]} entry rows, {e_seg} of "
-          f"{e_stream[1].shape[0]} segments walked, {e_errs['segments'][0]} computed by pass 1, "
-          f"{e_walked} (row, pixel) pairs walked, {e_live} of them live "
-          f"({e_live / e_walked:.4f}); blend_csr_fwd max_abs_err {e_errs['fwd']:.3e}")
-    # bytes: the walked segments' rows, the per-tile segment ranges, the
-    # pixels' outputs (no stash: the judge renders forward only)
-    eval_bytes = (e_seg * rc.CSEG * rc.N_ATTR * 4 + 2 * e_tiles * 4
-                  + e_tiles * rc.PX * 4 * (N_CHANNELS + 1))
-    measure("blend_csr_fwd", "activesplat_tpu_torch/csrc/blend_csr_fwd.cu", CSR_FWD_REPLACES,
-            lambda: rc.blend_csr_fwd(*e_stream, e_tiles, N_CHANNELS),
-            lambda: rc.blend_csr_fwd_plain(*e_stream, e_tiles, N_CHANNELS), CSR_PASSES,
-            bound(eval_bytes, e_walked, e_live, live_f32_fwd(N_CHANNELS)), e_errs["fwd"],
-            plain_reps=2, stream=f"eval render, frame {e_frame}",
-            segments={"walked": e_seg, "computed": e_errs["segments"][0],
-                      "all": e_stream[1].shape[0]})
-    dead_test_off(torch, rc, measured[-1], e_stream, e_tiles, N_CHANNELS, False, card)
-    del e_stream, e_entry
-    print(f"phase 5b (the judges) took {time.perf_counter() - t5b:.1f} s")
-
-    # ---- phase 6: the Habitat path at 512x512 --------------------------- #
-    t6 = time.perf_counter()
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as habitat_dir:
-        hab = habitat_phase(torch, np, rc, rt, card, by_phase, habitat_dir)
-        habitat_coverage(np, card, habitat_dir)
-    habitat_kernels(torch, np, rc, rt, card, hab, measure, bound, int_rate)
+    lpips_check(torch, np, card, *lpips_pair)
     habitat_small_check(torch, np, card)
     native_raycast_check(np, card)
-    print(f"phase 6 (the Habitat path at {HABITAT_RES}x{HABITAT_RES}) took "
-          f"{time.perf_counter() - t6:.1f} s")
 
-    # ---- phase 7: the multi-device path on a virtual mesh ----------------- #
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    mesh_phase(torch, np, rc, rt, card, by_phase, measure, bound)
-
-    kernels = []
-    for entry_k in measured:
-        name = entry_k["name"]
-        # B3 is measured on three streams: each entry counts the phases of its own
-        split = "stream" in entry_k and name == "blend_csr_fwd"
-        kind = entry_k.get("stream", "").split()[0] if split else None
-        phases = {phase: c[name] for phase, c in by_phase.items() if c[name] and (
-            phase in entry_k["phases"] if "phases" in entry_k else phase not in (
-                HABITAT_PHASES + MESH_PHASES + MESH_REFERENCE_PHASES) and (
-                not split or {"panorama": phase in PANORAMA_PHASES,
-                              "eval": phase in EVAL_PHASES}.get(
-                    kind, phase not in PANORAMA_PHASES + EVAL_PHASES)))}
-        n_launches = sum(phases.values())
-        print(f"{name}{' (' + entry_k['stream'] + ')' if 'stream' in entry_k else ''}: "
-              f"max_abs_err={entry_k['max_abs_err']:.3e} kernel {entry_k['ms']:.4f} ms "
-              f"{entry_k.get('pass_ms', '')} (wrapper {entry_k['wrapper_ms']:.4f} ms per call), "
-              f"twin {entry_k['plain_ms']:.4f} ms, bound {entry_k['bound_ms']:.4f} ms "
-              f"({entry_k['bound_by']}, {entry_k['bound_ms'] / entry_k['ms']:.3f} of it reached), "
-              f"launches {n_launches} {phases} on {card}")
-        kernels.append({**entry_k, "launches": n_launches, "launches_by_phase": phases})
+    # ---- phase 7: the kernels' lines ------------------------------------- #
+    print(f"planted faults rejected over phases 2-5: {rejected}")
+    for e in measured:
+        print(f"{e['name']} ({e['stream']}): max_abs_err={e['max_abs_err']:.3e} kernel "
+              f"{e['ms']:.4f} ms {e['pass_ms']} (wrapper {e['wrapper_ms']:.4f} ms per call), twin "
+              f"{e['plain_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms ({e['bound_by']}, "
+              f"{e['bound_ms'] / e['ms']:.3f} of it reached) on {card}")
     torch.cuda.synchronize()
     print(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": kernels}))
-    gather_entry["launches_by_phase"] = {p: c for p, c in gather_by_phase.items() if c}
-    gather_entry["launches"] = sum(gather_by_phase.values())
+    print(json.dumps({"kernels": measured}))
     print(json.dumps({"gather_bwd": gather_entry}))
     print(json.dumps({
         "ok": True,

@@ -12,11 +12,11 @@ tree unpacked with `git archive` compares two versions in one run), then:
     share, the top operators by device and by host time), and times the
     same turns again after the profiler has run;
   - for each bin that chip_smoke.py saved in FILE (default
-    build/bin_route_inputs.pt: the main path's bin and the driver's last,
-    k=1,024), traces 20 calls of the kernel route and of the sort route of
-    `bin_gaussians` with chip_smoke.py's route_trace: each device
-    operation's launches and device ms a call, the host's operators, and
-    the host ms a call.
+    build/bin_route_inputs.pt: the bins of its k-capped renders at 256x256,
+    k=256, and at 512x512, k=1,024), traces ROUTE_TRACE_CALLS calls of the
+    kernel route and of the sort route of `bin_gaussians` (route_trace):
+    each device operation's launches and device ms a call, the host's
+    operators, and the host ms a call.
 Prints the card's name and power limit, and one JSON object of the numbers
 last. Needs one CUDA card; run chip_smoke.py first for FILE.
 """
@@ -29,6 +29,7 @@ import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent.parent
+ROUTE_TRACE_CALLS = 20
 
 
 def main() -> int:
@@ -58,9 +59,9 @@ def main() -> int:
         bin_in = tuple(x.cuda() if torch.is_tensor(x) else x for x in bin_in)
         k, off = bin_in[5], bin_in[6]
         out["bins"][name] = {
-            route: smoke.route_trace(
+            route: route_trace(
                 torch, lambda on=on: rt.bin_gaussians(*bin_in, use_kernel=on),
-                smoke.ROUTE_TRACE_CALLS, f"the {route} route, {name} bin (k={k}, offset {off})", card)
+                ROUTE_TRACE_CALLS, f"the {route} route, {name} bin (k={k}, offset {off})", card)
             for route, on in (("kernel", True), ("sort", False))}
     print(json.dumps(out))
     return 0
@@ -103,11 +104,87 @@ def iterations(torch, smoke, rt, card, iters):
     rates = {"before": turns("before any profiler session")}
     for route in ("sort", "kernel"):
         rt._BIN_KERNEL = route == "kernel"
-        smoke.profile_calls(torch, step, 10, 1000.0 / rates["before"][route][-1], card,
-                            f"mapping_iteration, {route} route", ("device", "host"))
+        profile_calls(torch, step, 10, 1000.0 / rates["before"][route][-1], card,
+                      f"mapping_iteration, {route} route")
     rates["after"] = turns("after the profiler sessions")
     rt._BIN_KERNEL = False
     return rates
+
+
+def device_kernels(prof) -> list:
+    """A trace's device activity, less the device-side spans of the tracing
+    stages (record_function ranges), which cover the kernels they enclose."""
+    from torch.autograd import DeviceType
+
+    from activesplat_tpu_torch.utils.tracing import stage_report
+
+    stages = set(stage_report())
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False) and e.name not in stages]
+
+
+def profile_calls(torch, fn, calls: int, timed_ms: float, card: str, label: str) -> None:
+    """Run `calls` calls of `fn` under torch.profiler; print the device's
+    busy time and idle share per call and the top operators by device and
+    host time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / calls * 1e3
+    kernels = device_kernels(prof)
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / calls
+    print(f"profile of {calls} {label} calls on {card}: wall {wall_ms:.3f} ms/call "
+          f"under the profiler ({timed_ms:.3f} without), device busy {busy_ms:.3f} ms/call "
+          f"in {len(kernels) / calls:.0f} kernels/call, idle share {1.0 - busy_ms / wall_ms:.3f} "
+          f"of the profiled wall time, {1.0 - busy_ms / timed_ms:.3f} of the unprofiled one")
+    averages = prof.key_averages()
+    for sort_by in ("self_device_time_total", "self_cpu_time_total"):
+        print(averages.table(sort_by=sort_by, row_limit=20))
+
+
+def route_trace(torch, run, calls: int, label: str, card: str) -> dict:
+    """A trace of `calls` calls of one bin route (`run`): every device
+    operation with its launches and device ms a call (torch.profiler), the
+    host's self ms a call of the operators that launch them, and the
+    host ms a call unprofiled (the calls enqueued back to back, then one
+    synchronize: "enqueue", and to its end: "wall")."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        run()
+    enqueue = (time.perf_counter() - t0) / calls * 1e3
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / calls * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            run()
+        torch.cuda.synchronize()
+    device = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
+            n_e, us = device.get(e.name, (0, 0.0))
+            device[e.name] = (n_e + 1, us + e.time_range.elapsed_us())
+    host = sorted(((a.self_cpu_time_total / calls / 1e3, a.key, a.count / calls)
+                   for a in prof.key_averages() if a.self_cpu_time_total > 0), reverse=True)
+    busy = sum(us for _, us in device.values()) / calls / 1e3
+    ops = sum(c for c, _ in device.values()) / calls
+    print(f"route trace, {label}: {ops:.1f} device operations a call, device busy {busy:.4f} ms a "
+          f"call; host {enqueue:.4f} ms a call to enqueue, {wall:.4f} ms to the end of the last "
+          f"({calls} calls, unprofiled) on {card}")
+    for name, (c, us) in sorted(device.items(), key=lambda x: -x[1][1]):
+        print(f"    device {us / calls / 1e3:9.4f} ms  {c / calls:5.1f}x  {name[:110]}")
+    for ms, key, c in host[:12]:
+        print(f"    host   {ms:9.4f} ms  {c:5.1f}x  {key[:110]}")
+    return {"device_ops": ops, "device_ms": busy, "host_enqueue_ms": enqueue, "host_wall_ms": wall}
 
 
 if __name__ == "__main__":

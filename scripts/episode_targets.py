@@ -9,17 +9,17 @@ targets went.
 The episode is `run_episode` at `make_synthetic_dataset`'s configuration
 (two_room seed 0, 256x256, MapperConfig(), pixel_max 360), cut to N steps
 (default 500, the uncut budget). By default it is the PyTorch port's on one
-CUDA card. With --bin_kernel the bin kernel route (B6) is on, as
-chip_smoke.py's episode phase runs it; with --deterministic PyTorch's
-deterministic algorithms are on (warn_only: the operators without one are
-listed on standard error). For a run on the CPU, --device cpu, a smaller
-sensor (--res) and --lean (a 16,384-to-131,072 Gaussian buffer, k_per_tile
-1,024 from the start, no exact online metrics) keep it to minutes; with
---package activesplat_tpu the JAX package runs the same episode (the
-planner's top-down map keeps its 360 px). With --poison BYTE the card's
-cached memory is filled with BYTE before the episode (about 7 GB, in blocks
-of the allocator's small and large pools, then freed): a read of memory no
-one wrote then shows as a different trajectory from a run without it.
+CUDA card. With --bin_kernel the bin kernel route (B6) is on; with
+--deterministic PyTorch's deterministic algorithms are on (warn_only: the
+operators without one are listed on standard error). For a run on the CPU,
+--device cpu, a smaller sensor (--res) and --lean (a 16,384-to-131,072
+Gaussian buffer, k_per_tile 1,024 from the start, no exact online metrics)
+keep it to minutes; with --package activesplat_tpu the JAX package runs the
+same episode (the planner's top-down map keeps its 360 px). With --poison
+BYTE the card's cached memory is filled with BYTE before the episode (about
+7 GB, in blocks of the allocator's small and large pools, then freed): a
+read of memory no one wrote then shows as a different trajectory from a run
+without it.
 
 Prints, as one JSON object on the last line (and into FILE if given): the
 wall, the Gaussian count, the explored free area, each planned target with

@@ -19,6 +19,8 @@ from activesplat_tpu.ops.raster_tiled import bin_gaussians as jax_bin
 from activesplat_tpu_torch.ops import raster_cuda, raster_tiled
 from activesplat_tpu_torch.ops.raster_tiled import bin_gaussians
 
+from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
+
 ROOT = Path(__file__).resolve().parent.parent
 
 # tests/test_raster_tiled.py:324-332's scenes: (n, width, height)

@@ -21,6 +21,8 @@ from activesplat_tpu.ops.raster_pallas import bin_slots_pallas
 from activesplat_tpu_torch.ops import raster_cuda as rc
 from activesplat_tpu_torch.ops.raster_tiled import tile_aabbs
 
+from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
+
 BLK = rc.BIN_BLOCK
 # chip_smoke.py's torch model of the CUDA slot pass, which the smoke also
 # holds against the kernel and plants its faults in

@@ -21,6 +21,8 @@ from activesplat_tpu_torch.mapper.splatam import SplaTAMMapper
 from activesplat_tpu_torch.utils import tracing
 from activesplat_tpu_torch.utils.transforms import rot_axis
 
+from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
+
 ROOT = Path(__file__).resolve().parent.parent
 
 

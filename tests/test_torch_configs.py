@@ -9,7 +9,6 @@ import glob
 import os
 
 import pytest
-import torch
 import yaml
 
 from activesplat_tpu import configs as jconfigs
@@ -17,17 +16,11 @@ from activesplat_tpu_torch import configs as tconfigs
 from activesplat_tpu_torch.configs.yaml_subset import YamlSubsetError, loads
 from tests.test_torch_habitat import env_dict
 
+from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
+
 SCENE_CONFIGS = ("synthetic", "synthetic_small", "gibson", "gibson_high_resolution",
                  "gibson_large", "mp3d", "mp3d_large")
 SCENE_LISTS = ("gibson_small", "gibson_big", "mp3d_small", "mp3d_big")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def test_yaml_reader_on_safe_dump():

@@ -12,6 +12,8 @@ from activesplat_tpu.ops.raster_pallas import _blend_csr_fwd_pallas
 from activesplat_tpu.ops.raster_pallas import blend_csr as jax_blend_csr
 from activesplat_tpu_torch.ops import raster_cuda as rc
 
+from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
+
 C = 5
 TILES_X, TILES_Y = 4, 2
 N_TILES = TILES_X * TILES_Y

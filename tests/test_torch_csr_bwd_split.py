@@ -23,6 +23,8 @@ import torch
 from activesplat_tpu.ops.raster_pallas import blend_csr as jax_blend_csr
 from activesplat_tpu_torch.ops import raster_cuda as rc
 
+from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
+
 TILES_X, TILES_Y = 4, 3
 N_TILES = TILES_X * TILES_Y
 PAD_ROW = np.array([-1e9, -1e9, 1.0, 1.0, 1.0] + [0.0] * 11, np.float32)
@@ -33,14 +35,6 @@ GRADUAL = 8  # saturates inside its first segment; its second is skipped
 PADDED = 7  # 40 members, padded to CSEG
 N_PAD_SEGMENTS = 2  # trailing segments keyed to the padding tile N_TILES
 REL_TOL = 1e-5
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def make_stream(rng, c):

@@ -22,6 +22,8 @@ from activesplat_tpu_torch.ops import raster_cuda as rc
 from tests.test_torch_csr import C, N_TILES, SATURATING, SEGMENTS, make_stream, torch_args
 from tests.test_torch_topdown import band_rows, dual_stream
 
+from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
+
 DUAL_C = 3
 
 

@@ -39,6 +39,8 @@ from tests.test_torch_mapper import (
     t,
 )
 
+from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
+
 
 def assert_same_slots(got, ref):
     np.testing.assert_array_equal(got["active"], ref["active"])

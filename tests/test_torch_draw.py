@@ -18,6 +18,8 @@ from activesplat_tpu_torch.planner import draw
 from activesplat_tpu_torch.planner import graph as pg
 from activesplat_tpu_torch.queries.clusters import outer_contours
 
+from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
+
 CASES = 200
 
 

@@ -73,6 +73,8 @@ from activesplat_tpu_torch.runtime.mapper_node import MapperNode
 from activesplat_tpu_torch.runtime.planner_fsm import PlannerFSM
 from activesplat_tpu_torch.runtime.synthetic import BoxWorld
 
+from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
+
 RES, STEPS, TURN = 48, 18, 45.0
 START = np.array([3.0, 0.0, 3.0])
 CFG = dict(initial_capacity=1 << 12, max_capacity=1 << 15, keyframe_capacity=64,
@@ -96,16 +98,6 @@ MP3D_SCENE = {"dataset": {"format": "synthetic", "scene_id": "two_room", "seed":
 MP3D_JAX_KNOBS = dict(step_num_as_visited=15, step_num_as_arrived=1.5, local_view_limit=4,
                       radius_num_as_rotated=3.0, max_pitch_angle=45.0,
                       obstacle_approx_precision_m=0.225)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread for the port's CPU episodes: the suite's workers
-    share the cores, and more threads only spin against the others."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def dataset(mod, world_cls, results_dir):

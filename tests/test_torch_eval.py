@@ -19,6 +19,8 @@ from activesplat_tpu.eval import metrics as jm
 from activesplat_tpu_torch.eval import lpips as tl
 from activesplat_tpu_torch.eval import metrics as tm
 
+from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
+
 RTOL, ATOL = 1e-5, 1e-6
 LPIPS_REL = 1e-4
 

@@ -32,6 +32,8 @@ from activesplat_tpu_torch.ops import render as trender
 from activesplat_tpu_torch.utils import tracing
 from tests.test_torch_raster import INTR, H, W, scene_buffers, t, tiled_inputs
 
+from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
+
 NAMES = ("mean2d", "conic", "opacity", "colors")
 REST = ("valid", "radius", "depth")
 

@@ -16,16 +16,9 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from activesplat_tpu_torch.ops import raster_cuda as rc
 from test_torch_tracing import gather_case
+from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
 
 N = 300  # the table's live rows; row N pads
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def ids_case(kind):

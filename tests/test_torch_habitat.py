@@ -17,7 +17,6 @@ import types
 
 import numpy as np
 import pytest
-import torch
 import yaml
 
 from activesplat_tpu.runtime import habitat_backend as jhb
@@ -40,16 +39,10 @@ from activesplat_tpu_torch.runtime.habitat_backend import (
     scene_mesh_urls,
 )
 
+from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
+
 ENV_YAML = os.path.join(CONFIG_DIR, "env", "activesplat_pointnav.yaml")
 RGB_ATOL = 1e-6
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def env_dict(width=48, height=48, turn=30.0, forward=0.065):

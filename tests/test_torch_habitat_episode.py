@@ -23,7 +23,6 @@ import os
 import jax
 import numpy as np
 import pytest
-import torch
 
 from activesplat_tpu.eval import replay as jreplay
 from activesplat_tpu.mapper.config import MapperConfig as JaxMapperConfig
@@ -42,16 +41,10 @@ from activesplat_tpu_torch.runtime.mock_habitat import BoxWorldSim, make_mock_si
 from tests.test_torch_episode import AREA_RTOL, CFG, GAUSSIAN_RTOL, current_frame_picks
 from tests.test_torch_habitat import write_env_yaml
 
+from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
+
 PARITY_STEPS, PARITY_TURN, PARITY_SCENE = 18, 45.0, "Elmira"
 COVERAGE_RTOL = 1e-12
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 MOCK_STEPS = 45  # tests/test_habitat_episode.py runs 60; 45 already translate the agent

@@ -25,6 +25,8 @@ from activesplat_tpu_torch.mapper.splatam import SplaTAMMapper
 from activesplat_tpu_torch.models.gaussians import GaussianBuffer, make_camera
 from activesplat_tpu_torch.ops import raster_cuda
 
+from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
+
 ROOT = Path(__file__).resolve().parent.parent
 PACKAGE = ROOT / "activesplat_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "activesplat_tpu", "cv2", "networkx", "sklearn", "PIL",

@@ -37,20 +37,13 @@ from activesplat_tpu_torch.runtime.dataloader import SimAction, action_to_twist
 from activesplat_tpu_torch.runtime.mapper_node import MapperNode
 from activesplat_tpu_torch.runtime.synthetic import BoxWorld
 
+from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
+
 COVERAGE_RTOL = 1e-12
 SCORE_RTOL, SCORE_ATOL = 1e-5, 1e-6
 SMALL_CFG = MapperConfig(initial_capacity=1 << 11, max_capacity=1 << 11, keyframe_capacity=16,
                          mapping_iters=2, map_every=2, kf_every=2, mapping_window_size=4,
                          chunk=128, k_per_tile=0, kf_select_pixels=64)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread: the suite's workers share the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def make_dataset(results_dir, step_num=40, mod=tdl, world_cls=BoxWorld):

@@ -16,6 +16,8 @@ from activesplat_tpu.ops.raster_pallas import (
 from activesplat_tpu_torch import _build
 from activesplat_tpu_torch.ops import raster_cuda as rc
 
+from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
+
 T, K, C = 6, 128, 5
 PAD_ROW = np.array([-1e9, -1e9, 1.0, 1.0, 1.0] + [0.0] * 11, np.float32)
 

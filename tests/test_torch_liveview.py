@@ -21,7 +21,6 @@ import urllib.request
 import cv2
 import numpy as np
 import pytest
-import torch
 
 from activesplat_tpu.io.recorder import RuntimeRecorder as JaxRecorder
 from activesplat_tpu.queries.topdown import topdown_config_from_bbox as jtopdown_cfg
@@ -44,18 +43,12 @@ from activesplat_tpu_torch.runtime.liveview import LiveView
 from activesplat_tpu_torch.runtime.mapper_node import MapperNode
 from activesplat_tpu_torch.runtime.synthetic import BoxWorld
 
+from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
+
 LABEL_ROWS = 20
 SMALL_CFG = MapperConfig(initial_capacity=1 << 11, max_capacity=1 << 11, keyframe_capacity=16,
                          mapping_iters=2, map_every=2, kf_every=2, mapping_window_size=4,
                          chunk=128, k_per_tile=0, kf_select_pixels=64)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture

@@ -48,6 +48,8 @@ from activesplat_tpu_torch.runtime.bench_scene import build_map
 from activesplat_tpu_torch.runtime.synthetic import BoxWorld
 from activesplat_tpu_torch.utils.transforms import rot_axis
 
+from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
+
 W, H = 64, 48
 FIELDS = ("means3d", "rgb", "quats", "logit_opacities", "log_scales")
 

@@ -21,26 +21,19 @@ import struct
 
 import numpy as np
 import pytest
-import torch
 
 from activesplat_tpu_torch.eval import replay as treplay
 from activesplat_tpu_torch.eval.mesh import read_mesh, sample_mesh_surface
 from activesplat_tpu_torch.runtime.dataloader import RGBDSensor, SimAction, SyntheticDataset
 from activesplat_tpu_torch.runtime.synthetic import BoxWorld
 
+from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
+
 WORLD = BoxWorld.two_room(seed=0)
 N_SAMPLES = 20_000
 ON_FACE_ATOL = 1e-6
 SIGMAS = 5
 COVERAGE_ATOL = 0.01
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def rects(world, disjoint=False):

@@ -40,6 +40,8 @@ from activesplat_tpu_torch.runtime.offline_fit import fit_offline
 from activesplat_tpu_torch.runtime.synthetic import BoxWorld
 from activesplat_tpu_torch.utils import OPENCV_TO_OPENGL, GlobalState
 
+from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
+
 SMALL = dict(initial_capacity=1 << 11, max_capacity=1 << 11, keyframe_capacity=16,
              mapping_iters=2, map_every=2, kf_every=2, mapping_window_size=4, chunk=128,
              k_per_tile=0, kf_select_pixels=64)
@@ -49,15 +51,6 @@ FIT_STRIDE = 4
 FIT_RTOL = 1e-5
 GAUSSIAN_RTOL = 2e-3
 SCRIPT = [SimAction.TURN_LEFT] * 6 + [SimAction.MOVE_FORWARD] * 2
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread: the suite's workers share the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def make_dataset(results_dir, step_num=8):

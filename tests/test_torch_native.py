@@ -10,22 +10,15 @@ rather than falling back."""
 
 import numpy as np
 import pytest
-import torch
 
 from activesplat_tpu.runtime import native_raycast as jnative
 from activesplat_tpu_torch.runtime import native_raycast as tnative
 from activesplat_tpu_torch.runtime.synthetic import BoxWorld
 from activesplat_tpu_torch.utils.transforms import rot_axis
 
+from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
+
 ATOL = 1e-4
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def pose(center, yaw_deg, pitch_deg=0.0):

@@ -60,16 +60,9 @@ from tests.test_torch_mapper import (
 from tests.test_torch_queries import node_c2w, pose
 from tests.test_torch_topdown import port_buffer
 
+from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
+
 FIELDS = ("means3d", "rgb", "quats", "logit_opacities", "log_scales")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One torch thread: the suite's workers share the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def t(x):

@@ -21,6 +21,8 @@ from activesplat_tpu_torch.planner import occupancy as tocc
 from activesplat_tpu_torch.planner import voronoi as tvor
 from activesplat_tpu_torch.runtime.synthetic import BoxWorld
 
+from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
+
 
 def world_occupancy(world: BoxWorld, pixels_per_meter=10.0):
     """Ground-truth occupancy: free=255 where the agent fits (as

@@ -48,6 +48,8 @@ from activesplat_tpu_torch.utils import tracing
 from activesplat_tpu_torch.utils.transforms import rot_axis
 from tests.test_torch_planner_fsm import MovingWorld
 
+from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
+
 ROOT = Path(__file__).resolve().parents[1]
 MP3D_LARGE = load_scene_config("mp3d_large")
 BLOCK = MP3D_LARGE["planner"]
@@ -60,14 +62,6 @@ JAX_KNOBS = dict(step_num_as_visited=15, step_num_as_arrived=1.5, local_view_lim
                  obstacle_approx_precision_m=0.225)
 # to the arrival at tick 99 and the refinement after it, 4 views at most
 SIDE_BY_SIDE_TICKS = 125
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)

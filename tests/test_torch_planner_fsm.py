@@ -30,6 +30,8 @@ from activesplat_tpu_torch.utils import GlobalState
 from activesplat_tpu_torch.utils.transforms import rot_axis
 from tests.test_planner_fsm import GRID, ScriptedWorld, plus_corridor_map, pose_c2w
 
+from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
+
 
 def make_fsm(tmp_path, free_map=None, **kwargs):
     bus = Bus()

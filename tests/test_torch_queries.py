@@ -35,6 +35,8 @@ from activesplat_tpu_torch.queries import topdown as ttd
 from tests.test_queries import buffer_from_points, world_topdown_cfg
 from tests.test_torch_topdown import CFG_FIELDS, port_buffer
 
+from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
+
 SHAPE = (150, 360)
 
 

@@ -27,6 +27,8 @@ from activesplat_tpu_torch.ops.render import render
 from activesplat_tpu_torch.utils import transforms as ttransforms
 from tests.reference_impl import random_scene
 
+from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
+
 W, H = 64, 48
 FX = FY = 40.0
 CX, CY = W / 2 - 1, H / 2 - 1

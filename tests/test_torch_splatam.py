@@ -47,6 +47,8 @@ from activesplat_tpu_torch.utils.transforms import rot_axis
 from tests.test_overflow import make_intrinsics as intrinsics32
 from tests.test_torch_mapper import FIELDS, jax_to_numpy, numpy_to_jax
 
+from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
+
 W = H = 64
 
 

@@ -22,6 +22,8 @@ from activesplat_tpu.ops.raster_pallas import blend_tiles as jax_blend_tiles
 from activesplat_tpu_torch.ops import raster_cuda as rc
 from tests.test_torch_kernels import C, PAD_ROW, T, assert_clear_of_eps
 
+from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
+
 LANES, N_COLS = 32, 16  # a warp; the values a lane feeds the butterfly
 
 

@@ -22,6 +22,8 @@ from activesplat_tpu_torch.ops import raster_cuda as rc
 from tests.test_torch_kernels import C, T, assert_clear_of_eps
 from tests.test_torch_tile_bwd_split import make_rows
 
+from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
+
 
 def rows_at(seed, case, k):
     return tuple(torch.from_numpy(x) for x in make_rows(np.random.default_rng(seed), case, k))

@@ -30,6 +30,8 @@ from tests.test_torch_csr import N_TILES, SATURATING, SEGMENTS, make_stream
 from tests.test_torch_exact import NAMES, REST, cluster_inputs
 from tests.test_torch_raster import H, W, t
 
+from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
+
 CFG_FIELDS = ("height_axis", "world_dim_index", "world_2d_bbox", "grid_shape",
               "meter_per_pixel", "world_center", "agent_foot", "agent_head")
 

@@ -29,19 +29,13 @@ from activesplat_tpu_torch.runtime.launch import run_episode
 from activesplat_tpu_torch.runtime.synthetic import BoxWorld
 from activesplat_tpu_torch.utils import tracing
 
+from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
+
 ROOT = Path(__file__).resolve().parents[1]
 RENDER_SPANS = ("render/project", "render/prepare", "render/bin", "render/gather",
                 "render/blend", "render/harmful", "render/csr_layout", "render/csr_blend",
                 "render/gather_bwd")
 MAPPER_SPANS = ("mapper/loss", "mapper/grad", "mapper/adam")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)
